@@ -1,0 +1,14 @@
+"""Plain PyTorch oracles for the kernels."""
+from __future__ import annotations
+
+import torch
+
+
+def bloom_decode_ref(logp: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+    """logp (B, m); H (d, k) -> scores (B, d) with
+    scores[b, i] = sum_j logp[b, H[i, j]], summed in j order."""
+    h = H.long()
+    scores = logp[:, h[:, 0]]
+    for j in range(1, H.shape[1]):
+        scores = scores + logp[:, h[:, j]]
+    return scores
