@@ -47,21 +47,6 @@ def _check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def _time_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _max_abs_err(a, b) -> float:
     import torch
     both = torch.isfinite(a) & torch.isfinite(b)
@@ -102,12 +87,13 @@ def phase_kernels(torch, dt, common, bloom, get_retrieval_config):
                        torch.arange(topk, dtype=torch.int32).expand(B, topk)),
            "a full tie must return ids 0..topk-1")
 
-    ms = _time_ms(lambda: dt.bloom_decode_topk_cuda(logp, H, topk), 50, 5)
-    ms_partial = _time_ms(
+    time_ms = common.time_ms
+    ms = time_ms(lambda: dt.bloom_decode_topk_cuda(logp, H, topk), 50, 5)
+    ms_partial = time_ms(
         lambda: dt.bloom_decode_topk_cuda(logp, H, topk, partial), 50, 5)
-    plain_ms = _time_ms(lambda: dt.bloom_decode_topk_plain(logp, H, topk), 3)
+    plain_ms = time_ms(lambda: dt.bloom_decode_topk_plain(logp, H, topk), 3)
     Hl = H.long()
-    library_ms = _time_ms(lambda: torch.topk(logp[:, Hl].sum(-1), topk), 3)
+    library_ms = time_ms(lambda: torch.topk(logp[:, Hl].sum(-1), topk), 3)
     nbytes = dt.min_bytes(B, B, m=m, d=d, k=k, topk=topk)
     ops = d * B * (k - 1)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3

@@ -142,6 +142,9 @@ def bloom_decode_topk_cuda(logp: torch.Tensor, H: torch.Tensor, topk: int,
         raise ValueError("logp and H must be contiguous")
     B, m = logp.shape
     d, k = H.shape
+    if k == 2 and H.data_ptr() % 8:
+        raise ValueError("k = 2 needs H on an 8-byte boundary (the kernel "
+                         "loads each row as one int2)")
     if d >= 2 ** 31 or B >= 2 ** 31:
         raise ValueError(f"need d, B < 2**31, got d={d} B={B}")
     if m > MAX_M:
@@ -194,8 +197,10 @@ def _groups(device: torch.device, B: int, d: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = common.load_library(NAME)
+def _library(defines: tuple = ()) -> ctypes.CDLL:
+    """The built kernel; ``defines`` (``-D`` flags) select a tuning
+    variant, as ``sweep_decode_topk`` does."""
+    lib = common.load_library(NAME, defines)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bloom_decode_topk_f32.argtypes = [p, p, p, p, p, p, p,
                                           i, i, i, i, i, i, p]

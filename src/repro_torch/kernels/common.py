@@ -79,10 +79,11 @@ def kernel_names() -> list:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple = ()) -> Path:
     """Build output of ``csrc/<name>.cu``, keyed on its source, the shared
-    headers in csrc/ and the flags, so an edit always rebuilds."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers in csrc/, the flags and the ``-D`` defines, so an edit always
+    rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -101,22 +102,24 @@ def _nvcc() -> str:
     return found
 
 
-def build(names: Iterable[str] | None = None) -> Dict[str, float]:
+def build(names: Iterable[str] | None = None,
+          defines: tuple = ()) -> Dict[str, float]:
     """Compile every named kernel not yet built, one ``nvcc`` per source,
-    all started together.  Returns seconds per kernel built (0.0 for one
-    already built); raises with the compiler's output when one fails.
-    The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside each library as ``<library>.log``."""
+    all started together, with the extra ``-D`` flags ``defines``.
+    Returns seconds per kernel built (0.0 for one already built); raises
+    with the compiler's output when one fails.  The compiler's report
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
+    library as ``<library>.log``."""
     names = kernel_names() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, times = {}, {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists():
             times[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -136,7 +139,23 @@ def build(names: Iterable[str] | None = None) -> Dict[str, float]:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
+def load_library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """``csrc/<name>.cu`` as a loaded library, built first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    build([name], defines)
+    return ctypes.CDLL(str(library_path(name, defines)))
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds of one ``fn()`` on the current CUDA stream, timed
+    with CUDA events after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

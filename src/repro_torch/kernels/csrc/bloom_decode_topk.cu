@@ -45,8 +45,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// H loads a thread keeps in flight in pass 1
-constexpr int kUnroll = 4;
+// H loads a thread keeps in flight in pass 1 (-D to tune it, see
+// kernels/sweep_decode_topk.py)
+#ifndef BLOOM_DECODE_TOPK_UNROLL
+#define BLOOM_DECODE_TOPK_UNROLL 4
+#endif
+constexpr int kUnroll = BLOOM_DECODE_TOPK_UNROLL;
 // pass-1 iterations each thread scores before its block sets the threshold
 constexpr int kSampleIters = 32;
 constexpr int kSentinelId = 0x7fffffff;  // loses every tie to a real id

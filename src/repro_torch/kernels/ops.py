@@ -13,30 +13,22 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import quant
 from repro_torch.core.bloom import BloomSpec, cached_hash_matrix
 from repro_torch.kernels.bloom_decode_topk import \
     bloom_decode_topk as _decode_topk
 
 
 def bloom_decode_topk(logp: torch.Tensor, spec: BloomSpec, topk: int,
-                      hash_matrix: torch.Tensor | None = None,
-                      active: torch.Tensor | None = None,
-                      table_dtype: str | None = None):
-    """logp (..., m) -> fused Eq. 3 + top-k: (values, ids), each (..., topk).
+                      active: torch.Tensor | None = None):
+    """logp (..., m) f32 -> fused Eq. 3 + top-k: (values, ids), each
+    (..., topk).
 
     Never materializes the (..., d) recovered-score matrix.  ``active``
-    (...,) bool skips dead rows, which return (-inf, 0).  Only the f32
-    path (``table_dtype=None``) is ported; a quantized table raises.
+    (...,) bool skips dead rows, which return (-inf, 0).
     """
-    if quant.resolve_table_dtype(table_dtype) is not None:
-        raise NotImplementedError(
-            "quantized decode-topk (table_dtype) is not ported yet; serve "
-            "with table_dtype=None")
     lead = logp.shape[:-1]
     flat = logp.reshape(-1, logp.shape[-1]).float().contiguous()
     act = None if active is None else active.reshape(-1)
-    H = (hash_matrix if hash_matrix is not None
-         else cached_hash_matrix(spec, logp.device))
-    vals, ids = _decode_topk(flat, H, topk, active=act)
+    vals, ids = _decode_topk(flat, cached_hash_matrix(spec, logp.device),
+                             topk, active=act)
     return vals.reshape(*lead, topk), ids.reshape(*lead, topk)

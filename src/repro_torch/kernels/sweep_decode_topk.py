@@ -2,9 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.kernels.sweep_decode_topk
 
-Builds copies of ``csrc/bloom_decode_topk.cu`` with ``kUnroll`` (H loads a
-pass-1 thread keeps in flight) set to 1, 2, 4, 8 and 16, one nvcc each, all
-started together, under ``build/kernels/sweep/``.  For each copy and each
+Builds ``csrc/bloom_decode_topk.cu`` with ``BLOOM_DECODE_TOPK_UNROLL`` (H
+loads a pass-1 thread keeps in flight) defined as 1, 2, 4, 8 and 16, one
+build each under ``build/kernels/``.  For each build and each
 catalog group count G it times the kernel at web10m shapes (B = 8,
 m = 8192, d = 10M, k = 2, topk = 10) with every row live and with rows
 0, 3, 7 live, with CUDA events, and checks it bit-identical to the plain
@@ -14,8 +14,6 @@ the card's name and power limit.  Needs a CUDA device.
 """
 from __future__ import annotations
 
-import ctypes
-import re
 import subprocess
 
 import torch
@@ -27,46 +25,6 @@ from repro_torch.kernels import common
 
 UNROLLS = (1, 2, 4, 8, 16)
 GROUPS = (33, 66, 132, 264, 528)
-
-
-def _time_ms(fn, iters: int = 30) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _build_variants() -> dict:
-    src = (common.CSRC_DIR / f"{dt.NAME}.cu").read_text()
-    out_dir = common.BUILD_DIR / "sweep"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for u in UNROLLS:
-        cu = out_dir / f"unroll{u}.cu"
-        cu.write_text(re.sub(r"constexpr int kUnroll = \d+;",
-                             f"constexpr int kUnroll = {u};", src))
-        so = out_dir / f"unroll{u}.so"
-        procs[u] = (so, subprocess.Popen(
-            [common._nvcc(), *common.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for u, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for unroll {u}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bloom_decode_topk_f32.argtypes = [p] * 7 + [i] * 6 + [p]
-        lib.bloom_decode_topk_f32.restype = i
-        libs[u] = lib
-    return libs
 
 
 def main() -> None:
@@ -86,7 +44,8 @@ def main() -> None:
     vals = torch.empty((B, topk), device=dev)
     ids = torch.empty((B, topk), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    for u, lib in _build_variants().items():
+    for u in UNROLLS:
+        lib = dt._library((f"-DBLOOM_DECODE_TOPK_UNROLL={u}",))
         for G in GROUPS:
             part_v = torch.empty((G, B, topk), device=dev)
             part_i = torch.empty((G, B, topk), dtype=torch.int32, device=dev)
@@ -102,7 +61,7 @@ def main() -> None:
                     if err:
                         raise RuntimeError(f"launch failed: CUDA error {err}")
 
-                ms = _time_ms(run)
+                ms = common.time_ms(run, 30, 3)
                 if not (torch.equal(vals, want[live][0])
                         and torch.equal(ids, want[live][1])):
                     raise AssertionError(
@@ -111,7 +70,8 @@ def main() -> None:
             print(f"sweep: unroll {u} groups {G}: " + ", ".join(line)
                   + " (bit-identical)", flush=True)
     for t in (1, 10, 64):
-        ms = _time_ms(lambda: dt.bloom_decode_topk_cuda(logp, H, t))
+        ms = common.time_ms(lambda: dt.bloom_decode_topk_cuda(logp, H, t),
+                            30, 3)
         print(f"sweep: shipped kernel topk {t}: {ms:.6f} ms", flush=True)
     log = common.library_path(dt.NAME).with_suffix(".so.log").read_text()
     for ln in log.splitlines():

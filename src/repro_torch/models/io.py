@@ -16,25 +16,18 @@ from repro_torch.core.bloom import BloomSpec
 from repro_torch.kernels import ops
 
 
-def recover_topk_spec(spec: Optional[BloomSpec], logits: torch.Tensor,
+def recover_topk_spec(spec: BloomSpec, logits: torch.Tensor,
                       topk: int = 16, *,
-                      active: Optional[torch.Tensor] = None,
-                      table_dtype: Optional[str] = None):
+                      active: Optional[torch.Tensor] = None):
     """Top-k recovery keyed by a BloomSpec: (scores, ids), each
     (..., topk).
 
     Equal Eq. 3 scores resolve to the lowest item id, as on every decode
-    path of the JAX package.  ``spec=None`` ranks the logits themselves
-    (a dense vocab).  ``active`` (...,) bool masks retired rows to
+    path of the JAX package.  ``active`` (...,) bool masks retired rows to
     scores=-inf / ids=0 and lets the kernel skip them.
     """
-    if spec is None:
-        srt, order = torch.sort(logits, dim=-1, descending=True, stable=True)
-        scores, ids = srt[..., :topk], order[..., :topk].to(torch.int32)
-    else:
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        scores, ids = ops.bloom_decode_topk(logp, spec, topk, active=active,
-                                            table_dtype=table_dtype)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    scores, ids = ops.bloom_decode_topk(logp, spec, topk, active=active)
     if active is not None:
         live = active[..., None].to(torch.bool)
         scores = torch.where(live, scores, -torch.inf)

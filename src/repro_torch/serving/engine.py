@@ -242,7 +242,9 @@ class PrefillPool:
         migrate off it.  Accounting (virtual clocks, per-worker counts)
         records only the attempt that completed — the failure-free path
         is step-for-step identical to the pre-retry pool.  Returns None
-        once the attempt cap is exhausted (the REJECT path)."""
+        once the attempt cap is exhausted (the REJECT path).  Only the
+        injected ``PrefillFault`` is retried: any other error (a CUDA
+        error, out of memory) propagates."""
         for attempt in range(PREFILL_MAX_ATTEMPTS):
             w = (w0 + attempt) % self.n_workers
             try:
@@ -253,7 +255,7 @@ class PrefillPool:
                         f"injected prefill fault: rid {req.rid} "
                         f"attempt {attempt} on worker {w}")
                 res = self.workers[w].prefill(req)
-            except Exception:
+            except PrefillFault:
                 self.stats["retries"] += 1
                 continue
             self.stats["wait_units"] += self._busy[w] - base

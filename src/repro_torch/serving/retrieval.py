@@ -260,20 +260,15 @@ class RetrievalEngine:
 
 @torch.inference_mode()
 def evaluate_retrieval(rcfg: RetrievalConfig, params: FFTower,
-                       requests: List[Request],
-                       table_dtype: Optional[str] = None
-                       ) -> Dict[str, float]:
+                       requests: List[Request]) -> Dict[str, float]:
     """Offline ranking eval of served requests against their held-out
     targets, with the user's input items excluded from the ranking.
 
     Materializes the full (B, d) Eq. 3 score matrix (core.bloom.
     decode_scores, chunked), so it is capped at eval-scale catalogs; the
     SERVING path never does this.  Metrics are the tie-aware
-    train/metrics.py: mid-rank RR and stable-sort MAP.  Only the f32
-    table is ported (``table_dtype=None``).
+    train/metrics.py: mid-rank RR and stable-sort MAP.
     """
-    if table_dtype is not None:
-        raise NotImplementedError("quantized eval is not ported yet")
     _check(rcfg.d <= EVAL_MAX_CATALOG,
            f"full-score eval at d={rcfg.d} would materialize a "
            f"(B, {rcfg.d}) matrix; eval on the smoke/web1m specs")

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro.core import bloom as jb
+from repro.models import io as jio
 from repro.kernels.bloom_decode_topk import bloom_decode_topk_pallas
 from repro_torch.core import bloom as tb
 from repro_torch.kernels import bloom_decode_topk as tdt
@@ -124,9 +125,15 @@ def _logp_from(logits):
     return np.array(jax.nn.log_softmax(jnp.asarray(logits), axis=-1))
 
 
-def test_recover_topk_dense_vocab_ties_lowest_id():
+def test_recover_topk_identity_spec_ties_lowest_id():
+    """The no-compression spec ranks the logits themselves: equal and -inf
+    logits resolve to the lowest id, as the reference's Pallas decode does
+    (its XLA decode returns -1 for -inf slots, ROADMAP Queue C)."""
     logits = np.array([[1, 3, 3, -np.inf, 3, 2, -np.inf]], np.float32)
-    v, i = tio.recover_topk_spec(None, torch.from_numpy(logits), 7)
+    v, i = tio.recover_topk_spec(tb.identity_spec(7),
+                                 torch.from_numpy(logits), 7)
     np.testing.assert_array_equal(i.numpy(), [[1, 2, 4, 5, 0, 3, 6]])
-    jv, ji = jax.lax.top_k(jnp.asarray(logits), 7)
+    jv, ji = jio.recover_topk_spec(jb.identity_spec(7), jnp.asarray(logits),
+                                   7, impl="pallas")
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-6)

@@ -81,6 +81,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         dt.bloom_decode_topk_cuda(big, H, 5)
     with pytest.raises(ValueError, match="one device"):
         dt.bloom_decode_topk(logp, H.cpu(), 5)
+    odd = H.reshape(-1)
+    odd = torch.cat([odd[:1], odd])[1:].view(H.shape)   # 4-byte offset
+    assert odd.is_contiguous() and odd.data_ptr() % 8 == 4
+    with pytest.raises(ValueError, match="8-byte"):
+        dt.bloom_decode_topk_cuda(logp, odd, 5)
 
 
 def test_drill_launches_the_kernel_every_decode_step(cuda):

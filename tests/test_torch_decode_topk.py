@@ -111,8 +111,6 @@ def test_ops_on_cpu_takes_plain_version_and_launches_nothing():
                                         active.reshape(6))
     assert torch.equal(i.reshape(6, 7), pi) and torch.equal(v.reshape(6, 7),
                                                             pv)
-    with pytest.raises(NotImplementedError, match="table_dtype"):
-        ops.bloom_decode_topk(logp, spec, 7, table_dtype="int8")
 
 
 def test_impl_resolution_follows_the_tensor_device():

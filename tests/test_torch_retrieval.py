@@ -7,7 +7,7 @@ Integers are exact: the workload, the slot event logs, decode steps, the
 ServeStats counters and the modeled bytes.  Floats: tower logits within
 1e-5 and top-k scores within 1e-4, because f32 matmul and log_softmax sum
 in another order in the two libraries; top-k ids equal, except where the
-reference's own scores show a near-tie (within 1e-4) at that position.
+reference's own Eq. 3 scores of the two ids are within 1e-4 (a near-tie).
 Also: the degrade ladder serves prefixes, replays are bit-identical, the
 ranking eval agrees within 1e-6, and importing the port loads no JAX."""
 import subprocess
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro.configs import get_retrieval_config as j_config
+from repro.core import bloom as jb
 from repro.launch import steps as j_steps
 from repro.serving import loadgen as j_loadgen
 from repro.serving import retrieval as j_ret
@@ -32,6 +33,7 @@ from repro_torch.kernels import common
 from repro_torch.launch import steps as t_steps
 from repro_torch.models.recommender import params_from_jax
 from repro_torch.serving import loadgen as t_loadgen
+from repro_torch.serving import engine as t_engine
 from repro_torch.serving import retrieval as t_ret
 from repro_torch.serving.admission import AdmissionPolicy as TPolicy
 from repro_torch.serving.admission import stage_topk
@@ -118,6 +120,17 @@ def test_tower_logits_close(both):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _reference_scores(jcfg, jparams, prompt, ids):
+    """The reference's own Eq. 3 scores of ``ids`` for one request."""
+    items = np.full((1, jcfg.c_max), -1, np.int32)
+    items[0, :len(prompt)] = prompt
+    logits = j_steps.make_retrieval_prefill_step(jcfg)(jparams,
+                                                        jnp.asarray(items))
+    logp = jax.nn.log_softmax(logits.astype(jnp.float32), axis=-1)
+    return np.asarray(jb.decode_scores(jcfg.spec(), logp,
+                                       item_ids=jnp.asarray(ids, jnp.int32)))[0]
+
+
 def test_topk_ids_and_scores_match_the_reference(both):
     for rid, jr in both["jres"].items():
         tr = both["tres"][rid]
@@ -125,10 +138,15 @@ def test_topk_ids_and_scores_match_the_reference(both):
         assert (tr.admitted_step, tr.finish_step, tr.slot) == \
             (jr.admitted_step, jr.finish_step, jr.slot)
         np.testing.assert_allclose(tr.topk_scores, jr.topk_scores,
-                                   rtol=1e-4, atol=1e-4)
+                                   rtol=0, atol=1e-4)
+        # the reference's own scores of the port's ids equal its top-k
+        # scores, so an id that differs at a position is a near-tie there
+        np.testing.assert_allclose(
+            _reference_scores(both["jcfg"], both["jparams"], jr.prompt,
+                              tr.topk_ids),
+            jr.topk_scores, rtol=0, atol=1e-4)
         for pos, (ti, ji) in enumerate(zip(tr.topk_ids, jr.topk_ids)):
-            if ti != ji:       # only a near-tie in the reference may swap
-                assert abs(jr.topk_scores[pos] - tr.topk_scores[pos]) < 1e-4
+            if ti != ji:
                 assert ti in jr.topk_ids or pos == len(jr.topk_ids) - 1
 
 
@@ -148,6 +166,42 @@ def test_eval_metrics_match_the_reference(both):
     assert got["n_evaluated"] == want["n_evaluated"] == N_REQ
     for key in ("map", "rr", "accuracy"):
         assert got[key] == pytest.approx(want[key], abs=1e-6), key
+
+
+def test_prefill_faults_retry_then_reject_like_the_reference(both):
+    """Request 0 fails every prefill attempt (rejected), request 1 fails
+    once (retried on the next worker): the same outcome on both engines."""
+    spec = "fail_prefill:0:3,fail_prefill:1:1"
+    runs = {}
+    for name, mod, cfg, params, wl, plan in [
+            ("j", j_ret, both["jcfg"], both["jparams"], both["jwl"],
+             JFailPlan),
+            ("t", t_ret, both["tcfg"], both["tparams"], both["twl"],
+             TFailPlan)]:
+        eng = mod.RetrievalEngine(cfg, params, n_slots=N_SLOTS,
+                                  prefill_workers=2,
+                                  failpoints=plan.parse(spec))
+        res, st = eng.run([r.fresh_copy() for r in wl])
+        runs[name] = (res, st, eng.prefill_pool.stats)
+    (jres, jst, jpool), (tres, tst, tpool) = runs["j"], runs["t"]
+    assert _stats(tst) == _stats(jst) and tst.rejects == 1
+    assert tpool == jpool and tpool["retries"] == 4
+    assert tres[0].rejected and not tres[1].rejected
+    for rid, jr in jres.items():
+        assert tres[rid].rejected == jr.rejected
+        if not jr.rejected:
+            assert tres[rid].topk_ids == jr.topk_ids
+
+
+def test_prefill_error_that_is_not_injected_propagates(both, monkeypatch):
+    def broken(self, req):
+        raise RuntimeError("device error in the tower")
+
+    monkeypatch.setattr(t_engine.PrefillWorker, "prefill", broken)
+    eng = t_ret.RetrievalEngine(both["tcfg"], both["tparams"],
+                                n_slots=N_SLOTS)
+    with pytest.raises(RuntimeError, match="device error"):
+        eng.run([r.fresh_copy() for r in both["twl"]])
 
 
 def test_degraded_stages_serve_prefixes_like_the_reference(both):
