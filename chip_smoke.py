@@ -4,22 +4,36 @@
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Phases, one line of numbers each:
-  1. build   — compile every kernel in src/repro_torch/kernels/csrc/, one
-               nvcc per source, all started together;
-  2. kernels — each kernel against its plain PyTorch version on the same
-               tensors on the card, at the main path's shapes (web10m:
-               B = 8, m = 8192, d = 10M, k = 2, topk = 10) and at edge cases;
-               ids and values must be bit-identical (same f32 sum order);
-               then the kernel's time, the plain version's, one library call
-               computing the same function, and the least time the card
-               could take (bytes over 3.35 TB/s, or f32 adds over 67 TFLOP/s);
-  3. serve   — the web10m retrieval drill (8 requests, 8 slots, two replays)
-               through RetrievalEngine on CUDA, with the launch counts reset
-               just before and read just after; every decode step must have
-               launched the kernel, and the served top-k must equal the
-               plain version's on the same tower outputs;
-  4. eval    — the untrained smoke-scale ranking eval on CUDA (RR and
-               MAP below 0.1).
+  1. build    — compile every kernel in src/repro_torch/kernels/csrc/, one
+                nvcc per source, all started together;
+  2. kernels  — each kernel against its plain PyTorch version on the same
+                tensors on the card, at the main paths' shapes and at edge
+                cases, bit-identical (same f32 sum order):
+                bloom_decode_topk at web10m (B = 8, m = 8192, d = 10M,
+                k = 2, topk = 10) and at the LM shapes (B = 1 and 8,
+                m = 30,208, d = 151,936, k = 4, topk = 8); bloom_embed in
+                f32 and bf16 at T = 1, 8, 14, 4096, D = 1024, k = 4,
+                m = 30,208, at a ragged D and at k = 1 and 3; then each
+                kernel's time, the plain version's, one library call
+                computing the same function, and the least time the card
+                could take (bytes over 3.35 TB/s, or f32 adds over
+                67 TFLOP/s);
+  3. serve    — the web10m retrieval drill (8 requests, 8 slots, two
+                replays) through RetrievalEngine on CUDA, with the launch
+                counts reset just before and read just after; every decode
+                step must have launched the kernel, and the served top-k
+                must equal the plain version's on the same tower outputs;
+  4. eval     — the untrained smoke-scale ranking eval on CUDA (RR and
+                MAP below 0.1);
+  5. serve-lm — qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
+                151,936, Bloom m = 30,208, k = 4, bf16, random weights from
+                seed 0) through Engine: 8 slots, 16 mixed-length requests,
+                continuous twice and static once, counts reset just before
+                each run and read just after it; every prefill and decode
+                step must launch bloom_embed once and bloom_decode_topk
+                once, replays and static must serve the same tokens, and a
+                served first token must equal the plain versions' on the
+                same prompt.
 Then the card's name and power limit, one JSON line of kernel numbers, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code
 is not 0 and the last line is not printed.  Without a CUDA device, or
@@ -99,8 +113,11 @@ def phase_kernels(torch, dt, common, bloom, get_retrieval_config):
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops / F32_OPS_PER_S * 1e3
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    bound_partial_ms, _ = _bound(dt.min_bytes(3, B, m=m, d=d, k=k,
+                                              topk=topk), d * 3 * (k - 1))
     print(f"kernels: bloom_decode_topk web10m B={B} m={m} d={d} k={k} "
-          f"topk={topk}: kernel {ms:.6f} ms, rows 0,3,7 {ms_partial:.6f} ms, "
+          f"topk={topk}: kernel {ms:.6f} ms, rows 0,3,7 {ms_partial:.6f} ms "
+          f"(bound {bound_partial_ms * 1e3:.3f} us), "
           f"plain {plain_ms:.6f} ms, torch.topk {library_ms:.6f} ms, bound "
           f"{bound_ms * 1e3:.3f} us ({nbytes} bytes), max_abs_err {err}",
           flush=True)
@@ -112,6 +129,194 @@ def phase_kernels(torch, dt, common, bloom, get_retrieval_config):
             "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                          else "operations"),
             "library_ms": library_ms}
+
+
+def _bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and f32
+    operations over the f32 peak."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def lm_decode_topk(torch, dt, common, bloom):
+    """bloom_decode_topk at the LM serving shapes: B = 1 (a prefill's
+    first token) and B = 8 (a decode step of 8 slots)."""
+    from repro_torch import configs
+    from repro_torch.models import io as io_lib
+    cfg = configs.get_config("qwen1.5-0.5b")
+    spec = io_lib.vocab_spec(cfg)
+    dev = torch.device("cuda")
+    H = bloom.cached_hash_matrix(spec, dev)
+    (d, k), m, topk = H.shape, spec.m, 8
+    gen = torch.Generator().manual_seed(1)
+    logp8 = torch.log_softmax(torch.randn(8, m, generator=gen), -1).to(dev)
+    partial = torch.zeros(8, dtype=torch.bool, device=dev)
+    partial[[0, 3, 7]] = True
+    Hl = H.long()
+    for label, lp, act in (("B=1", logp8[:1].contiguous(), None),
+                           ("B=8 all rows", logp8, None),
+                           ("B=8 rows 0,3,7", logp8, partial)):
+        kv, ki = dt.bloom_decode_topk_cuda(lp, H, topk, act)
+        torch.cuda.synchronize()
+        pv, pi = dt.bloom_decode_topk_plain(lp, H, topk, act)
+        _check(torch.equal(ki, pi) and torch.equal(kv, pv),
+               f"LM {label}: kernel != plain version")
+        B = lp.shape[0]
+        n_live = B if act is None else int(act.sum())
+        ms = common.time_ms(
+            lambda: dt.bloom_decode_topk_cuda(lp, H, topk, act), 100, 5)
+        dev_ms = common.graph_time_ms(
+            lambda: dt.bloom_decode_topk_cuda(lp, H, topk, act))
+        plain_ms = common.time_ms(
+            lambda: dt.bloom_decode_topk_plain(lp, H, topk, act), 5)
+        lib_ms = common.time_ms(
+            lambda: torch.topk(lp[:, Hl].sum(-1), topk), 20)
+        nbytes = dt.min_bytes(n_live, B, m=m, d=d, k=k, topk=topk)
+        bound_ms, by = _bound(nbytes, d * n_live * (k - 1))
+        print(f"kernels: bloom_decode_topk LM {label} m={m} d={d} k={k} "
+              f"topk={topk}: bit-identical, kernel {ms:.6f} ms back to "
+              f"back (events), {dev_ms:.6f} ms on the device (graph), plain "
+              f"{plain_ms:.6f} ms, torch.topk {lib_ms:.6f} ms, bound "
+              f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)", flush=True)
+
+
+def phase_embed(torch, be, common):
+    """bloom_embed against its plain version; returns its JSON row, timed
+    at T = 8 (one decode step of 8 slots) in bf16, on the device alone
+    (CUDA graph replays: one call is shorter than the host's launch
+    cost)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    m, D, k = 30208, 1024, 4
+    gen = torch.Generator().manual_seed(2)
+    base = torch.randn(m, D, generator=gen)
+    err = 0.0
+    cases = [(T, D, k) for T in (1, 8, 14, 4096)]
+    cases += [(14, 1000, 4), (14, 1020, 4), (8, 1024, 1), (8, 1024, 3)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, Dc, kc in cases:
+            table = base[:, :Dc].to(dtype).contiguous().to(dev)
+            idx = torch.randint(0, m, (T, kc), generator=gen,
+                                dtype=torch.int32).to(dev)
+            got = be.bloom_embed_cuda(table, idx)
+            torch.cuda.synchronize()
+            want = be.bloom_embed_plain(table, idx)
+            _check(got.dtype == dtype and torch.equal(got, want),
+                   f"bloom_embed {dtype} T={T} D={Dc} k={kc}: kernel != "
+                   "plain version")
+            err = max(err, _max_abs_err(got.float(), want.float()))
+        print(f"kernels: bloom_embed {dtype}: bit-identical on "
+              f"{len(cases)} cases (T, D, k) = {cases}", flush=True)
+
+    table = base.to(torch.bfloat16).to(dev)
+    row = None
+    for T in (8, 14):
+        idx = torch.randint(0, m, (T, k), generator=gen,
+                            dtype=torch.int32).to(dev)
+        idx64 = idx.long()
+        fns = {"kernel": lambda: be.bloom_embed_cuda(table, idx),
+               "plain": lambda: be.bloom_embed_plain(table, idx),
+               "embedding_bag": lambda: F.embedding_bag(idx64, table,
+                                                        mode="sum")}
+        # back to back with CUDA events, the host's launch cost included;
+        # and on the device alone, from CUDA graph replays
+        host = {n: common.time_ms(f, 200, 5) for n, f in fns.items()}
+        device = {n: common.graph_time_ms(f) for n, f in fns.items()}
+        n_rows = int(torch.unique(idx).numel())
+        nbytes = be.min_bytes(n_rows, T, k, D, 2)
+        bound_ms, by = _bound(nbytes, T * (k - 1) * D)
+        print(f"kernels: bloom_embed bf16 T={T} m={m} D={D} k={k}: "
+              "device ms (graph) / back-to-back ms (events): "
+              + ", ".join(f"{n} {device[n]:.6f} / {host[n]:.6f}"
+                          for n in fns)
+              + f", bound {bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)",
+              flush=True)
+        if row is None:
+            row = {"name": be.NAME, "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/bloom_embed.cu",
+                   "replaces": "src/repro/kernels/bloom_embed.py:294",
+                   "launches": None, "max_abs_err": err,
+                   "ms": device["kernel"], "plain_ms": device["plain"],
+                   "bound_ms": bound_ms, "bound_by": by,
+                   "library_ms": device["embedding_bag"]}
+    return row
+
+
+def phase_serve_lm(torch, be, dt, common):
+    """qwen1.5-0.5b at full width through Engine on CUDA; returns the
+    launches of each kernel summed over the three runs."""
+    from repro_torch import configs
+    from repro_torch.core import bloom
+    from repro_torch.launch import serve, steps as steps_lib
+    from repro_torch.models import io as io_lib
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.loadgen import mixed_length_workload
+    dev = torch.device("cuda")
+    cfg = configs.get_config("qwen1.5-0.5b")
+    t0 = time.perf_counter()
+    model = serve.build_model(cfg, 0, dev)
+    _check(next(model.parameters()).dtype == torch.bfloat16
+           and model.final_norm.dtype == torch.float32,
+           "serving params not cast like the reference")
+    engine = Engine(cfg, model, n_slots=8, max_len=40, topk=8)
+    wl = mixed_length_workload(cfg.vocab, 16, seed=0)
+    torch.cuda.synchronize()
+    print(f"serve-lm: {cfg.name} {cfg.num_layers}L d_model {cfg.d_model} "
+          f"vocab {cfg.vocab} m {cfg.m_vocab} k {cfg.bloom.k} "
+          f"{cfg.param_count():,} params bf16, set-up "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    totals, tokens = {be.NAME: 0, dt.NAME: 0}, []
+    for label, run in (("continuous", engine.run),
+                       ("continuous replay", engine.run),
+                       ("static", engine.run_static)):
+        reqs = [r.fresh_copy() for r in wl]
+        torch.cuda.synchronize()
+        common.reset_launches()
+        res, st = run(reqs)
+        torch.cuda.synchronize()
+        counts = dict(common.LAUNCHES)
+        _check(all(r.done and not r.rejected for r in res.values()),
+               f"{label}: a request was not served")
+        want = st.prefills + st.decode_steps
+        for name in (be.NAME, dt.NAME):
+            _check(counts.get(name, 0) == want,
+                   f"{label}: {counts.get(name, 0)} {name} launches for "
+                   f"{st.prefills} prefills + {st.decode_steps} decode steps")
+            totals[name] += counts[name]
+        for r in res.values():
+            _check(len(r.tokens) == r.max_gen
+                   and all(0 <= t < cfg.vocab for t in r.tokens),
+                   f"{label}: rid {r.rid} tokens {r.tokens}")
+        tokens.append({rid: r.tokens for rid, r in res.items()})
+        print(f"serve-lm: {label}: {st.decode_steps} decode steps, "
+              f"{st.prefills} prefills, {st.tokens_out} tokens out, "
+              f"utilization {st.utilization:.4f}, wall {st.wall_s:.3f} s, "
+              f"launches {counts}", flush=True)
+    _check(tokens[0] == tokens[1], "continuous replay served other tokens")
+    _check(tokens[0] == tokens[2], "static served other tokens")
+
+    # request 0's first token through the plain versions on the same card
+    r0 = wl[0]
+    prompt = torch.as_tensor(r0.prompt, dtype=torch.int64, device=dev)[None]
+    spec = io_lib.vocab_spec(cfg)
+    with torch.inference_mode():
+        idx = spec.indices_for(prompt.reshape(-1)).contiguous()
+        _check(torch.equal(be.bloom_embed_cuda(model.embed, idx),
+                           be.bloom_embed_plain(model.embed, idx)),
+               "prompt embedding: kernel != plain version")
+        last = steps_lib.make_prefill_step(cfg)(model, prompt)["last_logits"]
+        _check(tuple(last.shape) == (1, cfg.m_vocab)
+               and bool(torch.isfinite(last).all()), "prefill logits")
+        logp = torch.log_softmax(last.float(), -1)
+        _, ids = dt.bloom_decode_topk_plain(
+            logp, bloom.cached_hash_matrix(spec, dev), 8)
+    _check(int(ids[0, 0]) == tokens[0][r0.rid][0],
+           "served first token != plain decode of the same logits")
+    print(f"serve-lm: replay and static tokens identical for {len(wl)} "
+          "requests; request 0's first token equals the plain decode",
+          flush=True)
+    return totals
 
 
 def phase_serve(torch, dt, common, bloom, retrieval, get_retrieval_config):
@@ -182,6 +387,7 @@ def main() -> int:
     from repro_torch.configs.retrieval import get_retrieval_config
     from repro_torch.core import bloom
     from repro_torch.kernels import bloom_decode_topk as dt
+    from repro_torch.kernels import bloom_embed as be
     from repro_torch.kernels import common
     from repro_torch.serving import retrieval
 
@@ -189,20 +395,28 @@ def main() -> int:
     built = common.build()
     print("build: " + ", ".join(f"{n} {s:.3f} s" for n, s in built.items())
           + f" (wall {time.perf_counter() - t0:.3f} s)", flush=True)
-    _check(set(built) == {dt.NAME}, f"unexpected kernels {sorted(built)}")
+    _check(set(built) == {dt.NAME, be.NAME},
+           f"unexpected kernels {sorted(built)}")
 
     row = phase_kernels(torch, dt, common, bloom, get_retrieval_config)
+    lm_decode_topk(torch, dt, common, bloom)
+    embed_row = phase_embed(torch, be, common)
     row["launches"] = phase_serve(torch, dt, common, bloom, retrieval,
                                   get_retrieval_config)
     ev = retrieval._smoke_eval(torch.device("cuda"), 0)
     print(f"eval: smoke untrained rr={ev['rr']:.6f} map={ev['map']:.6f} "
           f"n={ev['n_evaluated']}", flush=True)
+    lm = phase_serve_lm(torch, be, dt, common)
+    row["launches"] += lm[dt.NAME]
+    embed_row["launches"] = lm[be.NAME]
+    _check(row["launches"] > 0 and embed_row["launches"] > 0,
+           "a kernel of the main paths was never launched")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [row, embed_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

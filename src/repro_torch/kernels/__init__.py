@@ -3,6 +3,8 @@
   bloom_decode_topk — fused Eq. 3 + top-k (serving path; the (B, d) score
                       matrix is never materialised); CUDA source in
                       csrc/bloom_decode_topk.cu
+  bloom_embed       — the Bloom token embedding's k-way row gather-sum,
+                      forward only; CUDA source in csrc/bloom_embed.cu
 
 Each kernel module holds the CUDA wrapper, its plain PyTorch version and
 the entry that picks one by the tensors' device (common.resolve_impl).

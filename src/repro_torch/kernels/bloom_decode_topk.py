@@ -33,6 +33,11 @@ NAME = "bloom_decode_topk"
 PLAIN_CHUNK = 65536
 # the kernel stages one logp row in shared memory (227 KB per block)
 MAX_M = 56 * 1024
+# shared memory of one SM on sm_90a (H100, H200), and what a pass-1 block
+# takes beyond its logp row (its static arrays and the 1 KB the system
+# reserves per block), for counting the blocks that fit on an SM
+SMEM_PER_SM = 228 * 1024
+SMEM_PER_BLOCK_EXTRA = 2048
 
 
 def modeled_hbm_bytes(active, b_tile: int, *, m: int, d: int, k: int,
@@ -159,23 +164,31 @@ def bloom_decode_topk_cuda(logp: torch.Tensor, H: torch.Tensor, topk: int,
         if active.device != logp.device:
             raise ValueError("active must lie on logp's device")
         act = active.to(torch.int32).contiguous()
-    groups = _groups(logp.device, B, d)
-    part_v = torch.empty((groups, B, topk), dtype=torch.float32,
-                         device=logp.device)
-    part_i = torch.empty((groups, B, topk), dtype=torch.int32,
-                         device=logp.device)
-    vals = torch.empty((B, topk), dtype=torch.float32, device=logp.device)
-    ids = torch.empty((B, topk), dtype=torch.int32, device=logp.device)
-    stream = torch.cuda.current_stream(logp.device).cuda_stream
+    vals, ids = _launch(lib, logp, H, topk, act,
+                        _groups(logp.device, B, d, m))
+    common.count_launch(NAME)
+    return vals, ids
+
+
+def _launch(lib: ctypes.CDLL, logp: torch.Tensor, H: torch.Tensor,
+            topk: int, act: torch.Tensor | None, groups: int):
+    """Both passes at ``groups`` catalog groups into fresh outputs, on the
+    current stream, with inputs the caller has checked; ``act`` is (B,)
+    int32 or None.  Raises on a CUDA error; counts nothing."""
+    (B, m), (d, k), dev = logp.shape, H.shape, logp.device
+    part_v = torch.empty((groups, B, topk), dtype=torch.float32, device=dev)
+    part_i = torch.empty((groups, B, topk), dtype=torch.int32, device=dev)
+    vals = torch.empty((B, topk), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, topk), dtype=torch.int32, device=dev)
     err = lib.bloom_decode_topk_f32(
         logp.data_ptr(), H.data_ptr(), None if act is None else act.data_ptr(),
         part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-        ids.data_ptr(), B, m, d, k, topk, groups, stream)
+        ids.data_ptr(), B, m, d, k, topk, groups,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.bloom_decode_topk_error_string(err).decode()
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error "
                            f"{err} ({msg})")
-    common.count_launch(NAME)
     return vals, ids
 
 
@@ -187,13 +200,19 @@ def bloom_decode_topk(logp: torch.Tensor, H: torch.Tensor, topk: int,
     return bloom_decode_topk_plain(logp, H, topk, active)
 
 
-def _groups(device: torch.device, B: int, d: int) -> int:
-    """Catalog groups of pass 1: one wave of four blocks per SM (the K = 16
-    pass 1 takes 63 registers a thread) when every row is live, and no
-    more groups than 256-id tiles.  Measured on the H100 by
-    ``sweep_decode_topk``: one wave beat two by 18% at web10m."""
+def _groups(device: torch.device, B: int, d: int, m: int) -> int:
+    """Catalog groups of pass 1: one wave of blocks when every row is
+    live, and no more groups than 256-id tiles.  A pass-1 block takes 63
+    registers a thread (K = 16), so four fit on an SM, and m*4 bytes of
+    shared memory, so fewer when the logp row is long.  Measured on the
+    H100 by ``sweep_decode_topk``: at web10m (four blocks per SM) one
+    wave, G = 66 at B = 8, beat two by 18%; at the LM shapes (m = 30,208:
+    one block per SM) one wave, G = 132 at B = 1 and 16 at B = 8, took
+    0.0195 and 0.0337 ms on the device where four blocks' worth (528, 66)
+    took 0.0534 and 0.0644 ms (slower only with one row of 8 live)."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-d // 256), -(-4 * n_sm // B), 65535))
+    per_sm = max(1, min(4, SMEM_PER_SM // (m * 4 + SMEM_PER_BLOCK_EXTRA)))
+    return max(1, min(-(-d // 256), per_sm * n_sm // B, 65535))
 
 
 @functools.lru_cache(maxsize=None)

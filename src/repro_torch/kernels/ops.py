@@ -16,6 +16,21 @@ import torch
 from repro_torch.core.bloom import BloomSpec, cached_hash_matrix
 from repro_torch.kernels.bloom_decode_topk import \
     bloom_decode_topk as _decode_topk
+from repro_torch.kernels.bloom_embed import bloom_embed as _embed
+
+
+def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
+                spec: BloomSpec) -> torch.Tensor:
+    """table (m, D); tokens (B, S) -> (B, S, D): each token's k hashed
+    table rows summed (Eq. 1's k-hot code times the table).
+
+    Forward only on CUDA: with grad enabled and a table that requires
+    grad the kernel raises (its backward is ROADMAP B4/B6); the CPU plain
+    version is differentiable through autograd.
+    """
+    B, S = tokens.shape
+    idx = spec.indices_for(tokens.reshape(-1)).contiguous()   # (T, k)
+    return _embed(table, idx).reshape(B, S, -1)
 
 
 def bloom_decode_topk(logp: torch.Tensor, spec: BloomSpec, topk: int,

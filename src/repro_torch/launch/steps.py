@@ -1,11 +1,99 @@
-"""Step builders for the retrieval serving path: plain closures over a
-RetrievalConfig (PyTorch runs eagerly; there is nothing to compile)."""
+"""Step builders for the serving paths: plain closures over a
+RetrievalConfig or a ModelConfig (PyTorch runs eagerly; there is nothing
+to compile).
+
+LM steps: ``init_fn_for`` + ``cast_params_for_compute`` make the serving
+model, ``make_prefill_step`` / ``make_slot_decode_step`` run it (the
+decode step includes the paper's Eq. 3 top-k recovery, so serving cost is
+end to end), and ``insert_cache_slot`` writes a prefill's caches into the
+slot pool.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bloom as bloom_lib
 from repro_torch.models import io as io_lib
+from repro_torch.models import transformer as tf
+
+
+def init_fn_for(cfg: ModelConfig):
+    """seed -> a CPU f32 ``TransformerLM`` drawn from
+    ``torch.Generator().manual_seed(seed)``."""
+    return lambda seed: tf.TransformerLM(
+        cfg, torch.Generator().manual_seed(seed))
+
+
+def cast_params_for_compute(model: torch.nn.Module, cfg: ModelConfig):
+    """One-shot f32 -> ``cfg.dtype`` cast of the params the reference
+    casts.  The reference casts every floating param with ndim >= 2 of
+    its tree, in which each block param carries a leading layer axis: so
+    every block param (the per-layer RMSNorm gains and the (H, hd) QKV
+    biases too) and the embedding go to the compute dtype, and only the
+    final norm's 1-D gain stays f32.  In place (the serving model keeps no
+    f32 copy); returns ``model``."""
+    dt = getattr(torch, cfg.dtype)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            stacked = name.startswith("blocks.")
+            if p.is_floating_point() and (p.ndim >= 2 or stacked):
+                p.data = p.data.to(dt)
+    return model
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """(model, tokens (B, S)) -> {last_logits (B, m_vocab), caches}: the
+    inference prefill."""
+
+    @torch.inference_mode()
+    def step(model, tokens):
+        out = tf.lm_apply(model, cfg, tokens, mode="prefill")
+        return {"last_logits": out["logits"][:, -1],
+                "caches": out["caches"]}
+
+    return step
+
+
+def make_slot_decode_step(cfg: ModelConfig, topk: int, device):
+    """Continuous-batching decode step over a slot pool on ``device``.
+
+    (model, token (B, 1), caches, pos (B,), active (B,)) ->
+        {caches, topk_scores, topk_ids}
+
+    Every slot decodes at its own sequence offset ``pos``; ``active``
+    masks the Eq. 3 recovery so retired slots never leak tokens (and the
+    decode kernel skips them).  The vocab hash matrix is built here, once
+    per (spec, device), not in the first step.
+    """
+    spec = io_lib.vocab_spec(cfg)
+    if spec is not None:
+        bloom_lib.cached_hash_matrix(spec, device)
+
+    @torch.inference_mode()
+    def step(model, token, caches, pos, active):
+        out = tf.lm_apply(model, cfg, token, mode="decode", caches=caches,
+                          pos=pos)
+        scores, ids = io_lib.recover_topk(cfg, out["logits"][:, 0],
+                                          topk=topk, active=active)
+        return {"caches": out["caches"], "topk_scores": scores,
+                "topk_ids": ids}
+
+    return step
+
+
+@torch.inference_mode()
+def insert_cache_slot(pool, caches_small, slot: int):
+    """Write one request's prefill caches (per layer (1, S, KV, hd)) into
+    slot ``slot`` of the pool (per layer (n_slots, T, KV, hd)) at positions
+    [0, S), in place; returns the pool.  Stale entries past S from an
+    earlier occupant are never read: decode attends only to positions
+    <= the slot's offset and writes each position before reaching it."""
+    for buf, small in zip(pool, caches_small):
+        for name in ("k", "v"):
+            s = small[name]
+            buf[name][slot, :s.shape[1]] = s[0].to(buf[name].dtype)
+    return pool
 
 
 def make_retrieval_prefill_step(rcfg):

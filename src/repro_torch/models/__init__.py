@@ -1,7 +1,10 @@
-"""Models: the dense layer, the recommender tower and the IO boundary.
+"""Models: layers, the recommender tower, the IO boundary and the dense LM.
 
-  layers       — dense layer + truncated-normal init
+  layers       — initialisers, dense layer, RMSNorm, RoPE, SwiGLU
   recommender  — the paper's feed-forward recommender tower (FFTower)
-  io           — Eq. 3 top-k recovery (recover_topk_spec)
+  io           — Bloom / dense token embedding, LM head, Eq. 3 recovery
+  attention    — dense-decoder self-attention (prefill + slot decode)
+  transformer  — TransformerLM, lm_apply, the per-layer KV cache pool
 """
-from repro_torch.models import io, layers, recommender  # noqa: F401
+from repro_torch.models import (  # noqa: F401
+    attention, io, layers, recommender, transformer)

@@ -1,10 +1,14 @@
-"""Token IO boundary: the serving-time vocabulary recovery of Eq. 3.
+"""Token IO boundary: embedding and LM head, dense or Bloom-compressed, and
+the serving-time vocabulary recovery of Eq. 3.
 
-Of the JAX package's ``models/io.py`` only ``recover_topk_spec`` is ported
-so far: the shared recovery core of the retrieval serving path (and, later,
-the LM head).  It runs on the f32 path: log_softmax, then the fused
-decode-topk (the CUDA kernel for CUDA tensors, its plain version for CPU
-tensors), then dead rows masked to (-inf, 0).
+With ``cfg.bloom.enabled`` the embedding table and the LM head live in the
+m-dim hashed space: a token's input is the sum of its k hashed table rows
+(``kernels.ops.bloom_embed``: the hand-written CUDA kernel for CUDA
+tensors, its plain version for CPU tensors), and recovery scores every
+vocab id by Eq. 3 and keeps the top k (``kernels.ops.bloom_decode_topk``,
+the same split).  There is no ``io_impl`` knob: the path follows the
+tensors' device.  Not ported yet: ``lm_loss`` (the training slice) and
+``_fake_quant_rows`` (with the quantized tables, ROADMAP B3/B5).
 """
 from __future__ import annotations
 
@@ -12,22 +16,78 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bloom import BloomSpec
 from repro_torch.kernels import ops
+from repro_torch.models import layers
 
 
-def recover_topk_spec(spec: BloomSpec, logits: torch.Tensor,
+def vocab_spec(cfg: ModelConfig) -> Optional[BloomSpec]:
+    if not cfg.bloom.enabled:
+        return None
+    return BloomSpec(d=cfg.vocab, m=cfg.m_vocab, k=cfg.bloom.k,
+                     seed=cfg.bloom.seed, on_the_fly=cfg.bloom.on_the_fly)
+
+
+def io_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None
+            ) -> dict:
+    """{"embed": (m_vocab, D)} plus {"head": (D, m_vocab)} when the head is
+    not tied: f32 CPU tensors, drawn as the reference draws them."""
+    V, D = cfg.m_vocab, cfg.d_model
+    p = {"embed": layers.embed_init((V, D), generator)}
+    if not cfg.tie_embeddings:
+        p["head"] = layers.truncated_normal((D, V), 1.0, generator)
+    return p
+
+
+def embed_tokens(embed: torch.Tensor, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) int -> (B, S, D) activations in ``cfg.dtype``.
+
+    Bloom path: x = sum_j Table[H_j(tok)] — the dense-matrix product with
+    the k-hot Bloom code of the paper, computed as a k-way gather-sum.
+    """
+    dt = getattr(torch, cfg.dtype)
+    spec = vocab_spec(cfg)
+    if spec is None:
+        return embed[tokens.long()].to(dt)
+    return ops.bloom_embed(embed.to(dt), tokens, spec)
+
+
+def lm_logits(embed: torch.Tensor, head: Optional[torch.Tensor],
+              cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) -> logits (B, S, m_vocab) (m-dim when bloom enabled):
+    ``x @ embed.T`` for a tied head, else ``x @ head``."""
+    w = embed.T if cfg.tie_embeddings else head
+    return x @ w.to(x.dtype)
+
+
+def recover_topk(cfg: ModelConfig, logits: torch.Tensor, topk: int = 16,
+                 active: Optional[torch.Tensor] = None):
+    """Serving-time vocabulary recovery (paper Sec. 3.2): logits
+    (..., m_vocab) -> (scores, token_ids) (..., topk) over the original
+    vocab (see ``recover_topk_spec``)."""
+    return recover_topk_spec(vocab_spec(cfg), logits, topk, active=active)
+
+
+def recover_topk_spec(spec: Optional[BloomSpec], logits: torch.Tensor,
                       topk: int = 16, *,
                       active: Optional[torch.Tensor] = None):
     """Top-k recovery keyed by a BloomSpec: (scores, ids), each
     (..., topk).
 
-    Equal Eq. 3 scores resolve to the lowest item id, as on every decode
-    path of the JAX package.  ``active`` (...,) bool masks retired rows to
-    scores=-inf / ids=0 and lets the kernel skip them.
+    Equal scores resolve to the lowest id, as on every decode path of the
+    JAX package.  Bloom spec: log_softmax in f32, then the fused Eq. 3
+    decode-topk.  ``spec=None`` (a dense vocab) ranks the logits
+    themselves with a stable sort.  ``active`` (...,) bool masks retired
+    rows to scores=-inf / ids=0 and lets the kernel skip them.
     """
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    scores, ids = ops.bloom_decode_topk(logp, spec, topk, active=active)
+    if spec is None:
+        srt, order = torch.sort(logits, dim=-1, descending=True, stable=True)
+        scores, ids = srt[..., :topk], order[..., :topk].to(torch.int32)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        scores, ids = ops.bloom_decode_topk(logp, spec, topk, active=active)
     if active is not None:
         live = active[..., None].to(torch.bool)
         scores = torch.where(live, scores, -torch.inf)

@@ -1,15 +1,21 @@
-"""Slot-based continuous-batching serving engine: the slot-program half.
+"""Slot-based continuous-batching serving engine.
 
 ``run_slot_loop`` is THE continuous-batching serve loop: a fixed pool of
 slots, host-side admission/retirement per decode step
 (serving/scheduler.py), freed slots refilled from the queue every step, and
 ONE decode over the whole pool per step.  What a slot holds and what a
-decode step computes live in a ``SlotProgram``; the retrieval program
-(serving/retrieval.py) plugs in here.  Prefill goes through a
-``PrefillPool`` of ``PrefillWorker``s with retry-on-another-worker.
+decode step computes live in a ``SlotProgram``: the token-LM program
+below (``LMSlotProgram``: a per-slot KV-cache pool, every slot at its own
+position) and the retrieval program (serving/retrieval.py).  Prefill goes
+through a ``PrefillPool`` of ``PrefillWorker``s with
+retry-on-another-worker.
 
-The token-LM half of the JAX package's engine (``LMSlotProgram``,
-``Engine``, the static-batching baseline) is not ported yet.
+``Engine`` serves LM requests: ``run`` continuously, ``run_static`` as the
+static-batching A/B baseline over the same steps — groups of n_slots start
+together and drain until the longest request finishes.  A request's
+tokens are the same on both paths: every decode op is row-independent and
+prefill is B = 1 at the exact prompt length.  The JAX package's sharded
+serving (``dist``) waits for ROADMAP A13.
 
 Time is counted in decode steps (deterministic); wall-clock is recorded
 but never asserted on.
@@ -17,12 +23,18 @@ but never asserted on.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import io as io_lib
+from repro_torch.models import transformer as tf
 from repro_torch.serving import admission as admission_lib
 from repro_torch.serving.admission import AdmissionPolicy
 from repro_torch.serving.failpoints import FailPlan, PREFILL_MAX_ATTEMPTS
@@ -153,6 +165,135 @@ def build_stage_decodes(stage0, topk: int,
             by_width[k] = make(k)
         stages[st] = by_width[k]
     return stages
+
+
+@dataclasses.dataclass
+class _LMState:
+    """Device-resident LM slot-pool state: the per-layer KV-cache pool
+    plus the (tokens, pos, active) slot vectors, which stay on the device
+    for the whole run (the host writes them only on admit/retire)."""
+    caches: list
+    tokens: torch.Tensor
+    pos: torch.Tensor
+    active: torch.Tensor
+
+
+class LMSlotProgram(SlotProgram):
+    """The autoregressive token-LM program: prefill + first-token Eq. 3
+    recovery, and the decode half — slot KV-cache pool on ``device``, one
+    pool decode step, device-side (tokens, pos, active) advance.  Prefill
+    is always B = 1 at the exact prompt length, so a request's tokens do
+    not depend on its pool."""
+
+    kind = "lm"
+    oneshot = False
+    engine_label = "the token-LM engine"
+
+    def __init__(self, cfg: ModelConfig, *, topk: int, device,
+                 n_slots: int, max_len: int,
+                 eos_id: Optional[int] = None,
+                 admission_policy: Optional[AdmissionPolicy] = None):
+        self.cfg = cfg
+        self.topk = topk
+        self.device = torch.device(device)
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self._prefill = steps_lib.make_prefill_step(cfg)
+        if not (n_slots >= 1 and max_len >= 2):
+            raise ValueError(f"need n_slots >= 1 and max_len >= 2, got "
+                             f"{n_slots} and {max_len}")
+        self._decode = steps_lib.make_slot_decode_step(cfg, topk,
+                                                       self.device)
+        # degrade ladder (DESIGN.md §14): one pre-built decode per stage
+        # width; narrowing the served top-k never changes the emitted
+        # token — the next token is the top-1 id, invariant under k
+        self._stage = admission_lib.STAGE_NORMAL
+        self._stage_decodes = build_stage_decodes(
+            self._decode, topk, admission_policy,
+            lambda k: steps_lib.make_slot_decode_step(cfg, k, self.device))
+
+    # -- prefill half --------------------------------------------------
+    @torch.inference_mode()
+    def prefill(self, params, req: Request, device=None):
+        """req -> (caches at prompt length, greedy first token id)."""
+        dev = self.device if device is None else device
+        prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                 device=dev)[None, :]
+        pre = self._prefill(params, prompt)
+        _, ids = io_lib.recover_topk(self.cfg, pre["last_logits"],
+                                     topk=self.topk)
+        return pre["caches"], int(ids[0, 0])
+
+    # -- decode half ---------------------------------------------------
+    def check_admit(self, req: Request) -> None:
+        assert_request_fits(req, self.max_len)
+
+    def stopped(self, req: Request, tok: int) -> bool:
+        if self.eos_id is not None and tok == self.eos_id:
+            return True
+        return len(req.tokens) >= req.max_gen
+
+    def init_state(self, n_slots: int) -> _LMState:
+        if n_slots != self.n_slots:
+            raise ValueError(f"pool of {n_slots} slots, program built for "
+                             f"{self.n_slots}")
+        dev = self.device
+        return _LMState(
+            caches=tf.init_lm_cache(self.cfg, n_slots, self.max_len,
+                                    dtype=getattr(torch, self.cfg.dtype),
+                                    device=dev),
+            tokens=torch.zeros((n_slots, 1), dtype=torch.int64, device=dev),
+            pos=torch.zeros((n_slots,), dtype=torch.int64, device=dev),
+            active=torch.zeros((n_slots,), dtype=torch.bool, device=dev))
+
+    def reset_slots(self, state: _LMState) -> None:
+        state.tokens.zero_()
+        state.pos.zero_()
+        state.active.zero_()
+
+    def insert(self, state: _LMState, req: Request, payload,
+               stats: ServeStats) -> bool:
+        small, first = payload
+        steps_lib.insert_cache_slot(state.caches, small, req.slot)
+        req.tokens.append(first)
+        stats.tokens_out += 1
+        if self.stopped(req, first):
+            return False
+        # admit event: the only host-to-device write of the slot state
+        state.tokens[req.slot, 0] = first
+        state.pos[req.slot] = req.prompt_len
+        state.active[req.slot] = True
+        return True
+
+    def set_stage(self, stage: int) -> None:
+        if stage not in self._stage_decodes:
+            raise RuntimeError(
+                f"{self.engine_label}: degrade stage {stage} was not "
+                "pre-built — construct the program with the run's "
+                "admission_policy (DESIGN.md §14)")
+        self._stage = stage
+
+    def step(self, params, state: _LMState):
+        out = self._stage_decodes[self._stage](
+            params, state.tokens, state.caches, state.pos, state.active)
+        # tokens and pos advance on the device from the step's own
+        # outputs; the download of the new tokens is the one transfer the
+        # host-side retirement decision needs
+        nxt = out["topk_ids"][:, :1].to(state.tokens.dtype)
+        state.tokens = torch.where(state.active[:, None], nxt, state.tokens)
+        state.pos = state.pos + state.active.to(state.pos.dtype)
+        return out["topk_ids"][:, 0].cpu().numpy()
+
+    def emit(self, state: _LMState, req: Request, slot: int, out,
+             stats: ServeStats) -> bool:
+        tok = int(out[slot])
+        req.tokens.append(tok)
+        stats.tokens_out += 1
+        if self.stopped(req, tok):
+            state.active[slot] = False
+            return True
+        return False
 
 
 class PrefillWorker:
@@ -415,6 +556,106 @@ def run_slot_loop(program: SlotProgram, params, prefill_pool: PrefillPool,
         program.set_stage(admission_lib.STAGE_NORMAL)
     stats.wall_s = time.perf_counter() - t0
     return {r.rid: r for r in requests}, stats, sched, state
+
+
+class Engine:
+    """Continuous-batching engine over a fixed slot pool of a dense LM.
+
+    One Engine owns ONE ``LMSlotProgram``; ``run`` (continuous, via
+    ``run_slot_loop``) and ``run_static`` (A/B baseline) share it, so any
+    numeric difference between the two paths would be a scheduling bug.
+    The pool lives on the params' device.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: tf.TransformerLM, *,
+                 n_slots: int, max_len: int, topk: int = 8,
+                 eos_id: Optional[int] = None, prefill_workers: int = 1,
+                 failpoints: Optional[FailPlan] = None,
+                 admission_policy: Optional[AdmissionPolicy] = None):
+        self.cfg = cfg
+        self.params = params
+        self.n_slots = n_slots
+        self.failpoints = failpoints if failpoints else None
+        self.policy = admission_policy
+        self.device = next(params.parameters()).device
+        self.program = LMSlotProgram(cfg, topk=topk, device=self.device,
+                                     n_slots=n_slots, max_len=max_len,
+                                     eos_id=eos_id,
+                                     admission_policy=admission_policy)
+        self.prefill_pool = PrefillPool(params, program=self.program,
+                                        n_workers=prefill_workers,
+                                        failpoints=self.failpoints)
+
+    def run(self, requests: List[Request]
+            ) -> Tuple[Dict[int, Request], ServeStats]:
+        """Continuous batching: admit into freed slots every step, retire
+        on per-slot stop conditions.  Mutates and returns the requests."""
+        results, stats, sched, _ = run_slot_loop(
+            self.program, self.params, self.prefill_pool, requests,
+            self.n_slots, failpoints=self.failpoints,
+            admission_policy=self.policy)
+        self._sched = sched          # exposed for the simulation tests
+        return results, stats
+
+    def run_static(self, requests: List[Request]
+                   ) -> Tuple[Dict[int, Request], ServeStats]:
+        """Static-batching A/B baseline over the SAME steps.
+
+        Requests are grouped n_slots at a time in arrival order; a group
+        starts only when its last member has arrived and drains until its
+        longest request stops — retired slots keep burning decode steps,
+        which is exactly the utilization gap continuous batching closes.
+        """
+        assert_kind(requests, "lm", "the token-LM engine")
+        prog = self.program
+        stats = ServeStats()
+        reqs = sorted(requests, key=lambda r: (r.arrival_step, r.rid))
+        state = prog.init_state(self.n_slots)
+        now = 0
+        t0 = time.perf_counter()
+
+        for g in range(0, len(reqs), self.n_slots):
+            group = reqs[g:g + self.n_slots]
+            start = max([now] + [r.arrival_step for r in group])
+            stats.idle_steps += start - now
+            now = start
+
+            prog.reset_slots(state)
+            # host-side mirror of the active mask: scheduling decisions
+            # (group drained? which slots still collect?) stay host-side
+            collecting = np.zeros((self.n_slots,), bool)
+            for slot, req in enumerate(group):
+                req.slot = slot
+                req.admitted_step = now
+                prog.check_admit(req)
+                res, = self.prefill_pool.prefill_all([req])
+                if res is None:
+                    raise RuntimeError(
+                        f"request {req.rid}: prefill permanently failed on "
+                        "the static path (no REJECT protocol there — serve "
+                        "it via the continuous engine)")
+                stats.prefills += 1
+                if prog.insert(state, req, res, stats):
+                    collecting[slot] = True
+                else:
+                    req.finish_step = now
+
+            while collecting.any():
+                out = prog.step(self.params, state)
+                stats.decode_steps += 1
+                # static batching burns every slot of the pool per step
+                stats.slot_steps_total += self.n_slots
+                stats.slot_steps_active += int(collecting.sum())
+                now += 1
+                for slot, req in enumerate(group):
+                    if not collecting[slot]:
+                        continue
+                    if prog.emit(state, req, slot, out, stats):
+                        req.finish_step = now
+                        collecting[slot] = False
+
+        stats.wall_s = time.perf_counter() - t0
+        return {r.rid: r for r in requests}, stats
 
 
 def mean_latency(results: Dict[int, Request]) -> float:

@@ -10,6 +10,7 @@ in another order in the two libraries; top-k ids equal, except where the
 reference's own Eq. 3 scores of the two ids are within 1e-4 (a near-tie).
 Also: the degrade ladder serves prefixes, replays are bit-identical, the
 ranking eval agrees within 1e-6, and importing the port loads no JAX."""
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -262,10 +263,17 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    importlib.import_module(mod.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "assert 'repro_torch.serving.retrieval' in sys.modules\n"
+        "for name in ('serving.retrieval', 'serving.engine', "
+        "'launch.serve', 'kernels.bloom_embed', 'models.transformer', "
+        "'configs.qwen1_5_0_5b'):\n"
+        "    assert 'repro_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], env=subprocess_env(),
                           cwd=Path(__file__).resolve().parents[1],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    imports = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", smoke, re.M)
+    assert imports and not [m for m in imports if m.split(".")[0] in
+                            ("jax", "jaxlib", "repro")], imports
