@@ -33,7 +33,27 @@ Phases, one line of numbers each:
                 step must launch bloom_embed once and bloom_decode_topk
                 once, replays and static must serve the same tokens, and a
                 served first token must equal the plain versions' on the
-                same prompt.
+                same prompt;
+  6. kernels-train — bloom_ce forward and backward against their plain
+                versions at (T = 512, m = 30,208, k = 4), at T = 4,088 and
+                with rows whose hashes repeat a column (loss rtol 1e-6 /
+                atol 1e-5, dz atol 1e-7: expf and the exp-sum order differ
+                from torch's in the last ulp), and the CSR scatter-add
+                bit-identical to its plain version on a CPU copy at
+                (T = 520, k = 4, D = 1024, m = 30,208, bf16), on index sets
+                with every entry in a few rows and at an unaligned D; then
+                each one's device time, back-to-back time, plain and
+                library times and bound;
+  7. train-lm — qwen1.5-0.5b at full width (24 layers, d_model 1024, m =
+                30,208, k = 4, bf16 compute, f32 master, random weights
+                from seed 0, batch 8, seq 64) trained 8 steps through
+                launch/train.run, counts reset just before and read just
+                after: every step must launch bloom_embed, bloom_csr and
+                the bloom_ce forward and backward once each, every loss be
+                finite and step 8's below step 1's; then a resume drill (4
+                steps with a checkpoint, then a fresh run that restores it
+                and trains to 8) whose losses 5-8 equal the straight run's
+                within rtol 1e-6.
 Then the card's name and power limit, one JSON line of kernel numbers, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code
 is not 0 and the last line is not printed.  Without a CUDA device, or
@@ -43,6 +63,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -319,6 +340,195 @@ def phase_serve_lm(torch, be, dt, common):
     return totals
 
 
+def _times(common, fns, calls=20, replays=5, iters=20):
+    """{name: (device ms from CUDA graph replays, back-to-back ms from CUDA
+    events)} of each zero-argument call in ``fns``."""
+    return {n: (common.graph_time_ms(f, calls, replays),
+                common.time_ms(f, iters, 3)) for n, f in fns.items()}
+
+
+def _times_line(times) -> str:
+    return ", ".join(f"{n} {d:.6f} / {h:.6f}" for n, (d, h) in times.items())
+
+
+def phase_ce(torch, ce, common):
+    """bloom_ce forward and backward against their plain versions; returns
+    their JSON rows, timed at the training step's shape (T = 512)."""
+    dev = torch.device("cuda")
+    m, k = 30208, 4
+    gen = torch.Generator().manual_seed(3)
+    err_fwd = err_bwd = 0.0
+    cases = [(512, False), (4088, False), (512, True), (37, True)]
+    for T, dup in cases:
+        z = (3.0 * torch.randn(T, m, generator=gen)).to(dev)
+        h = torch.randint(0, m, (T, k), generator=gen, dtype=torch.int32)
+        if dup:
+            h[::2, 1] = h[::2, 0]
+            h[::3, 3] = h[::3, 0]
+        h = h.to(dev)
+        g = torch.randn(T, generator=gen).to(dev)
+        loss, lse = ce.bloom_ce_cuda(z, h)
+        dz = ce.bloom_ce_bwd_cuda(g, z, h, lse)
+        torch.cuda.synchronize()
+        ploss, plse = ce.bloom_ce_plain(z, h)
+        pdz = ce.bloom_ce_bwd_plain(g, z, h, lse)
+        torch.testing.assert_close(loss, ploss, rtol=1e-6, atol=1e-5)
+        torch.testing.assert_close(lse, plse, rtol=1e-6, atol=1e-5)
+        torch.testing.assert_close(dz, pdz, rtol=0, atol=1e-7)
+        err_fwd = max(err_fwd, _max_abs_err(loss, ploss),
+                      _max_abs_err(lse, plse))
+        err_bwd = max(err_bwd, _max_abs_err(dz, pdz))
+    print(f"kernels-train: bloom_ce forward and backward within tolerance "
+          f"on (T, repeated hashes) = {cases}, m={m} k={k}: max abs err "
+          f"loss/lse {err_fwd}, dz {err_bwd}", flush=True)
+
+    T = 512
+    z = (3.0 * torch.randn(T, m, generator=gen)).to(dev)
+    h = torch.randint(0, m, (T, k), generator=gen, dtype=torch.int32).to(dev)
+    g = torch.randn(T, generator=gen).to(dev)
+    hl = h.long()
+    _, lse = ce.bloom_ce_cuda(z, h)
+    neg = torch.full((T, k), -1.0 / k, device=dev)
+    fwd = _times(common, {
+        "kernel": lambda: ce.bloom_ce_cuda(z, h),
+        "plain": lambda: ce.bloom_ce_plain(z, h),
+        "library": lambda: torch.logsumexp(z, -1) - z.gather(1, hl).mean(-1)})
+    bwd = _times(common, {
+        "kernel": lambda: ce.bloom_ce_bwd_cuda(g, z, h, lse),
+        "plain": lambda: ce.bloom_ce_bwd_plain(g, z, h, lse),
+        "library": lambda: torch.softmax(z, -1).scatter_add_(1, hl, neg)
+        * g[:, None]})
+    rows = []
+    for label, name, times, nbytes, ops, err, line in (
+            ("forward", ce.FWD, fwd, ce.min_bytes(T, m, k), 4 * T * m,
+             err_fwd, 145),
+            ("backward", ce.BWD, bwd, ce.min_bytes(T, m, k, backward=True),
+             5 * T * m + T * m * k, err_bwd, 87)):
+        bound_ms, by = _bound(nbytes, ops)
+        print(f"kernels-train: bloom_ce {label} T={T} m={m} k={k}: device "
+              f"ms (graph) / back-to-back ms (events): "
+              f"{_times_line(times)}, bound {bound_ms * 1e3:.3f} us ({by}, "
+              f"{nbytes} bytes)", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/bloom_ce.cu",
+                     "replaces": f"src/repro/kernels/bloom_ce.py:{line}",
+                     "launches": None, "max_abs_err": err,
+                     "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": times["library"][0]})
+    return rows
+
+
+def phase_csr(torch, csr, common):
+    """The CSR scatter-add bit-identical against its plain version on a CPU
+    copy; returns its JSON row, timed at the training step's shape."""
+    dev = torch.device("cuda")
+    T, k, D, m = 520, 4, 1024, 30208
+    gen = torch.Generator().manual_seed(4)
+    cases = [("main", T, D, None), ("rows 0,5,9", T, D, [0, 5, 5, 9]),
+             ("row 7", T, D, [7]), ("D=1020", T, 1020, None),
+             ("D=1000 rows 3,4", 64, 1000, [3, 4])]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, Tc, Dc, rows in cases:
+            g = torch.randn(Tc, Dc, generator=gen).to(dtype)
+            if rows is None:
+                idx = torch.randint(0, m, (Tc, k), generator=gen,
+                                    dtype=torch.int32)
+            else:
+                pick = torch.randint(0, len(rows), (Tc, k), generator=gen)
+                idx = torch.tensor(rows, dtype=torch.int32)[pick]
+            got = csr.csr_scatter_add(g.to(dev), idx.to(dev), m)
+            torch.cuda.synchronize()
+            _check(torch.equal(got.cpu(), csr.csr_scatter_add(g, idx, m)),
+                   f"bloom_csr {dtype} {label}: kernel != plain version")
+        print(f"kernels-train: bloom_csr {dtype}: bit-identical to the plain "
+              f"version on the CPU for {[c[0] for c in cases]} (T={T}, "
+              f"k={k}, m={m})", flush=True)
+
+    g = torch.randn(T, D, generator=gen).to(torch.bfloat16).to(dev)
+    idx = torch.randint(0, m, (T, k), generator=gen,
+                        dtype=torch.int32).to(dev)
+    bins = csr.bin_csr(idx, m)
+    flat, rows = idx.reshape(-1).long(), torch.arange(
+        T, device=dev).repeat_interleave(k)
+    times = _times(common, {
+        "kernel": lambda: csr.csr_scatter_add_cuda(g, bins, m),
+        "kernel+binning": lambda: csr.csr_scatter_add(g, idx, m),
+        "plain": lambda: csr.csr_scatter_add_plain(g, bins, m),
+        "library": lambda: torch.zeros(m, D, device=dev).index_add_(
+            0, flat, g[rows].float())})
+    nbytes = csr.min_bytes(T * k, T, m, D, 2)
+    bound_ms, by = _bound(nbytes, T * k * D)
+    print(f"kernels-train: bloom_csr bf16 T={T} k={k} D={D} m={m}: device "
+          f"ms (graph) / back-to-back ms (events): {_times_line(times)}, "
+          f"bound {bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)",
+          flush=True)
+    return {"name": csr.NAME, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bloom_csr.cu",
+            "replaces": "src/repro/kernels/bloom_csr.py:204",
+            "launches": None, "max_abs_err": 0.0,
+            "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": times["library"][0]}
+
+
+def phase_train_lm(torch, common, names):
+    """qwen1.5-0.5b at full width, 8 steps through launch/train.run, then
+    the resume drill; returns each training kernel's launches in the
+    8-step run."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import train
+    cfg = configs.get_config("qwen1.5-0.5b")
+    steps, batch, seq = 8, 8, 64
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    _, hist = train.run("qwen1.5-0.5b", steps=steps, batch=batch, seq=seq,
+                        full=True, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(common.LAUNCHES)
+    for name in names:
+        _check(counts.get(name, 0) == steps,
+               f"train-lm: {counts.get(name, 0)} {name} launches for "
+               f"{steps} steps")
+    losses = [h["loss"] for h in hist]
+    _check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+           f"train-lm: losses {losses}")
+    _check(losses[-1] < losses[0], f"train-lm: loss did not fall {losses}")
+    step_ms = [h["step_s"] * 1e3 for h in hist[1:]]
+    med = float(np.median(step_ms))
+    print(f"train-lm: {cfg.name} {cfg.num_layers}L d_model {cfg.d_model} m "
+          f"{cfg.m_vocab} k {cfg.bloom.k} {cfg.param_count():,} params, "
+          f"batch {batch} seq {seq}, {steps} steps in {wall:.3f} s with "
+          f"set-up: losses {losses}; median step wall {med:.6f} ms (steps "
+          f"2-{steps}: {[round(x, 3) for x in step_ms]}), "
+          f"{batch * seq / med * 1e3:.1f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+          f"launches {counts}", flush=True)
+
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        _, first = train.run("qwen1.5-0.5b", steps=4, batch=batch, seq=seq,
+                             full=True, log_every=1, ckpt_dir=str(ckpt))
+        _, rest = train.run("qwen1.5-0.5b", steps=steps, batch=batch,
+                            seq=seq, full=True, log_every=1,
+                            ckpt_dir=str(ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    _check([h["step"] for h in rest] == [5, 6, 7, 8],
+           f"resume: steps {[h['step'] for h in rest]}")
+    drill = [h["loss"] for h in first + rest]
+    np.testing.assert_allclose(drill, losses, rtol=1e-6)
+    print(f"train-lm: resume drill (4 steps, checkpoint, restore, to 8): "
+          f"losses {drill} equal the straight run's within rtol 1e-6",
+          flush=True)
+    return counts
+
+
 def phase_serve(torch, dt, common, bloom, retrieval, get_retrieval_config):
     """The web10m drill on CUDA; returns the kernel launches it made."""
     from repro_torch.launch import steps as steps_lib
@@ -386,6 +596,8 @@ def main() -> int:
 
     from repro_torch.configs.retrieval import get_retrieval_config
     from repro_torch.core import bloom
+    from repro_torch.kernels import bloom_ce as ce
+    from repro_torch.kernels import bloom_csr as csr
     from repro_torch.kernels import bloom_decode_topk as dt
     from repro_torch.kernels import bloom_embed as be
     from repro_torch.kernels import common
@@ -395,7 +607,7 @@ def main() -> int:
     built = common.build()
     print("build: " + ", ".join(f"{n} {s:.3f} s" for n, s in built.items())
           + f" (wall {time.perf_counter() - t0:.3f} s)", flush=True)
-    _check(set(built) == {dt.NAME, be.NAME},
+    _check(set(built) == {dt.NAME, be.NAME, ce.NAME, csr.NAME},
            f"unexpected kernels {sorted(built)}")
 
     row = phase_kernels(torch, dt, common, bloom, get_retrieval_config)
@@ -409,14 +621,21 @@ def main() -> int:
     lm = phase_serve_lm(torch, be, dt, common)
     row["launches"] += lm[dt.NAME]
     embed_row["launches"] = lm[be.NAME]
-    _check(row["launches"] > 0 and embed_row["launches"] > 0,
+    train_rows = phase_ce(torch, ce, common) + [phase_csr(torch, csr, common)]
+    trained = phase_train_lm(torch, common,
+                             [be.NAME, csr.NAME, ce.FWD, ce.BWD])
+    embed_row["launches"] += trained[be.NAME]
+    for r in train_rows:
+        r["launches"] = trained[r["name"]]
+    rows = [row, embed_row, *train_rows]
+    _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    print(json.dumps({"kernels": [row, embed_row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

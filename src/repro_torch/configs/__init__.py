@@ -5,7 +5,8 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import qwen1_5_0_5b
-from repro_torch.configs.base import BloomConfig, ModelConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    BloomConfig, ModelConfig, TrainConfig)
 from repro_torch.configs.retrieval import (  # noqa: F401
     RETRIEVAL_CONFIGS,
     RetrievalConfig,

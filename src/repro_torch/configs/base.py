@@ -1,16 +1,17 @@
 """Config dataclasses of the token-LM path.
 
 Copied from the JAX package's ``configs/base.py``: ``BloomConfig`` and
-``ModelConfig`` with the fields the dense decoder-only family reads.  Left
-out: the MoE, Mamba, hybrid, encoder-decoder and frontend fields and
-``param_dtype`` (a ``family`` other than ``"dense"`` raises where a model
-is built, ROADMAP A12); ``io_impl`` and ``bwd_impl`` (the port's IO path
-follows the tensors' device: kernel on CUDA, plain version on the CPU);
-the XLA execution knobs (``scan_layers``, ``remat``, ``attn_chunk_*``,
-``attn_impl``, ``causal_skip``, ``attn_bf16_scores``, ``moe_impl``,
-``unroll_for_analysis``); and the shape, train and mesh configs, which no
-ported module reads.  ``table_dtype`` other than ``"auto"`` raises until
-the quantized embed and decode kernels are ported.
+``ModelConfig`` with the fields the dense decoder-only family reads, and
+``TrainConfig`` whole.  Left out: the MoE, Mamba, hybrid, encoder-decoder
+and frontend fields and ``param_dtype`` (a ``family`` other than
+``"dense"`` raises where a model is built, ROADMAP A12); ``io_impl`` and
+``bwd_impl`` (the port's IO path follows the tensors' device: kernel on
+CUDA, plain version on the CPU; its Bloom embedding backward is the CSR
+scatter-add); the XLA execution knobs (``scan_layers``, ``remat``,
+``attn_chunk_*``, ``attn_impl``, ``causal_skip``, ``attn_bf16_scores``,
+``moe_impl``, ``unroll_for_analysis``); and the shape and mesh configs,
+which no ported module reads.  ``table_dtype`` other than ``"auto"``
+raises until the quantized embed and decode kernels are ported.
 """
 from __future__ import annotations
 
@@ -91,3 +92,24 @@ class ModelConfig:
             n += D * V
         n += self.num_layers * (attn + dense_ffn + 2 * D)  # + two pre-norms
         return n + D  # final norm
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-3
+    optimizer: str = "adam"       # adam|adamw (adagrad|rmsprop|sgd|
+                                  # adafactor: ROADMAP A6)
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    momentum: float = 0.0
+    grad_clip_norm: float = 1.0
+    grad_compression: str = "none"  # none|bf16 (gradient round trip)
+    microbatch: int = 0           # read by no LM train step (as in the
+                                  # reference's make_train_step)
+    steps: int = 100
+    warmup_steps: int = 10
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    seed: int = 0

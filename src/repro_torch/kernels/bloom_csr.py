@@ -1,0 +1,142 @@
+"""CSR scatter-add: the backward of the Bloom embedding.
+
+For a cotangent g (T, D) and hash indices idx (T, k) in [0, m):
+
+    out[r, :] = sum over (t, j) with idx[t, j] == r of g[t, :]     (m, D) f32
+
+``bin_csr`` sorts the flat (T * k) indices stably by value with torch ops
+on the tensors' device, so each output row owns one segment of entries in
+(token, j) order; ``row_ptr`` (m + 1,) marks the segments and ``src`` holds
+each entry's token row.  Every row is summed in f32 from 0.0 in that order,
+so the result is the same from run to run: no float atomics anywhere.
+
+* ``csr_scatter_add_cuda`` launches the hand-written Hopper kernel
+  (``csrc/bloom_csr.cu``, which replaces the JAX package's Pallas
+  ``csr_scatter_add_pallas``, reached through
+  ``bloom_embed_bwd_csr_pallas``) on CUDA tensors, and counts its launches.
+* ``csr_scatter_add_plain`` is the same function in plain PyTorch:
+  ``zeros(m, D).index_add_`` over the same sorted entries.  On the CPU,
+  where ``index_add_`` adds in index order, it is bit-identical to the
+  kernel; on a CUDA tensor ``index_add_`` uses atomics, so the card's
+  comparisons hold the kernel against a CPU copy.
+* ``csr_scatter_add`` bins and picks one of them by the tensors' device
+  (``common.resolve_impl``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import common
+
+NAME = "bloom_csr"
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+class CSRBins(NamedTuple):
+    row_ptr: torch.Tensor   # (m + 1,) int32: row r's entries are
+    #                         [row_ptr[r], row_ptr[r + 1])
+    src: torch.Tensor       # (T * k,) int32 token row of each sorted entry
+    rows: torch.Tensor      # (T * k,) int64 output row of each sorted entry
+
+
+def bin_csr(idx: torch.Tensor, m: int) -> CSRBins:
+    """Bin idx (T, k) into m row segments on idx's device.  The row
+    pointers come from a search over the sorted values, not from
+    ``bincount``, which would cost a device sync on CUDA; a value outside
+    [0, m) falls outside every segment."""
+    T, k = idx.shape
+    rows, order = torch.sort(idx.reshape(-1).long(), stable=True)
+    bounds = torch.arange(m + 1, device=idx.device)
+    row_ptr = torch.searchsorted(rows, bounds).to(torch.int32)
+    return CSRBins(row_ptr, (order // k).to(torch.int32), rows)
+
+
+def min_bytes(n_entries: int, n_tokens: int, m: int, D: int,
+              itemsize: int) -> int:
+    """The least device-memory traffic of one call: the (m, D) f32 output
+    once, each distinct cotangent row once (``n_tokens`` of them), and the
+    int32 row pointers and entries."""
+    return int(m * D * 4 + n_tokens * D * itemsize + (m + 1) * 4
+               + n_entries * 4)
+
+
+def _check_shapes(g: torch.Tensor, idx: torch.Tensor) -> None:
+    if g.ndim != 2 or idx.ndim != 2 or idx.shape[0] != g.shape[0]:
+        raise ValueError(f"need g (T, D) and idx (T, k), got "
+                         f"{tuple(g.shape)} and {tuple(idx.shape)}")
+
+
+def csr_scatter_add_plain(g: torch.Tensor, bins: CSRBins,
+                          m: int) -> torch.Tensor:
+    """The plain PyTorch version: (m, D) f32 on g's device."""
+    out = torch.zeros(m, g.shape[1], dtype=torch.float32, device=g.device)
+    return out.index_add_(0, bins.rows, g.float()[bins.src.long()])
+
+
+def csr_scatter_add_cuda(g: torch.Tensor, bins: CSRBins,
+                         m: int) -> torch.Tensor:
+    """Launch the Hopper kernel on PyTorch's current stream (no sync).
+
+    g (T, D) float32 or bfloat16, contiguous, and ``bins`` from
+    ``bin_csr`` over m rows, on one CUDA device.  Raises on anything the
+    kernel does not take."""
+    row_ptr, src = bins.row_ptr, bins.src
+    if not (g.is_cuda and row_ptr.device == g.device
+            and src.device == g.device):
+        raise ValueError("g and the bins must lie on one CUDA device")
+    if g.dtype not in DTYPES or row_ptr.dtype != torch.int32 \
+            or src.dtype != torch.int32:
+        raise TypeError(f"need a float32 or bfloat16 g and int32 bins, got "
+                        f"{g.dtype}, {row_ptr.dtype} and {src.dtype}")
+    if not (g.is_contiguous() and row_ptr.is_contiguous()
+            and src.is_contiguous()):
+        raise ValueError("g and the bins must be contiguous")
+    if g.ndim != 2 or row_ptr.shape != (m + 1,):
+        raise ValueError(f"need g (T, D) and row_ptr ({m + 1},), got "
+                         f"{tuple(g.shape)} and {tuple(row_ptr.shape)}")
+    D = g.shape[1]
+    if src.numel() >= 2 ** 31 or D >= 2 ** 31 or m >= 2 ** 31:
+        raise ValueError(f"need T*k, D, m < 2**31, got T*k={src.numel()} "
+                         f"D={D} m={m}")
+    out = torch.empty((m, D), dtype=torch.float32, device=g.device)
+    if m == 0 or D == 0:
+        return out
+    lib = _library()
+    fn = lib.bloom_csr_f32 if g.dtype == torch.float32 else lib.bloom_csr_bf16
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(g.data_ptr(), row_ptr.data_ptr(), src.data_ptr(),
+             out.data_ptr(), m, D, stream)
+    if err != 0:
+        msg = lib.bloom_csr_error_string(err).decode()
+        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+    common.count_launch(NAME)
+    return out
+
+
+def csr_scatter_add(g: torch.Tensor, idx: torch.Tensor,
+                    m: int) -> torch.Tensor:
+    """Bin ``idx`` and scatter-add ``g``: the kernel for CUDA tensors, the
+    plain version for CPU tensors.  (m, D) f32."""
+    _check_shapes(g, idx)
+    impl = common.resolve_impl(g, idx)
+    bins = bin_csr(idx, m)
+    if impl == "kernel":
+        return csr_scatter_add_cuda(g, bins, m)
+    return csr_scatter_add_plain(g, bins, m)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = common.load_library(NAME)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.bloom_csr_f32, lib.bloom_csr_bf16):
+        fn.argtypes = [p, p, p, p, i, i, p]
+        fn.restype = i
+    lib.bloom_csr_error_string.argtypes = [i]
+    lib.bloom_csr_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,22 +1,23 @@
-"""Bloom embedding forward: the k-way row gather-sum of the token input.
+"""Bloom embedding: the k-way row gather-sum of the token input, and its
+backward.
 
 For a table (m, D) and hash indices idx (T, k) int32 in [0, m):
 ``out[t, :] = sum_j table[idx[t, j], :]``, summed in f32 in j order and
-rounded once to the table's dtype (float32 or bfloat16).
-
-Three functions with one signature ``(table, idx)``:
+rounded once to the table's dtype (float32 or bfloat16).  Its gradient is
+the CSR scatter-add of the cotangent (``kernels/bloom_csr.py``), rounded
+to the table's dtype, as the reference's custom VJP rounds it.
 
 * ``bloom_embed_cuda`` launches the hand-written Hopper kernel
   (``csrc/bloom_embed.cu``, which replaces the JAX package's Pallas
   ``bloom_embed_pallas`` forward) on CUDA tensors, and counts its launches.
-  It is forward only: with grad enabled and a table that requires grad it
-  raises, because its output would carry no gradient (the CSR backward,
-  ROADMAP B4/B6, comes with the training slice).
-* ``bloom_embed_plain`` is the same function in plain PyTorch on any
-  device (differentiable through autograd): the CPU path, and what the
-  kernel is held against on the card.
-* ``bloom_embed`` picks between them by the tensors' device
-  (kernels.common.resolve_impl): CUDA tensors launch the kernel or raise.
+* ``bloom_embed_plain`` is the same forward in plain PyTorch on any
+  device: the CPU path, and what the kernel is held against on the card.
+* ``bloom_embed`` is the differentiable entry: an ``autograd.Function``
+  whose forward picks between them by the tensors' device
+  (kernels.common.resolve_impl: CUDA tensors launch the kernel or raise)
+  and whose backward is ``bloom_csr.csr_scatter_add`` (the CSR kernel on
+  CUDA, its plain version on the CPU).  Under ``torch.inference_mode`` it
+  launches the forward kernel alone.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import common
+from repro_torch.kernels import bloom_csr, common
 
 NAME = "bloom_embed"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -74,11 +75,6 @@ def bloom_embed_cuda(table: torch.Tensor, idx: torch.Tensor
                         f"got {table.dtype} and {idx.dtype}")
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError("table and idx must be contiguous")
-    if table.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the bloom_embed CUDA kernel is forward only: its backward "
-            "(the CSR scatter-add, ROADMAP B4/B6) is not ported yet; run "
-            "under torch.no_grad()/inference_mode() or detach the table")
     (m, D), (T, k) = table.shape, idx.shape
     if T * k >= 2 ** 31 or D >= 2 ** 31:
         raise ValueError(f"need T*k, D < 2**31, got T*k={T * k} D={D}")
@@ -99,11 +95,31 @@ def bloom_embed_cuda(table: torch.Tensor, idx: torch.Tensor
     return out
 
 
+class _BloomEmbed(torch.autograd.Function):
+    """(T, D) in table's dtype; the backward returns dtable (m, D) in the
+    table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        if common.resolve_impl(table, idx) == "kernel":
+            out = bloom_embed_cuda(table, idx)
+        else:
+            out = bloom_embed_plain(table, idx)
+        ctx.save_for_backward(idx)
+        ctx.m, ctx.dtype = table.shape[0], table.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        dtable = bloom_csr.csr_scatter_add(g.contiguous(), idx, ctx.m)
+        return dtable.to(ctx.dtype), None
+
+
 def bloom_embed(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if common.resolve_impl(table, idx) == "kernel":
-        return bloom_embed_cuda(table, idx)
-    return bloom_embed_plain(table, idx)
+    """The kernel for CUDA tensors, the plain version for CPU tensors;
+    differentiable in ``table`` through the CSR scatter-add."""
+    return _BloomEmbed.apply(table, idx)
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,3 +18,22 @@ def bloom_decode_ref(logp: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
     for j in range(1, H.shape[1]):
         scores = scores + logp[:, h[:, j]]
     return scores
+
+
+def bloom_ce_ref(logits: torch.Tensor, h_idx: torch.Tensor) -> torch.Tensor:
+    """logits (T, m); h_idx (T, k) hashed labels ->
+    loss (T,) = logsumexp(z) - mean_j z[h_j]."""
+    z = logits.float()
+    lse = torch.logsumexp(z, dim=-1)
+    picked = z.gather(-1, h_idx.long())            # (T, k)
+    return lse - picked.mean(-1)
+
+
+def csr_scatter_add_ref(g: torch.Tensor, idx: torch.Tensor,
+                        m: int) -> torch.Tensor:
+    """g (T, D); idx (T, k) in [0, m) -> (m, D) f32 with
+    out[r] = sum over (t, j) with idx[t, j] == r of g[t]."""
+    T, k = idx.shape
+    rows = torch.arange(T, device=g.device).repeat_interleave(k)
+    out = torch.zeros(m, g.shape[1], dtype=torch.float32, device=g.device)
+    return out.index_add_(0, idx.reshape(-1).long(), g.float()[rows])

@@ -1,21 +1,26 @@
-"""Step builders for the serving paths: plain closures over a
+"""Step builders for the training and serving paths: plain closures over a
 RetrievalConfig or a ModelConfig (PyTorch runs eagerly; there is nothing
 to compile).
 
-LM steps: ``init_fn_for`` + ``cast_params_for_compute`` make the serving
-model, ``make_prefill_step`` / ``make_slot_decode_step`` run it (the
-decode step includes the paper's Eq. 3 top-k recovery, so serving cost is
-end to end), and ``insert_cache_slot`` writes a prefill's caches into the
-slot pool.
+LM training: ``make_train_step`` casts the f32 master params to the
+compute dtype inside the step (differentiably), takes the loss and its
+gradients (``value_and_grad``), and applies the optimizer's update to the
+master params.  LM serving: ``init_fn_for`` + ``cast_params_for_compute``
+make the serving model, ``make_prefill_step`` / ``make_slot_decode_step``
+run it (the decode step includes the paper's Eq. 3 top-k recovery, so
+serving cost is end to end), and ``insert_cache_slot`` writes a prefill's
+caches into the slot pool.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import bloom as bloom_lib
 from repro_torch.models import io as io_lib
 from repro_torch.models import transformer as tf
+from repro_torch.optim import optimizers as opt_lib
+from repro_torch.train import trainer as trainer_lib
 
 
 def init_fn_for(cfg: ModelConfig):
@@ -25,21 +30,64 @@ def init_fn_for(cfg: ModelConfig):
         cfg, torch.Generator().manual_seed(seed))
 
 
+def _cast_for_compute(name: str, p: torch.Tensor) -> bool:
+    """The params the reference casts to the compute dtype: every floating
+    param of ndim >= 2 of its layer-STACKED tree, in which each block param
+    carries a leading layer axis.  So every block param (the per-layer
+    RMSNorm gains and the (H, hd) QKV biases too) and the embedding go to
+    the compute dtype, and only the final norm's 1-D gain stays f32."""
+    return p.is_floating_point() and (p.ndim >= 2
+                                      or name.startswith("blocks."))
+
+
 def cast_params_for_compute(model: torch.nn.Module, cfg: ModelConfig):
     """One-shot f32 -> ``cfg.dtype`` cast of the params the reference
-    casts.  The reference casts every floating param with ndim >= 2 of
-    its tree, in which each block param carries a leading layer axis: so
-    every block param (the per-layer RMSNorm gains and the (H, hd) QKV
-    biases too) and the embedding go to the compute dtype, and only the
-    final norm's 1-D gain stays f32.  In place (the serving model keeps no
-    f32 copy); returns ``model``."""
+    casts (``_cast_for_compute``), for serving.  In place (the serving
+    model keeps no f32 copy); returns ``model``."""
     dt = getattr(torch, cfg.dtype)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            stacked = name.startswith("blocks.")
-            if p.is_floating_point() and (p.ndim >= 2 or stacked):
+            if _cast_for_compute(name, p):
                 p.data = p.data.to(dt)
     return model
+
+
+def value_and_grad(model: tf.TransformerLM, cfg: ModelConfig, batch):
+    """(loss, metrics, grads) of ``lm_loss_fn`` on ``batch`` at the
+    model's f32 master params, with the reference's compute cast taken
+    inside, differentiably: each cast param is a ``.to(dtype)`` of its
+    master, so its gradient flows back in f32.  ``grads`` maps each param
+    name to a tensor in the master's dtype."""
+    dt = getattr(torch, cfg.dtype)
+    params = dict(model.named_parameters())
+    compute = {n: p.to(dt) if _cast_for_compute(n, p) else p
+               for n, p in params.items()}
+    loss, metrics = torch.func.functional_call(model, compute, (batch,))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            dict(zip(params, grads)))
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+    """(step, optimizer): ``step(model, opt_state, batch) -> (opt_state,
+    metrics)`` takes the loss and gradients (``value_and_grad``), runs the
+    optimizer and writes ``(p + u).to(p.dtype)`` into the model's master
+    params in place (the reference returns new params; updating in place
+    keeps one f32 copy on the device).  ``tc.microbatch`` is not read,
+    as in the reference's LM step."""
+    optimizer = trainer_lib.make_optimizer(tc)
+
+    def step(model, opt_state, batch):
+        loss, metrics, grads = value_and_grad(model, cfg, batch)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        new = opt_lib.apply_updates(params, updates)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(new[name])
+        return opt_state, {"loss": loss, **metrics}
+
+    return step, optimizer
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -1,14 +1,17 @@
 """Self-attention of the dense decoder: q/k/v/o projections with the
-optional QKV bias, causal prefill that also emits the KV cache, and the
-single-token slot decode against that cache.
+optional QKV bias, causal full-sequence attention for training, causal
+prefill that also emits the KV cache, and the single-token slot decode
+against that cache.
 
 The JAX package's ``models/attention.py`` computes attention in XLA,
 outside any Pallas kernel, so the port computes it in plain PyTorch
-(matmuls and an f32 softmax).  Weights keep the reference's layout:
-``wq`` (D, H, hd), ``wk`` / ``wv`` (D, KV, hd), ``wo`` (H, hd, D), biases
-(H, hd) / (KV, hd).  The reference's flash-style chunking, its cross
-attention and its sharded-cache decode are not ported: they serve memory
-limits of long sequences and models this path does not run.
+(matmuls and an f32 softmax), and training differentiates it by autograd
+where the reference has a chunked flash-style ``custom_vjp``.  Weights
+keep the reference's layout: ``wq`` (D, H, hd), ``wk`` / ``wv``
+(D, KV, hd), ``wo`` (H, hd, D), biases (H, hd) / (KV, hd).  The
+reference's flash-style chunking, its cross attention and its
+sharded-cache decode are not ported: they serve memory limits of long
+sequences and models this path does not run.
 """
 from __future__ import annotations
 
@@ -83,6 +86,13 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", o, p.wo.to(o.dtype))
+
+
+def self_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """Train: causal self-attention over x (B, S, D) at ``positions``
+    (B, S), no cache kept; returns (B, S, D)."""
+    return self_attention_with_cache(p, cfg, x, positions)[0]
 
 
 def self_attention_with_cache(p: Attention, cfg: ModelConfig,

@@ -6,8 +6,10 @@ m-dim hashed space: a token's input is the sum of its k hashed table rows
 (``kernels.ops.bloom_embed``: the hand-written CUDA kernel for CUDA
 tensors, its plain version for CPU tensors), and recovery scores every
 vocab id by Eq. 3 and keeps the top k (``kernels.ops.bloom_decode_topk``,
-the same split).  There is no ``io_impl`` knob: the path follows the
-tensors' device.  Not ported yet: ``lm_loss`` (the training slice) and
+the same split).  The training loss ``lm_loss`` takes the fused Bloom CE
+(``kernels.ops.bloom_ce``, the same split again); both Bloom ops are
+differentiable through their backward kernels.  There is no ``io_impl``
+knob: the path follows the tensors' device.  Not ported yet:
 ``_fake_quant_rows`` (with the quantized tables, ROADMAP B3/B5).
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import losses
 from repro_torch.core.bloom import BloomSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers
@@ -60,6 +63,19 @@ def lm_logits(embed: torch.Tensor, head: Optional[torch.Tensor],
     ``x @ embed.T`` for a tied head, else ``x @ head``."""
     w = embed.T if cfg.tie_embeddings else head
     return x @ w.to(x.dtype)
+
+
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+            valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-token CE (...,) in f32 of logits (..., m_vocab) against labels
+    (...,).  Bloom: logsumexp(z) - (1/k) sum_j z[H_j(y)] (Eq. 3) through
+    the fused Bloom CE; ``valid`` multiplies the loss after it."""
+    spec = vocab_spec(cfg)
+    logits = logits.float()
+    if spec is None:
+        return losses.softmax_xent_label(logits, labels, valid)
+    loss = ops.bloom_ce(logits, labels, spec)
+    return loss if valid is None else loss * valid.to(loss.dtype)
 
 
 def recover_topk(cfg: ModelConfig, logits: torch.Tensor, topk: int = 16,

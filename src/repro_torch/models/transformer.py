@@ -5,10 +5,17 @@ A ``TransformerLM`` holds the Bloom (or dense) token embedding, a
 RMSNorm -> SwiGLU -> residual) and the final norm; the LM head is the
 embedding transposed when tied.  ``lm_apply`` runs it:
 
-  prefill — a full sequence from position 0; returns all-position logits
-            and each layer's compact KV cache;
+  train   — a full sequence from position 0, no caches; all-position
+            logits for the loss (``lm_loss_fn``), differentiated by
+            autograd (no remat: the reference's ``remat`` policy has no
+            counterpart here);
+  prefill — the same, and also each layer's compact KV cache;
   decode  — one token per row against the per-layer cache pool at each
             row's own position (B,).
+
+``TransformerLM.forward(batch)`` is the training objective
+(``lm_loss_fn``), so ``torch.func.functional_call`` can evaluate it on
+other parameters (the train step's compute-dtype copies).
 
 The JAX package stacks its blocks under a leading ``(n_super, ...)`` axis
 and scans them; here they are a Python loop over the ModuleList (PyTorch
@@ -81,6 +88,10 @@ class TransformerLM(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model))
 
+    def forward(self, batch: Mapping[str, torch.Tensor]):
+        """(loss, {"ce", "aux"}) of ``batch`` (see ``lm_loss_fn``)."""
+        return lm_loss_fn(self, self.cfg, batch)
+
 
 def init_lm_cache(cfg: ModelConfig, batch: int, cache_len: int,
                   dtype=torch.bfloat16, device=None
@@ -97,6 +108,7 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
              pos: Optional[torch.Tensor] = None) -> dict:
     """Run the LM on tokens (B, S).
 
+    train   -> {"logits" (B, S, m_vocab)};
     prefill -> {"logits" (B, S, m_vocab), "caches": per-layer {"k","v"}
                (B, S, KV, hd)};
     decode  -> {"logits" (B, 1, m_vocab), "caches"}: needs ``caches``
@@ -105,17 +117,20 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
     """
     x = io.embed_tokens(model.embed, cfg, tokens)
     B, S = tokens.shape
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         positions = torch.arange(S, device=x.device).expand(B, S)
-        caches = []
+        caches = [] if mode == "prefill" else None
     elif mode == "decode":
         if caches is None or pos is None:
             raise ValueError("decode needs caches and pos")
     else:
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
+                         f"got {mode!r}")
     for i, blk in enumerate(model.blocks):
         h = layers.rms_norm(blk.norm1, x, cfg.norm_eps)
-        if mode == "prefill":
+        if mode == "train":
+            y = attention.self_attention(blk.attn, cfg, h, positions)
+        elif mode == "prefill":
             y, kv = attention.self_attention_with_cache(blk.attn, cfg, h,
                                                         positions)
             caches.append(kv)
@@ -126,7 +141,27 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + blk.ffn(layers.rms_norm(blk.norm2, x, cfg.norm_eps))
     x = layers.rms_norm(model.final_norm, x, cfg.norm_eps)
     logits = io.lm_logits(model.embed, model.head, cfg, x)
+    if mode == "train":
+        return {"logits": logits}
     return {"logits": logits, "caches": caches}
+
+
+def lm_loss_fn(model: TransformerLM, cfg: ModelConfig,
+               batch: Mapping[str, torch.Tensor]):
+    """Next-token CE.  batch: {"tokens" (B, S)} and optionally
+    {"loss_mask" (B, S - 1)}.  Returns (loss, {"ce", "aux"}): the mean
+    over predicted tokens (or over the mask), and the MoE auxiliary loss,
+    0 for the dense family."""
+    tokens = batch["tokens"]
+    logits = lm_apply(model, cfg, tokens, mode="train")["logits"]
+    valid = batch.get("loss_mask")
+    loss_tok = io.lm_loss(cfg, logits[:, :-1], tokens[:, 1:], valid)
+    if valid is None:
+        loss = loss_tok.sum() / max(loss_tok.numel(), 1)
+    else:
+        loss = loss_tok.sum() / torch.clamp(valid.sum().float(), min=1.0)
+    aux = torch.zeros((), device=loss.device)
+    return loss, {"ce": loss, "aux": aux}
 
 
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig

@@ -1,1 +1,1 @@
-"""train substrate."""
+"""train substrate: optimizer construction (trainer) and metrics."""

@@ -1,9 +1,14 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version on the same CUDA tensors (bit-identical: both sum the k
-gathers in j order in f32, and the embedding rounds once to the table's
-dtype), their input checks, the retrieval drill launching the decode
-kernel once per decode step, and the LM engine launching both kernels
-once per prefill and per decode step.
+PyTorch version on the same CUDA tensors (decode-top-k and embedding
+bit-identical: both sum the k gathers in j order in f32, and the
+embedding rounds once to the table's dtype; the CSR scatter-add
+bit-identical to its plain version on a CPU copy, where ``index_add_``
+adds in index order; the Bloom CE within loss rtol 1e-6 / atol 1e-5 and
+dz atol 1e-7, since the kernel's expf and exp-sum order differ from
+torch's in the last ulp), their input checks, the retrieval drill
+launching the decode kernel once per decode step, the LM engine launching
+the decode and embedding kernels once per prefill and per decode step, and
+a training step launching the embedding, CSR and CE kernels once each.
 
 Marked ``cuda``; every test skips without a GPU.  On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -16,10 +21,14 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.retrieval import get_retrieval_config
 from repro_torch.core.bloom import cached_hash_matrix
+from repro_torch.configs.base import TrainConfig
+from repro_torch.kernels import bloom_ce as ce
+from repro_torch.kernels import bloom_csr as csr
 from repro_torch.kernels import bloom_decode_topk as dt
 from repro_torch.kernels import bloom_embed as be
 from repro_torch.kernels import common, ops
 from repro_torch.launch import serve
+from repro_torch.launch import steps as steps_lib
 from repro_torch.models import io as io_lib
 from repro_torch.serving import retrieval
 from repro_torch.serving.engine import Engine
@@ -141,15 +150,136 @@ def test_embed_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         be.bloom_embed(table, idx.cpu())
 
 
-def test_ops_embed_raises_under_grad_on_cuda(cuda):
+def test_ops_embed_grad_flows_through_the_kernel_pair_on_cuda(cuda):
     spec = io_lib.vocab_spec(configs.get_smoke_config("qwen1.5-0.5b"))
-    table = torch.randn(spec.m, 16, device=cuda, requires_grad=True)
-    tokens = torch.tensor([[1, 2, 3]], device=cuda)
-    with pytest.raises(NotImplementedError, match="B4/B6"):
-        ops.bloom_embed(table, tokens, spec)
-    with torch.no_grad():
-        out = ops.bloom_embed(table, tokens, spec)
-    assert out.shape == (1, 3, 16)
+    g = torch.Generator().manual_seed(0)
+    base = torch.randn(spec.m, 16, generator=g)
+    tokens = torch.randint(0, spec.d, (2, 9), generator=g)
+    cot = torch.randn(2, 9, 16, generator=g)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        table = base.to(dev).requires_grad_()
+        common.reset_launches()
+        out = ops.bloom_embed(table, tokens.to(dev), spec)
+        (out * cot.to(dev)).sum().backward()
+        grads.append(table.grad.cpu())
+        if dev.type == "cuda":
+            assert common.LAUNCHES == {be.NAME: 1, csr.NAME: 1}
+    assert torch.equal(grads[0], grads[1])
+    with torch.inference_mode():
+        common.reset_launches()
+        out = ops.bloom_embed(base.to(cuda), tokens.to(cuda), spec)
+    assert out.shape == (2, 9, 16) and common.LAUNCHES == {be.NAME: 1}
+
+
+def _ce_inputs(T, m, k, dev, seed=0, dup=False):
+    g = torch.Generator().manual_seed(seed)
+    z = 3.0 * torch.randn(T, m, generator=g)
+    h = torch.randint(0, m, (T, k), generator=g, dtype=torch.int32)
+    if dup and k > 1:
+        h[::2, 1] = h[::2, 0]
+    return (z.to(dev), h.to(dev),
+            torch.randn(T, generator=g).to(dev))
+
+
+@pytest.mark.parametrize("T,m,k", [(1, 8, 1), (7, 128, 3), (16, 1000, 4),
+                                   (5, 37, 2), (512, 30208, 4),
+                                   (3, 30211, 4)])
+@pytest.mark.parametrize("dup", [False, True])
+def test_ce_kernels_match_plain(cuda, T, m, k, dup):
+    z, h, g = _ce_inputs(T, m, k, cuda, dup=dup)
+    loss, lse = ce.bloom_ce_cuda(z, h)
+    dz = ce.bloom_ce_bwd_cuda(g, z, h, lse)
+    torch.cuda.synchronize()
+    ploss, plse = ce.bloom_ce_plain(z, h)
+    torch.testing.assert_close(loss, ploss, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(lse, plse, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(dz, ce.bloom_ce_bwd_plain(g, z, h, lse),
+                               rtol=0, atol=1e-7)
+
+
+def test_ce_kernels_take_an_unaligned_row(cuda):
+    z = torch.randn(6 * 64 + 1, device=cuda)[1:].view(6, 64)
+    assert z.is_contiguous() and z.data_ptr() % 16
+    h = torch.randint(0, 64, (6, 3), dtype=torch.int32, device=cuda)
+    g = torch.randn(6, device=cuda)
+    loss, lse = ce.bloom_ce_cuda(z, h)
+    torch.testing.assert_close(loss, ce.bloom_ce_plain(z, h)[0], rtol=1e-6,
+                               atol=1e-5)
+    torch.testing.assert_close(ce.bloom_ce_bwd_cuda(g, z, h, lse),
+                               ce.bloom_ce_bwd_plain(g, z, h, lse),
+                               rtol=0, atol=1e-7)
+
+
+def test_ce_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    z, h, g = _ce_inputs(4, 64, 3, cuda)
+    with pytest.raises(TypeError):
+        ce.bloom_ce_cuda(z.double(), h)
+    with pytest.raises(TypeError):
+        ce.bloom_ce_cuda(z, h.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.bloom_ce_cuda(z.t().contiguous().t(), h)
+    with pytest.raises(ValueError, match="shape"):
+        ce.bloom_ce_bwd_cuda(g[:3], z, h, g)
+    with pytest.raises(ValueError, match="one device"):
+        ce.bloom_ce(z, h.cpu())
+
+
+@pytest.mark.parametrize("T,k,D,m,rows", [
+    (520, 4, 1024, 30208, None), (14, 4, 1000, 512, None),
+    (9, 3, 37, 64, None), (300, 4, 64, 4096, [0, 5, 5, 9]),
+    (40, 2, 1020, 128, [7])])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_csr_kernel_bit_identical_to_plain_on_the_cpu(cuda, T, k, D, m,
+                                                      rows, dtype):
+    g = torch.Generator().manual_seed(T + D)
+    cot = torch.randn(T, D, generator=g).to(dtype)
+    if rows is None:
+        idx = torch.randint(0, m, (T, k), generator=g, dtype=torch.int32)
+    else:
+        pick = torch.randint(0, len(rows), (T, k), generator=g)
+        idx = torch.tensor(rows, dtype=torch.int32)[pick]
+    got = csr.csr_scatter_add(cot.to(cuda), idx.to(cuda), m)
+    torch.cuda.synchronize()
+    want = csr.csr_scatter_add(cot, idx, m)
+    assert got.dtype == torch.float32 and torch.equal(got.cpu(), want)
+
+
+def test_csr_kernel_takes_an_unaligned_cotangent(cuda):
+    cot = torch.randn(7 * 64 + 1, device=cuda)[1:].view(7, 64)
+    assert cot.is_contiguous() and cot.data_ptr() % 16
+    idx = torch.randint(0, 32, (7, 3), dtype=torch.int32, device=cuda)
+    assert torch.equal(csr.csr_scatter_add(cot, idx, 32).cpu(),
+                       csr.csr_scatter_add(cot.cpu(), idx.cpu(), 32))
+
+
+def test_csr_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    cot = torch.randn(4, 8, device=cuda)
+    bins = csr.bin_csr(torch.zeros((4, 2), dtype=torch.int32, device=cuda),
+                       16)
+    with pytest.raises(TypeError):
+        csr.csr_scatter_add_cuda(cot.double(), bins, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        csr.csr_scatter_add_cuda(cot.t().contiguous().t(), bins, 16)
+    with pytest.raises(ValueError, match="row_ptr"):
+        csr.csr_scatter_add_cuda(cot, bins, 15)
+    with pytest.raises(ValueError, match="one device"):
+        csr.csr_scatter_add(cot, torch.zeros((4, 2), dtype=torch.int32), 16)
+
+
+def test_train_step_launches_each_training_kernel_once(cuda):
+    cfg = configs.get_smoke_config("qwen1.5-0.5b", dtype="bfloat16")
+    model = steps_lib.init_fn_for(cfg)(0).to(cuda)
+    step, opt = steps_lib.make_train_step(cfg, TrainConfig(optimizer="adamw"))
+    state = opt.init({n: p.detach() for n, p in model.named_parameters()})
+    tokens = torch.randint(0, cfg.vocab, (4, 17), device=cuda)
+    for _ in range(3):
+        common.reset_launches()
+        state, metrics = step(model, state, {"tokens": tokens})
+        assert common.LAUNCHES == {be.NAME: 1, csr.NAME: 1, ce.FWD: 1,
+                                   ce.BWD: 1}
+        assert bool(torch.isfinite(metrics["loss"]))
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 @pytest.mark.parametrize("B,live", [(1, None), (8, None), (8, [0, 3, 7])])

@@ -265,7 +265,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "('jax', 'jaxlib', 'repro'))\n"
         "for name in ('serving.retrieval', 'serving.engine', "
         "'launch.serve', 'kernels.bloom_embed', 'models.transformer', "
-        "'configs.qwen1_5_0_5b'):\n"
+        "'configs.qwen1_5_0_5b', 'launch.train', 'kernels.bloom_ce', "
+        "'kernels.bloom_csr', 'core.losses', 'optim.optimizers', "
+        "'train.trainer', 'checkpoint.checkpointer', 'data.pipeline', "
+        "'data.synthetic'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
