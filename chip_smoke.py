@@ -53,7 +53,33 @@ Phases, one line of numbers each:
                 finite and step 8's below step 1's; then a resume drill (4
                 steps with a checkpoint, then a fresh run that restores it
                 and trains to 8) whose losses 5-8 equal the straight run's
-                within rtol 1e-6.
+                within rtol 1e-6;
+  8. kernels-quant — the quantized variants (table_dtype) against their
+                plain versions on the same tensors on the card,
+                bit-identical: bloom_embed over f32, bf16, int8 (+ per-row
+                scales) and fp8 storage into bf16 and f32 outputs at T = 1,
+                8, 14, 4096, D = 1024, k = 4, m = 30,208, at a ragged D and
+                at k = 1 and 3; bloom_decode_topk over f32, bf16, int8 and
+                fp8 logp with the in-kernel hash at web10m (all rows, and
+                rows 0, 3, 7) and at the LM shapes (B = 1 and 8), and int8
+                with the explicit H; the in-kernel-hash result must equal
+                the explicit-H result on the same logp (the hashes equal
+                cached_hash_matrix).  Then each variant's device and
+                back-to-back time, its plain version's, a one-call library
+                yardstick, and the bound (bytes over 3.35 TB/s, or the
+                hash's integer operations once per id over the int32 rate);
+  9. serve-quant — the web10m drill through RetrievalEngine with
+                table_dtype int8 (and once each with fp8_e4m3, bfloat16,
+                float32), and qwen1.5-0.5b at full width, bf16, 8 slots, 16
+                mixed-length requests, continuous, with table_dtype int8,
+                fp8_e4m3, bfloat16 and float32, and int8 with the
+                precomputed hash matrix (bloom on_the_fly off); counts
+                reset just before each run and read just after it: every
+                decode step (and LM prefill) must launch that dtype's
+                embed and decode variants once each, the served ids and a
+                served first token must equal the plain versions' on the
+                same inputs; then the median decode step time of the int8
+                path beside the auto path's.
 Then the card's name and power limit, one JSON line of kernel numbers, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code
 is not 0 and the last line is not printed.  Without a CUDA device, or
@@ -75,6 +101,10 @@ SRC = Path(__file__).resolve().parent / "src"
 # cores; the bound of a kernel is the larger of bytes/rate and ops/peak
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# int32 operations outside the tensor cores: 132 SMs x 64 INT32 lanes per
+# SM per clock (4 sub-partitions of 16) x 1.98 GHz, the H100 SXM's maximum
+# boost clock (NVIDIA's Hopper white paper and data sheet)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -582,6 +612,320 @@ def phase_serve(torch, dt, common, bloom, retrieval, get_retrieval_config):
     return launches
 
 
+def _bound_int(nbytes: int, int_ops: int):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    int32 operations over the int32 rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = int_ops / INT32_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def phase_embed_quant(torch, be, common, quant):
+    """The quantized bloom_embed variants against their plain version;
+    returns one JSON row per storage dtype, timed at T = 8 (one decode
+    step of 8 slots) into bf16 (the LM's compute dtype)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    m, D, k = 30208, 1024, 4
+    gen = torch.Generator().manual_seed(5)
+    base = torch.randn(m, D, generator=gen).to(dev)
+    cases = [(T, D, k) for T in (1, 8, 14, 4096)]
+    cases += [(14, 1000, 4), (14, 1020, 4), (8, 1024, 1), (8, 1024, 3)]
+    rows = []
+    for td in quant.TABLE_DTYPES:
+        err = 0.0
+        for out_dtype in (torch.bfloat16, torch.float32):
+            for T, Dc, kc in cases:
+                q, s = quant.quantize_table(base[:, :Dc].contiguous(), td)
+                idx = torch.randint(0, m, (T, kc), generator=gen,
+                                    dtype=torch.int32).to(dev)
+                got = be.bloom_embed_quantized_cuda(q, s, idx, out_dtype)
+                torch.cuda.synchronize()
+                want = be.bloom_embed_quantized_plain(q, s, idx, out_dtype)
+                _check(got.dtype == out_dtype and torch.equal(got, want),
+                       f"bloom_embed {td} -> {out_dtype} T={T} D={Dc} "
+                       f"k={kc}: kernel != plain version")
+                err = max(err, _max_abs_err(got.float(), want.float()))
+        print(f"kernels-quant: bloom_embed {td} into bf16 and f32: "
+              f"bit-identical on {len(cases)} cases (T, D, k) = {cases}",
+              flush=True)
+
+        T = 8
+        q, s = quant.quantize_table(base, td)
+        idx = torch.randint(0, m, (T, k), generator=gen,
+                            dtype=torch.int32).to(dev)
+        idx64 = idx.long()
+        # the library yardstick reads the stored values widened to the
+        # output dtype ahead of the call, with the int8 scales as
+        # per-sample weights
+        wide = q.to(torch.bfloat16) if td != "int8" else q.float()
+        psw = None if s is None else s[idx64]
+        times = _times(common, {
+            "kernel": lambda: be.bloom_embed_quantized_cuda(
+                q, s, idx, torch.bfloat16),
+            "plain": lambda: be.bloom_embed_quantized_plain(
+                q, s, idx, torch.bfloat16),
+            "embedding_bag": lambda: F.embedding_bag(
+                idx64, wide, mode="sum", per_sample_weights=psw)})
+        n_rows = int(torch.unique(idx).numel())
+        nbytes = be.min_bytes(n_rows, T, k, D, quant.table_itemsize(td),
+                              out_itemsize=2, row_scales=s is not None)
+        bound_ms, by = _bound(nbytes, T * (k - 1) * D
+                              + (T * k * D if s is not None else 0))
+        print(f"kernels-quant: bloom_embed {td} -> bf16 T={T} m={m} D={D} "
+              f"k={k}: device ms (graph) / back-to-back ms (events): "
+              f"{_times_line(times)}, bound {bound_ms * 1e3:.3f} us ({by}, "
+              f"{nbytes} bytes)", flush=True)
+        rows.append({"name": be.variant_name(q.dtype), "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/bloom_embed.cu",
+                     "replaces": ("src/repro/kernels/bloom_embed.py:71"
+                                  if td == "int8" else
+                                  "src/repro/kernels/bloom_embed.py:294"),
+                     "launches": None, "max_abs_err": err,
+                     "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": times["embedding_bag"][0]})
+    return rows
+
+
+def phase_decode_quant(torch, dt, common, bloom, quant, get_retrieval_config):
+    """The quantized and in-kernel-hash bloom_decode_topk variants against
+    their plain version, and against the explicit-H kernel on the same
+    logp; returns one JSON row per variant, timed at web10m (B = 8)."""
+    from repro_torch import configs
+    from repro_torch.models import io as io_lib
+    dev = torch.device("cuda")
+    rcfg = get_retrieval_config("web10m")
+    lm_spec = io_lib.vocab_spec(configs.get_config("qwen1.5-0.5b"))
+    gen = torch.Generator().manual_seed(6)
+    partial = torch.zeros(8, dtype=torch.bool, device=dev)
+    partial[[0, 3, 7]] = True
+    shapes = [("web10m", rcfg.spec(), 8, rcfg.topk),
+              ("LM B=1", lm_spec, 1, 8), ("LM B=8", lm_spec, 8, 8)]
+    variants = [(td, True) for td in quant.TABLE_DTYPES] + [("int8", False)]
+    rows, errs = {}, {}
+    for label, spec, B, topk in shapes:
+        H = bloom.cached_hash_matrix(spec, dev)
+        logp = torch.log_softmax(
+            torch.randn(B, spec.m, generator=gen), -1).to(dev)
+        hs = (spec.d, spec.k, spec.seed)
+        for td, hashed in variants:
+            q, s = quant.quantize_table(logp, td)
+            name = dt.variant_name(q.dtype, hashed)
+            h, spec_arg = (None, hs) if hashed else (H, None)
+            acts = [None] + ([partial] if B == 8 else [])
+            for act in acts:
+                kv, ki = dt.bloom_decode_topk_cuda(q, h, topk, act, s,
+                                                   spec_arg)
+                ev, ei = dt.bloom_decode_topk_cuda(q, H, topk, act, s)
+                torch.cuda.synchronize()
+                pv, pi = dt.bloom_decode_topk_plain(q, h, topk, act, s,
+                                                    spec_arg)
+                what = f"{name} {label} active={act is not None}"
+                _check(torch.equal(ki, pi) and torch.equal(kv, pv),
+                       f"{what}: kernel != plain version")
+                _check(torch.equal(ki, ei) and torch.equal(kv, ev),
+                       f"{what}: in-kernel hash != explicit H")
+                errs[name] = max(errs.get(name, 0.0), _max_abs_err(kv, pv))
+            Hl = H.long()
+            # the kernel on the device alone (CUDA graph replays) and back
+            # to back (events); the plain version and the library yardstick
+            # back to back only (the plain hash builds small host tensors,
+            # which a graph capture refuses)
+            kernel = lambda: dt.bloom_decode_topk_cuda(  # noqa: E731
+                q, h, topk, None, s, spec_arg)
+            times = {"kernel": (common.graph_time_ms(kernel, 10, 3),
+                                common.time_ms(kernel, 10, 2))}
+            for n, f in (("plain", lambda: dt.bloom_decode_topk_plain(
+                              q, h, topk, None, s, spec_arg)),
+                         ("library", lambda: torch.topk(
+                             quant.dequantize_table(q, s)[:, Hl].sum(-1),
+                             topk))):
+                t = common.time_ms(f, 3, 1)
+                times[n] = (t, t)
+            nbytes = dt.min_bytes(B, B, m=spec.m, d=spec.d, k=spec.k,
+                                  topk=topk,
+                                  logp_itemsize=quant.table_itemsize(td),
+                                  inkernel_hash=hashed,
+                                  row_scales=s is not None)
+            int_ops = dt.hash_ops(spec.d, spec.k) if hashed else 0
+            bound_ms, by = _bound_int(nbytes, int_ops)
+            print(f"kernels-quant: {name} {label} m={spec.m} d={spec.d} "
+                  f"k={spec.k} topk={topk}: bit-identical to plain and to "
+                  f"the explicit-H kernel (all rows"
+                  f"{', rows 0,3,7' if B == 8 else ''}); device ms (graph) / "
+                  f"back-to-back ms (events; plain and library: events "
+                  f"only): {_times_line(times)}, bound "
+                  f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes, "
+                  f"{int_ops} int ops)", flush=True)
+            if label == "web10m":
+                rows[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "bloom_decode_topk.cu",
+                    "replaces": "src/repro/kernels/bloom_decode_topk.py:249",
+                    "launches": None, "max_abs_err": None,
+                    "ms": times["kernel"][0], "plain_ms": times["plain"][1],
+                    "bound_ms": bound_ms, "bound_by": by,
+                    "library_ms": times["library"][1]}
+    for name, row in rows.items():
+        row["max_abs_err"] = errs[name]
+    return list(rows.values())
+
+
+def phase_serve_quant(torch, be, dt, common, bloom, quant, retrieval,
+                      get_retrieval_config):
+    """The quantized serving paths on CUDA; returns each quantized
+    variant's launches summed over the runs."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import profile_step, serve, steps as steps_lib
+    from repro_torch.models import io as io_lib
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.loadgen import (RetrievalLoadSpec,
+                                             mixed_length_workload,
+                                             retrieval_workload)
+    dev = torch.device("cuda")
+    totals = {}
+
+    def add(counts):
+        for n, c in counts.items():
+            if n.startswith((dt.NAME + ".", be.NAME + ".")):
+                totals[n] = totals.get(n, 0) + c
+
+    # web10m through RetrievalEngine, one decode variant per dtype
+    for td in ("int8", "fp8_e4m3", "bfloat16", "float32"):
+        rcfg = get_retrieval_config("web10m", table_dtype=td)
+        wl = retrieval_workload(RetrievalLoadSpec(
+            n_requests=8, catalog=rcfg.d, c_max=rcfg.c_max, rate=2.0,
+            seed=0))
+        params = retrieval.init_retrieval_params(rcfg, device=dev)
+        engine = retrieval.RetrievalEngine(rcfg, params, n_slots=8)
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        served, st = engine.run([r.fresh_copy() for r in wl])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(common.LAUNCHES)
+        name = dt.variant_name(quant.storage_dtype(td), True)
+        _check(counts == {name: st.decode_steps},
+               f"web10m {td}: launches {counts} for {st.decode_steps} "
+               "decode steps")
+        add(counts)
+        prefill = steps_lib.make_retrieval_prefill_step(rcfg)
+        logits = []
+        for r in wl:
+            items = torch.full((1, rcfg.c_max), -1, dtype=torch.int32)
+            items[0, :r.prompt_len] = torch.as_tensor(r.prompt)
+            logits.append(prefill(params, items.to(dev))[0])
+        logp = torch.log_softmax(torch.stack(logits).float(), -1)
+        q, s = quant.quantize_table(logp, td)
+        spec = rcfg.spec()
+        pv, pi = dt.bloom_decode_topk_plain(q, None, rcfg.topk, None, s,
+                                            (spec.d, spec.k, spec.seed))
+        for i, r in enumerate(wl):
+            _check(served[r.rid].topk_ids == pi[i].tolist()
+                   and served[r.rid].topk_scores == pv[i].tolist(),
+                   f"web10m {td} rid {r.rid}: served != plain version")
+        print(f"serve-quant: web10m table_dtype {td}: {st.decode_steps} "
+              f"decode steps, launches {counts}, wall {wall:.3f} s, served "
+              f"top-{rcfg.topk} == plain version for {len(wl)} requests",
+              flush=True)
+
+    # full-width qwen1.5-0.5b, one model, one Engine per table dtype
+    cfg = configs.get_config("qwen1.5-0.5b")
+    model = serve.build_model(cfg, 0, dev)
+    wl = mixed_length_workload(cfg.vocab, 16, seed=0)
+    runs = [(td, cfg.bloom.on_the_fly) for td in
+            ("int8", "fp8_e4m3", "bfloat16", "float32")]
+    runs.append(("int8", False))
+    for td, fly in runs:
+        qcfg = dataclasses.replace(
+            cfg, table_dtype=td,
+            bloom=dataclasses.replace(cfg.bloom, on_the_fly=fly))
+        engine = Engine(qcfg, model, n_slots=8, max_len=40, topk=8)
+        reqs = [r.fresh_copy() for r in wl]
+        torch.cuda.synchronize()
+        common.reset_launches()
+        res, st = engine.run(reqs)
+        torch.cuda.synchronize()
+        counts = dict(common.LAUNCHES)
+        _check(all(r.done and not r.rejected for r in res.values()),
+               f"LM {td}: a request was not served")
+        sd = quant.storage_dtype(td)
+        want = {be.variant_name(sd): st.prefills + st.decode_steps,
+                dt.variant_name(sd, fly): st.prefills + st.decode_steps}
+        _check(counts == want, f"LM {td} on_the_fly={fly}: launches "
+               f"{counts}, want {want}")
+        add(counts)
+        for r in res.values():
+            _check(len(r.tokens) == r.max_gen
+                   and all(0 <= t < cfg.vocab for t in r.tokens),
+                   f"LM {td}: rid {r.rid} tokens {r.tokens}")
+        # request 0's first token through the plain versions
+        r0 = wl[0]
+        spec = io_lib.vocab_spec(qcfg)
+        prompt = torch.as_tensor(r0.prompt, dtype=torch.int64,
+                                 device=dev)[None]
+        with torch.inference_mode():
+            idx = spec.indices_for(prompt.reshape(-1)).contiguous()
+            qt, st_ = bloom.cached_quantized_table(spec, model.embed, td)
+            _check(torch.equal(
+                be.bloom_embed_quantized_cuda(qt, st_, idx, torch.bfloat16),
+                be.bloom_embed_quantized_plain(qt, st_, idx,
+                                               torch.bfloat16)),
+                f"LM {td}: prompt embedding kernel != plain version")
+            last = steps_lib.make_prefill_step(qcfg)(model,
+                                                     prompt)["last_logits"]
+            q, s = quant.quantize_table(
+                torch.log_softmax(last.float(), -1), td)
+            H = None if fly else bloom.cached_hash_matrix(spec, dev)
+            _, ids = dt.bloom_decode_topk_plain(
+                q, H, 8, None, s,
+                (spec.d, spec.k, spec.seed) if fly else None)
+        _check(int(ids[0, 0]) == res[r0.rid].tokens[0],
+               f"LM {td}: served first token != plain decode")
+        print(f"serve-quant: {cfg.name} table_dtype {td} on_the_fly {fly}: "
+              f"{st.decode_steps} decode steps, {st.prefills} prefills, "
+              f"{st.tokens_out} tokens out, wall {st.wall_s:.3f} s, "
+              f"launches {counts}; request 0's first token equals the "
+              f"plain decode", flush=True)
+    del model, engine
+
+    # decode step time, int8 beside auto: 8 live slots, host clock with a
+    # synchronise per step, the two paths in turns (auto, int8, int8, auto)
+    # so that the host's drift falls on both; then the Eq. 3 recovery alone
+    # (io.recover_topk: the logp quantize and the decode kernel, or the
+    # decode kernel on H), back to back with CUDA events
+    fns = {td: profile_step.decode_step(
+        configs.get_config("qwen1.5-0.5b", table_dtype=td), dev, 24)
+        for td in ("auto", "int8")}
+    walls = {td: [] for td in fns}
+    for i in range(24):
+        for td in (("auto", "int8") if i % 2 == 0 else ("int8", "auto")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[td]()
+            torch.cuda.synchronize()
+            if i >= 2:
+                walls[td].append((time.perf_counter() - t0) * 1e3)
+    del fns
+    med = {td: float(np.median(w)) for td, w in walls.items()}
+    logits = torch.randn(8, cfg.m_vocab, device=dev)
+    active = torch.ones(8, dtype=torch.bool, device=dev)
+    rec = {td: common.time_ms(lambda: io_lib.recover_topk(
+        configs.get_config("qwen1.5-0.5b", table_dtype=td), logits, 8,
+        active=active), 50, 5) for td in ("auto", "int8")}
+    print(f"serve-quant: full-width decode step, 8 live slots, median of "
+          f"{len(walls['auto'])} each, in turns (host clock, synchronised):"
+          f" int8 {med['int8']:.6f} ms, auto {med['auto']:.6f} ms; the "
+          f"Eq. 3 recovery alone (back to back, events): int8 "
+          f"{rec['int8']:.6f} ms, auto {rec['auto']:.6f} ms", flush=True)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -627,7 +971,18 @@ def main() -> int:
     embed_row["launches"] += trained[be.NAME]
     for r in train_rows:
         r["launches"] = trained[r["name"]]
-    rows = [row, embed_row, *train_rows]
+    from repro_torch.core import quant
+    quant_rows = (phase_embed_quant(torch, be, common, quant)
+                  + phase_decode_quant(torch, dt, common, bloom, quant,
+                                       get_retrieval_config))
+    served = phase_serve_quant(torch, be, dt, common, bloom, quant,
+                               retrieval, get_retrieval_config)
+    _check(set(served) == {r["name"] for r in quant_rows},
+           f"quantized variants launched {sorted(served)}, rows "
+           f"{sorted(r['name'] for r in quant_rows)}")
+    for r in quant_rows:
+        r["launches"] = served[r["name"]]
+    rows = [row, embed_row, *train_rows, *quant_rows]
     _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")
 

@@ -10,8 +10,8 @@ CUDA, plain version on the CPU; its Bloom embedding backward is the CSR
 scatter-add); the XLA execution knobs (``scan_layers``, ``remat``,
 ``attn_chunk_*``, ``attn_impl``, ``causal_skip``, ``attn_bf16_scores``,
 ``moe_impl``, ``unroll_for_analysis``); and the shape and mesh configs,
-which no ported module reads.  ``table_dtype`` other than ``"auto"``
-raises until the quantized embed and decode kernels are ported.
+which no ported module reads.  ``table_dtype`` is validated when the
+config is made: an unknown value raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -59,16 +59,14 @@ class ModelConfig:
     dtype: str = "bfloat16"       # activation/compute dtype
     # --- paper technique ---
     bloom: BloomConfig = dataclasses.field(default_factory=BloomConfig)
-    table_dtype: str = "auto"     # Bloom table storage dtype; only "auto"
-                                  # (cast to `dtype`) is ported
+    table_dtype: str = "auto"     # Bloom table storage dtype: auto
+                                  # (legacy: cast to `dtype`) | float32 |
+                                  # bfloat16 | int8 (per-row scales) |
+                                  # fp8_e4m3 — core.quant is the source
+                                  # of truth; grads are straight-through
 
     def __post_init__(self):
-        if quant.resolve_table_dtype(self.table_dtype,
-                                     allow_auto=True) != "auto":
-            raise NotImplementedError(
-                f"table_dtype={self.table_dtype!r}: the quantized Bloom "
-                "embed and decode kernels are not ported yet (ROADMAP B3, "
-                "B5); use table_dtype='auto'")
+        quant.resolve_table_dtype(self.table_dtype, allow_auto=True)
 
     @property
     def resolved_head_dim(self) -> int:

@@ -10,7 +10,8 @@ frozen config describing exactly those pieces.
 Scale notes that drive the presets:
   * ``on_the_fly=True`` always: the hash indices are a pure function of
     the spec; the serving decode caches the (d, k) int32 matrix once per
-    device (``core.bloom.cached_hash_matrix``, ~80 MB at d = 10M, k = 2).
+    device (``core.bloom.cached_hash_matrix``, ~80 MB at d = 10M, k = 2),
+    or, with a quantized ``table_dtype``, re-derives them in the kernel.
   * the decode's working set is (B, m) plus H; the dense-table oracle it
     replaces needs the full (d, m) table plus a (B, d) score matrix.
 """
@@ -39,8 +40,11 @@ class RetrievalConfig:
     seed: int = 0             # hash seed AND tower-init seed
     chunk: int = 65536        # vocab chunk of the full-score eval
     b_tile: int = 8           # row block of the reference's TPU bytes model
-    table_dtype: str = "auto" # pool-logits storage dtype; only "auto"
-                              # (f32) is ported
+    table_dtype: str = "auto" # pool-logits storage dtype for the decode:
+                              # auto (legacy f32) | float32 | bfloat16 |
+                              # int8 | fp8_e4m3; a quantized decode also
+                              # re-derives the hash indices in the kernel
+                              # (no (d, k) matrix read)
 
     def __post_init__(self):
         if not (0 < self.m <= self.d):
@@ -49,11 +53,7 @@ class RetrievalConfig:
             raise ValueError(f"need 1 <= topk <= d, got topk={self.topk}")
         if self.c_max < 1:
             raise ValueError(f"need c_max >= 1, got {self.c_max}")
-        if quant.resolve_table_dtype(self.table_dtype,
-                                     allow_auto=True) != "auto":
-            raise NotImplementedError(
-                f"table_dtype={self.table_dtype!r}: quantized retrieval "
-                "decode is not ported yet; use table_dtype='auto'")
+        quant.resolve_table_dtype(self.table_dtype, allow_auto=True)
 
     def spec(self) -> BloomSpec:
         """The Bloom IO spec; on_the_fly on purpose (see module doc)."""

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import hashing
+from repro_torch.core import hashing, quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +81,35 @@ def cached_hash_matrix(spec: BloomSpec, device) -> torch.Tensor:
 def _cached_hash_matrix(spec: BloomSpec, device: str) -> torch.Tensor:
     ids = torch.arange(spec.d, dtype=torch.int64, device=device)
     return spec.indices_for(ids).contiguous()
+
+
+_QUANT_CACHE: dict = {}
+
+
+def cached_quantized_table(spec: BloomSpec, table: torch.Tensor,
+                           table_dtype: str):
+    """``quant.quantize_table(table, table_dtype)`` for a frozen-params
+    caller, cached per (spec, table_dtype, device): serving reads the same
+    embedding table every step.
+
+    A hit needs the very same table tensor at the same in-place version
+    (``_version``): params swapped under the same spec (a checkpoint
+    reload) or updated in place (the port's train step writes into its
+    params) miss and requantize, so the cache never serves stale values.
+    A table without a version counter (an inference-mode tensor) is
+    quantized on every call."""
+    td = quant.resolve_table_dtype(table_dtype)
+    key = (spec, td, str(table.device))
+    version = None if table.is_inference() else table._version
+    hit = _QUANT_CACHE.get(key)
+    if (hit is not None and version is not None and hit[0] is table
+            and hit[1] == version):
+        return hit[2]
+    with torch.no_grad():
+        q = quant.quantize_table(table, td)
+    if version is not None:
+        _QUANT_CACHE[key] = (table, version, q)
+    return q
 
 
 # --------------------------------------------------------------------------

@@ -1,16 +1,26 @@
 """Fused Bloom vocabulary recovery + top-k: the serving decode (Eq. 3).
 
-For each row b of ``logp`` (B, m) and the (d, k) hash matrix H, the top
-``topk`` item ids over [0, d) of ``score[b, i] = sum_j logp[b, H[i, j]]``
-(summed in f32 in j order), ranked by (score descending, id ascending), so
-equal scores resolve to the lowest id.  Rows with ``active[b] == 0`` return
-(-inf, 0).  The (B, d) score matrix is never materialised.
+For each row b of ``logp`` (B, m): the top ``topk`` item ids over [0, d)
+of ``score[b, i] = sum_j row_b[h_j(i)]`` (summed in f32 in j order),
+ranked by (score descending, id ascending), so equal scores resolve to the
+lowest id.  ``row_b`` is logp row b as f32: logp may be stored narrow
+(``table_dtype``, core/quant.py) as bf16, fp8 e4m3, or int8 with a (B,)
+f32 per-row ``scales`` multiplied in before the gather.  The indices h_j(i)
+are H[i, j] of a (d, k) hash matrix, or, with ``H=None`` and
+``hash_spec=(d, k, seed)``, re-derived per id by the enhanced double hash
+of ``core.hashing.double_hash`` (bit-identical to the cached matrix of an
+on-the-fly spec).  Rows with ``active[b] == 0`` return (-inf, 0).  The
+(B, d) score matrix is never materialised.
 
-Three functions with one signature ``(logp, H, topk, active=None)``:
+Three functions with one signature
+``(logp, H, topk, active=None, scales=None, hash_spec=None)``:
 
 * ``bloom_decode_topk_cuda`` launches the hand-written Hopper kernel
   (``csrc/bloom_decode_topk.cu``, which replaces the JAX package's Pallas
-  ``bloom_decode_topk_pallas``) on CUDA tensors, and counts its launches.
+  ``bloom_decode_topk_pallas`` and its ``has_scales`` / ``hash_spec``
+  variants) on CUDA tensors, and counts its launches: ``bloom_decode_topk``
+  for f32 logp with H, ``bloom_decode_topk.<dtype>[.hash]`` for the
+  others (``variant_name``).
 * ``bloom_decode_topk_plain`` is the same function in plain PyTorch on any
   device: Eq. 3 scores one vocab chunk at a time, merged into the running
   best with a stable descending sort.  The CPU path, and what the kernel is
@@ -27,17 +37,39 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import hashing, quant
 from repro_torch.kernels import common
 
 NAME = "bloom_decode_topk"
 PLAIN_CHUNK = 65536
-# the kernel stages one logp row in shared memory (227 KB per block)
+# the kernel stages one logp row in shared memory as f32 (227 KB per block)
 MAX_M = 56 * 1024
 # shared memory of one SM on sm_90a (H100, H200), and what a pass-1 block
 # takes beyond its logp row (its static arrays and the 1 KB the system
 # reserves per block), for counting the blocks that fit on an SM
 SMEM_PER_SM = 228 * 1024
 SMEM_PER_BLOCK_EXTRA = 2048
+# the logp storage dtype codes of csrc/bloom_decode_topk.cu
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+          torch.float8_e4m3fn: 3}
+# integer operations of the in-kernel hash per id, as the reference's
+# formula states them: two salted splitmix32 (an xor and 9 operations
+# each), h1's modulo, h2's modulo and add, then for each j >= 1 a
+# multiply, two adds and a modulo
+HASH_OPS_BASE, HASH_OPS_PER_J = 23, 4
+
+
+def hash_ops(d: int, k: int) -> int:
+    """Integer operations of the in-kernel hash of d ids, once per id."""
+    return int(d * (HASH_OPS_BASE + HASH_OPS_PER_J * (k - 1)))
+
+
+def variant_name(dtype: torch.dtype, hashed: bool) -> str:
+    """Launch-count name of a call on logp stored as ``dtype``, with
+    (``hashed``) or without the in-kernel hash."""
+    if dtype == torch.float32 and not hashed:
+        return NAME
+    return f"{NAME}.{quant.storage_name(dtype)}" + (".hash" if hashed else "")
 
 
 def modeled_hbm_bytes(active, b_tile: int, *, m: int, d: int, k: int,
@@ -73,52 +105,89 @@ def modeled_hbm_bytes(active, b_tile: int, *, m: int, d: int, k: int,
 
 
 def min_bytes(n_live: int, B: int, *, m: int, d: int, k: int,
-              topk: int) -> int:
-    """The least device-memory traffic of one call: H read once, each live
-    logp row read once, the (B, topk) f32 + i32 outputs written once."""
-    return int(d * k * 4 + n_live * m * 4 + B * topk * 8)
+              topk: int, logp_itemsize: int = 4,
+              inkernel_hash: bool = False, row_scales: bool = False) -> int:
+    """The least device-memory traffic of one call: H read once (none with
+    the in-kernel hash), each live logp row once at ``logp_itemsize`` bytes
+    an element (and its f32 scale for int8), the (B, topk) f32 + i32
+    outputs written once."""
+    return int((0 if inkernel_hash else d * k * 4)
+               + n_live * (m * logp_itemsize + (4 if row_scales else 0))
+               + B * topk * 8)
 
 
-def _check_shapes(logp: torch.Tensor, H: torch.Tensor, topk: int, active):
-    if logp.ndim != 2 or H.ndim != 2:
-        raise ValueError(f"need logp (B, m) and H (d, k), got "
-                         f"{tuple(logp.shape)} and {tuple(H.shape)}")
-    d = H.shape[0]
+def _check_shapes(logp: torch.Tensor, H, topk: int, active, scales=None,
+                  hash_spec=None):
+    """Shapes and the (H, hash_spec), (dtype, scales) pairings; returns
+    (d, k)."""
+    if logp.ndim != 2:
+        raise ValueError(f"need logp (B, m), got {tuple(logp.shape)}")
+    B, m = logp.shape
+    if (H is None) == (hash_spec is None):
+        raise ValueError("pass exactly one of H and hash_spec")
+    if H is not None:
+        if H.ndim != 2:
+            raise ValueError(f"need H (d, k), got {tuple(H.shape)}")
+        d, k = H.shape
+    else:
+        d, k, _ = hash_spec
+        if not 1 <= k <= m:
+            raise ValueError(f"need 1 <= k <= m, got k={k} m={m}")
     if not (0 < topk <= d):
         raise ValueError(f"need 0 < topk <= d, got topk={topk} d={d}")
-    if active is not None and tuple(active.shape) != (logp.shape[0],):
-        raise ValueError(f"active must be ({logp.shape[0]},), got "
+    if active is not None and tuple(active.shape) != (B,):
+        raise ValueError(f"active must be ({B},), got "
                          f"{tuple(active.shape)}")
+    if logp.dtype not in _CODES:
+        raise TypeError(f"logp must be stored as one of {tuple(_CODES)}, "
+                        f"got {logp.dtype}")
+    if (scales is not None) != (logp.dtype == torch.int8):
+        raise ValueError("int8 logp needs its (B,) row scales, and only "
+                         "int8 logp takes scales")
+    if scales is not None and (scales.dtype != torch.float32
+                               or tuple(scales.shape) != (B,)):
+        raise ValueError(f"scales must be ({B},) float32, got "
+                         f"{tuple(scales.shape)} {scales.dtype}")
+    return d, k
 
 
-def bloom_decode_topk_plain(logp: torch.Tensor, H: torch.Tensor, topk: int,
-                            active: torch.Tensor | None = None):
+def bloom_decode_topk_plain(logp: torch.Tensor, H: torch.Tensor | None,
+                            topk: int, active: torch.Tensor | None = None,
+                            scales: torch.Tensor | None = None,
+                            hash_spec: tuple | None = None):
     """The plain PyTorch version: values (B, topk) f32 descending and ids
     (B, topk) int32, on logp's device.
 
     The first chunk seeds the running best (no sentinels, so a row of -inf
     scores still returns real ids); each later chunk is concatenated AFTER
     the running best, whose ids are all lower, and a stable descending sort
-    keeps equal scores in ascending id order."""
-    _check_shapes(logp, H, topk, active)
-    B = logp.shape[0]
-    d, k = H.shape
-    vals = torch.full((B, topk), -math.inf, dtype=torch.float32,
-                      device=logp.device)
-    ids = torch.zeros((B, topk), dtype=torch.int32, device=logp.device)
-    rows = (torch.arange(B, device=logp.device) if active is None
+    keeps equal scores in ascending id order.  Without H each chunk's
+    indices come from ``hashing.double_hash``."""
+    d, k = _check_shapes(logp, H, topk, active, scales, hash_spec)
+    B, m = logp.shape
+    dev = logp.device
+    vals = torch.full((B, topk), -math.inf, dtype=torch.float32, device=dev)
+    ids = torch.zeros((B, topk), dtype=torch.int32, device=dev)
+    rows = (torch.arange(B, device=dev) if active is None
             else torch.nonzero(active.to(torch.bool)).flatten())
     if rows.numel() == 0:
         return vals, ids
-    lp = logp.float()[rows]
+    lp = logp[rows].float()
+    if scales is not None:
+        lp = lp * scales[rows][:, None]
     best_v = best_i = None
     for c0 in range(0, d, PLAIN_CHUNK):
-        h = H[c0:c0 + PLAIN_CHUNK].long()
+        c1 = min(c0 + PLAIN_CHUNK, d)
+        if H is not None:
+            h = H[c0:c1].long()
+        else:
+            cid64 = torch.arange(c0, c1, dtype=torch.int64, device=dev)
+            h = hashing.double_hash(cid64, k, m, hash_spec[2]).long()
         s = lp[:, h[:, 0]]
         for j in range(1, k):
             s = s + lp[:, h[:, j]]
-        cid = torch.arange(c0, c0 + h.shape[0], dtype=torch.int32,
-                           device=logp.device).expand(s.shape)
+        cid = torch.arange(c0, c1, dtype=torch.int32,
+                           device=dev).expand(s.shape)
         if best_v is not None:
             s = torch.cat([best_v, s], dim=1)
             cid = torch.cat([best_i, cid], dim=1)
@@ -130,24 +199,26 @@ def bloom_decode_topk_plain(logp: torch.Tensor, H: torch.Tensor, topk: int,
     return vals, ids
 
 
-def bloom_decode_topk_cuda(logp: torch.Tensor, H: torch.Tensor, topk: int,
-                           active: torch.Tensor | None = None):
+def bloom_decode_topk_cuda(logp: torch.Tensor, H: torch.Tensor | None,
+                           topk: int, active: torch.Tensor | None = None,
+                           scales: torch.Tensor | None = None,
+                           hash_spec: tuple | None = None):
     """Launch the Hopper kernel on PyTorch's current stream (no sync).
 
-    logp (B, m) f32 and H (d, k) int32, contiguous, on one CUDA device;
-    ``active`` (B,) bool or int, or None.  Raises on anything the kernel
-    does not take."""
-    _check_shapes(logp, H, topk, active)
-    if not (logp.is_cuda and H.is_cuda and logp.device == H.device):
-        raise ValueError("logp and H must lie on one CUDA device")
-    if logp.dtype != torch.float32 or H.dtype != torch.int32:
-        raise TypeError(f"need float32 logp and int32 H, got {logp.dtype} "
-                        f"and {H.dtype}")
-    if not (logp.is_contiguous() and H.is_contiguous()):
-        raise ValueError("logp and H must be contiguous")
+    logp (B, m) float32, bfloat16, int8 (with (B,) f32 ``scales``) or
+    float8_e4m3fn; H (d, k) int32, or None with ``hash_spec=(d, k, seed)``
+    to hash in the kernel; contiguous, on one CUDA device; ``active`` (B,)
+    bool or int, or None.  Raises on anything the kernel does not take."""
+    d, k = _check_shapes(logp, H, topk, active, scales, hash_spec)
+    tensors = [t for t in (logp, H, scales) if t is not None]
+    if not all(t.is_cuda and t.device == logp.device for t in tensors):
+        raise ValueError("logp, H and scales must lie on one CUDA device")
+    if H is not None and H.dtype != torch.int32:
+        raise TypeError(f"need int32 H, got {H.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("logp, H and scales must be contiguous")
     B, m = logp.shape
-    d, k = H.shape
-    if k == 2 and H.data_ptr() % 8:
+    if H is not None and k == 2 and H.data_ptr() % 8:
         raise ValueError("k = 2 needs H on an 8-byte boundary (the kernel "
                          "loads each row as one int2)")
     if d >= 2 ** 31 or B >= 2 ** 31:
@@ -159,29 +230,42 @@ def bloom_decode_topk_cuda(logp: torch.Tensor, H: torch.Tensor, topk: int,
     if topk > lib.bloom_decode_topk_max_topk():
         raise ValueError(f"topk={topk} exceeds the kernel's maximum "
                          f"{lib.bloom_decode_topk_max_topk()}")
+    if H is None and k > lib.bloom_decode_topk_max_hash_k():
+        raise ValueError(f"k={k} exceeds the in-kernel hash's maximum "
+                         f"{lib.bloom_decode_topk_max_hash_k()}")
     act = None
     if active is not None:
         if active.device != logp.device:
             raise ValueError("active must lie on logp's device")
         act = active.to(torch.int32).contiguous()
     vals, ids = _launch(lib, logp, H, topk, act,
-                        _groups(logp.device, B, d, m))
-    common.count_launch(NAME)
+                        _groups(logp.device, B, d, m), scales, hash_spec)
+    common.count_launch(variant_name(logp.dtype, H is None))
     return vals, ids
 
 
-def _launch(lib: ctypes.CDLL, logp: torch.Tensor, H: torch.Tensor,
-            topk: int, act: torch.Tensor | None, groups: int):
+def _launch(lib: ctypes.CDLL, logp: torch.Tensor, H: torch.Tensor | None,
+            topk: int, act: torch.Tensor | None, groups: int,
+            scales: torch.Tensor | None = None,
+            hash_spec: tuple | None = None):
     """Both passes at ``groups`` catalog groups into fresh outputs, on the
     current stream, with inputs the caller has checked; ``act`` is (B,)
     int32 or None.  Raises on a CUDA error; counts nothing."""
-    (B, m), (d, k), dev = logp.shape, H.shape, logp.device
+    (B, m), dev = logp.shape, logp.device
+    if H is not None:
+        (d, k), c1, c2 = H.shape, 0, 0
+    else:
+        d, k, seed = hash_spec
+        c1, c2 = hashing.double_hash_salts(seed)
     part_v = torch.empty((groups, B, topk), dtype=torch.float32, device=dev)
     part_i = torch.empty((groups, B, topk), dtype=torch.int32, device=dev)
     vals = torch.empty((B, topk), dtype=torch.float32, device=dev)
     ids = torch.empty((B, topk), dtype=torch.int32, device=dev)
-    err = lib.bloom_decode_topk_f32(
-        logp.data_ptr(), H.data_ptr(), None if act is None else act.data_ptr(),
+    err = lib.bloom_decode_topk(
+        logp.data_ptr(), _CODES[logp.dtype],
+        None if scales is None else scales.data_ptr(),
+        None if H is None else H.data_ptr(), c1, c2,
+        None if act is None else act.data_ptr(),
         part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
         ids.data_ptr(), B, m, d, k, topk, groups,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -192,12 +276,15 @@ def _launch(lib: ctypes.CDLL, logp: torch.Tensor, H: torch.Tensor,
     return vals, ids
 
 
-def bloom_decode_topk(logp: torch.Tensor, H: torch.Tensor, topk: int,
-                      active: torch.Tensor | None = None):
+def bloom_decode_topk(logp: torch.Tensor, H: torch.Tensor | None, topk: int,
+                      active: torch.Tensor | None = None,
+                      scales: torch.Tensor | None = None,
+                      hash_spec: tuple | None = None):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if common.resolve_impl(logp, H, active) == "kernel":
-        return bloom_decode_topk_cuda(logp, H, topk, active)
-    return bloom_decode_topk_plain(logp, H, topk, active)
+    if common.resolve_impl(logp, H, active, scales) == "kernel":
+        return bloom_decode_topk_cuda(logp, H, topk, active, scales,
+                                      hash_spec)
+    return bloom_decode_topk_plain(logp, H, topk, active, scales, hash_spec)
 
 
 def _groups(device: torch.device, B: int, d: int, m: int) -> int:
@@ -220,12 +307,14 @@ def _library(defines: tuple = ()) -> ctypes.CDLL:
     """The built kernel; ``defines`` (``-D`` flags) select a tuning
     variant, as ``sweep_decode_topk`` does."""
     lib = common.load_library(NAME, defines)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bloom_decode_topk_f32.argtypes = [p, p, p, p, p, p, p,
-                                          i, i, i, i, i, i, p]
-    lib.bloom_decode_topk_f32.restype = i
-    lib.bloom_decode_topk_max_topk.argtypes = []
-    lib.bloom_decode_topk_max_topk.restype = i
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.bloom_decode_topk.argtypes = [p, i, p, p, u, u, p, p, p, p, p,
+                                      i, i, i, i, i, i, p]
+    lib.bloom_decode_topk.restype = i
+    for fn in (lib.bloom_decode_topk_max_topk,
+               lib.bloom_decode_topk_max_hash_k):
+        fn.argtypes = []
+        fn.restype = i
     lib.bloom_decode_topk_error_string.argtypes = [i]
     lib.bloom_decode_topk_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,27 +9,53 @@ scatter-add and the Bloom CE backward).
 
 Vocab-sized hash matrices come from ``core.bloom.cached_hash_matrix`` — one
 (d, k) device tensor per (BloomSpec, device), shared across decode calls so
-the serving loop never rehashes the vocabulary per step.
+the serving loop never rehashes the vocabulary per step.  With a
+``table_dtype`` (core/quant.py) the decode drops that matrix for an
+on-the-fly spec and hashes in the kernel, and a frozen embedding table is
+quantized once (``core.bloom.cached_quantized_table``).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.core.bloom import BloomSpec, cached_hash_matrix
+from repro_torch.core import quant
+from repro_torch.core.bloom import (BloomSpec, cached_hash_matrix,
+                                    cached_quantized_table)
 from repro_torch.kernels.bloom_ce import bloom_ce as _ce
 from repro_torch.kernels.bloom_decode_topk import \
     bloom_decode_topk as _decode_topk
 from repro_torch.kernels.bloom_embed import bloom_embed as _embed
+from repro_torch.kernels.bloom_embed import bloom_embed_fwd_quantized
 
 
 def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
-                spec: BloomSpec) -> torch.Tensor:
+                spec: BloomSpec, table_dtype: Optional[str] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """table (m, D); tokens (B, S) -> (B, S, D): each token's k hashed
     table rows summed (Eq. 1's k-hot code times the table).
-    Differentiable in ``table``: the backward is the CSR scatter-add."""
+    Differentiable in ``table``: the backward is the CSR scatter-add.
+
+    ``table_dtype`` stores the table narrow for the gather.  When a
+    gradient is wanted (grad mode on and ``table`` requiring it) the table
+    is quantized in the graph and the gradient is straight-through into
+    ``table``; otherwise (serving) the quantized table comes from
+    ``core.bloom.cached_quantized_table`` and the forward-only kernel runs
+    on it, with ``out_dtype`` defaulting to float32 there, as in the
+    reference."""
     B, S = tokens.shape
     idx = spec.indices_for(tokens.reshape(-1)).contiguous()   # (T, k)
-    return _embed(table, idx).reshape(B, S, -1)
+    td = quant.resolve_table_dtype(table_dtype)
+    if td is not None and not (torch.is_grad_enabled()
+                               and table.requires_grad):
+        qtable, scales = cached_quantized_table(spec, table, td)
+        out = bloom_embed_fwd_quantized(
+            qtable, scales, idx,
+            torch.float32 if out_dtype is None else out_dtype)
+    else:
+        out = _embed(table, idx, table_dtype=td, out_dtype=out_dtype)
+    return out.reshape(B, S, -1)
 
 
 def bloom_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -44,16 +70,33 @@ def bloom_ce(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def bloom_decode_topk(logp: torch.Tensor, spec: BloomSpec, topk: int,
-                      active: torch.Tensor | None = None):
+                      active: torch.Tensor | None = None,
+                      table_dtype: Optional[str] = None):
     """logp (..., m) f32 -> fused Eq. 3 + top-k: (values, ids), each
     (..., topk).
 
     Never materializes the (..., d) recovered-score matrix.  ``active``
     (...,) bool skips dead rows, which return (-inf, 0).
+
+    ``table_dtype`` quantizes the logp rows per call (torch ops; int8 with
+    one scale per row) for the kernel to read narrow, and, for an
+    on-the-fly spec that is not the identity, drops the (d, k) hash matrix:
+    the kernel re-derives each id's indices, bit-identical to the cached
+    matrix.  Otherwise the cached matrix is read.
     """
     lead = logp.shape[:-1]
     flat = logp.reshape(-1, logp.shape[-1]).float().contiguous()
     act = None if active is None else active.reshape(-1)
-    vals, ids = _decode_topk(flat, cached_hash_matrix(spec, logp.device),
-                             topk, active=act)
+    td = quant.resolve_table_dtype(table_dtype)
+    scales = None
+    if td is not None:
+        flat, scales = quant.quantize_table(flat, td)
+    inkernel = (td is not None and spec.on_the_fly
+                and not (spec.m == spec.d and spec.k == 1))
+    if inkernel:
+        vals, ids = _decode_topk(flat, None, topk, active=act, scales=scales,
+                                 hash_spec=(spec.d, spec.k, spec.seed))
+    else:
+        vals, ids = _decode_topk(flat, cached_hash_matrix(spec, logp.device),
+                                 topk, active=act, scales=scales)
     return vals.reshape(*lead, topk), ids.reshape(*lead, topk)

@@ -1,7 +1,7 @@
 """Where one full-width LM step spends its time, on a GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
-        [--step decode|train] [--steps 20]
+        [--step decode|train] [--steps 20] [--table-dtype int8]
 
 Builds qwen1.5-0.5b at full width (random weights from seed 0) and runs
 ``--steps`` steps of one kind:
@@ -11,6 +11,11 @@ Builds qwen1.5-0.5b at full width (random weights from seed 0) and runs
            slots;
   train  — f32 master weights, bf16 compute, adamw; train steps on batch
            8 x seq 64 windows of the training driver's token stream.
+
+``--table-dtype`` (int8, fp8_e4m3, bfloat16, float32) runs the step with
+the Bloom tables stored narrow: the quantized embedding and, for decode,
+the per-step quantize of the (8, m) logp rows and the in-kernel-hash
+decode; the quantize ops' own device time is timed apart as well.
 
 The steps are first timed on the host clock with a synchronise after
 each, then run again under ``torch.profiler`` (CPU and CUDA activities).
@@ -31,6 +36,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import quant
 from repro_torch.data import synthetic
 from repro_torch.data.pipeline import BatchIterator, lm_batches
 from repro_torch.kernels import common
@@ -41,7 +47,8 @@ from repro_torch.serving.loadgen import mixed_length_workload
 from repro_torch.serving.scheduler import ServeStats
 
 # substrings of the port's kernel names as the profiler lists them
-PORT_KERNELS = {"bloom_embed": "embed_fwd", "bloom_decode_topk": "decode_topk",
+PORT_KERNELS = {"bloom_embed": "embed_fwd",
+                "bloom_decode_topk": "decode_topk",
                 "bloom_ce_fwd": "ce_fwd", "bloom_ce_bwd": "ce_bwd",
                 "bloom_csr": "csr_"}
 
@@ -83,12 +90,14 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--step", choices=("decode", "train"), default="decode")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--table-dtype", default="auto",
+                    choices=("auto", *quant.TABLE_DTYPES))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     dev = torch.device("cuda")
     common.build()
-    cfg = configs.get_config("qwen1.5-0.5b")
+    cfg = configs.get_config("qwen1.5-0.5b", table_dtype=args.table_dtype)
     fn = (decode_step(cfg, dev, args.steps) if args.step == "decode"
           else train_step(cfg, dev))
 
@@ -113,7 +122,8 @@ def main(argv=None) -> None:
             dev_us[e.key] = dev_us.get(e.key, 0.0) + us
     busy = sum(dev_us.values()) / args.steps
     wall_ms = float(np.mean(walls)) * 1e3
-    print(f"profile: {cfg.name} {args.step} step, {args.steps} steps: wall "
+    print(f"profile: {cfg.name} {args.step} step, table_dtype "
+          f"{cfg.table_dtype}, {args.steps} steps: wall "
           f"{wall_ms:.6f} ms per step (median "
           f"{float(np.median(walls)) * 1e3:.6f}), device busy "
           f"{busy / 1e3:.6f} ms per step"
@@ -124,6 +134,13 @@ def main(argv=None) -> None:
         if us:
             print(f"profile: {name}: {us:.3f} us per step"
                   + (f", {us / busy:.4f} of device busy" if busy else ""))
+    if args.step == "decode" and args.table_dtype != "auto":
+        logp = torch.log_softmax(torch.randn(8, cfg.m_vocab, device=dev), -1)
+        q_ms = common.graph_time_ms(
+            lambda: quant.quantize_table(logp, args.table_dtype))
+        print(f"profile: quantize of the (8, {cfg.m_vocab}) logp rows "
+              f"({args.table_dtype}): {q_ms * 1e3:.3f} us per step on the "
+              f"device (CUDA graph replays, timed apart)")
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:15]
     for k, v in top:
         print(f"profile:   {v / args.steps:10.3f} us/step  {k[:100]}")

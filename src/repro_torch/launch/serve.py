@@ -8,6 +8,10 @@ Bloom embedding (the ``bloom_embed`` CUDA kernel on a GPU) and recovers
 the next token by the paper's Eq. 3 top-k over the original vocab (the
 ``bloom_decode_topk`` CUDA kernel).  ``--static`` serves the same workload
 by static batching (``Engine.run_static``), the A/B baseline.
+``--table-dtype`` (int8, fp8_e4m3, bfloat16, float32) stores the Bloom
+tables narrow: the embedding table is quantized once at set-up and
+gathered by the quantized ``bloom_embed`` variant, and every Eq. 3 decode
+quantizes its logp rows and rehashes the vocab in the kernel.
 
 ``--mode retrieval`` serves one-shot Bloom top-k retrieval requests (Zipf
 item lookups over a configs/retrieval.py catalog preset) through
@@ -24,7 +28,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --full --slots 8 --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
-      --device cpu --slots 3 --requests 10 --topk 4 [--static]
+      --device cpu --slots 3 --requests 10 --topk 4 [--static] \\
+      [--table-dtype int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
       --retrieval-config smoke --device cpu --requests 16
 """
@@ -83,14 +88,17 @@ def run_lm(arch: str, slots: int = 4, requests: int = 16,
            static: bool = False, eos_id: int | None = None,
            prefill_workers: int = 1, failpoints: str | None = None,
            deadline_slack: int | None = None,
-           max_queue_depth: int | None = None, device=None):
+           max_queue_depth: int | None = None,
+           table_dtype: str | None = None, device=None):
     """Serve a seeded Poisson workload continuously (or, with ``static``,
-    by static batching over the same pool)."""
+    by static batching over the same pool), with the Bloom tables stored
+    as ``table_dtype`` (default: the config's, "auto")."""
     device = resolve_device(device)
     if device.type == "cuda":
         kernels_common.build()     # nvcc at first use: not in the run's wall
-    cfg = (configs.get_config(arch) if full
-           else configs.get_smoke_config(arch))
+    over = {} if table_dtype is None else {"table_dtype": table_dtype}
+    cfg = (configs.get_config(arch, **over) if full
+           else configs.get_smoke_config(arch, **over))
     model = build_model(cfg, seed, device)
     spec = LoadSpec(
         n_requests=requests, vocab=cfg.vocab, rate=rate,
@@ -110,7 +118,8 @@ def run_lm(arch: str, slots: int = 4, requests: int = 16,
     row = stats.as_row()
     print(f"served {len(results)} requests on {slots} slots "
           f"({'static' if static else 'continuous'}, {cfg.name} "
-          f"{cfg.num_layers}L d_model {cfg.d_model}, {device}): "
+          f"{cfg.num_layers}L d_model {cfg.d_model}, table_dtype "
+          f"{cfg.table_dtype}, {device}): "
           f"{row['decode_steps']} decode steps, "
           f"utilization {row['utilization']:.2f}, "
           f"mean latency {mean_latency(results):.1f} steps")
@@ -204,16 +213,15 @@ def main(argv=None):
     ap.add_argument("--transport", choices=("sim", "collective"),
                     default="sim", help="not ported yet (ROADMAP A13)")
     ap.add_argument("--table-dtype", default=None,
-                    help="not ported yet (ROADMAP B3, B5)")
+                    help="Bloom table storage dtype of LM serving: auto "
+                         "(default), float32, bfloat16, int8 or fp8_e4m3 "
+                         "(not read by --mode retrieval, as in the "
+                         "reference)")
     args = ap.parse_args(argv)
     if args.sharded or args.transport != "sim":
         raise NotImplementedError(
             "--sharded / --transport collective: sharded serving is not "
             "ported yet (ROADMAP A13)")
-    if args.table_dtype not in (None, "auto"):
-        raise NotImplementedError(
-            f"--table-dtype {args.table_dtype}: the quantized Bloom "
-            "kernels are not ported yet (ROADMAP B3, B5)")
     common = dict(slots=args.slots, requests=args.requests, seed=args.seed,
                   prefill_workers=args.prefill_workers,
                   failpoints=args.failpoints,
@@ -229,7 +237,8 @@ def main(argv=None):
         ap.error("--arch is required with --mode lm")
     run_lm(args.arch, rate=1.0 if args.rate is None else args.rate,
            prompt_len=args.prompt_len, gen=args.gen, topk=args.topk,
-           full=args.full, static=args.static, eos_id=args.eos_id, **common)
+           full=args.full, static=args.static, eos_id=args.eos_id,
+           table_dtype=args.table_dtype, **common)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ gradients (``value_and_grad``), and applies the optimizer's update to the
 master params.  LM serving: ``init_fn_for`` + ``cast_params_for_compute``
 make the serving model, ``make_prefill_step`` / ``make_slot_decode_step``
 run it (the decode step includes the paper's Eq. 3 top-k recovery, so
-serving cost is end to end), and ``insert_cache_slot`` writes a prefill's
-caches into the slot pool.
+serving cost is end to end), ``warm_bloom_caches`` pre-builds a quantized
+embedding table, and ``insert_cache_slot`` writes a prefill's caches into
+the slot pool.
 """
 from __future__ import annotations
 
@@ -112,10 +113,13 @@ def make_slot_decode_step(cfg: ModelConfig, topk: int, device):
     Every slot decodes at its own sequence offset ``pos``; ``active``
     masks the Eq. 3 recovery so retired slots never leak tokens (and the
     decode kernel skips them).  The vocab hash matrix is built here, once
-    per (spec, device), not in the first step.
+    per (spec, device), not in the first step — for the legacy
+    ``table_dtype="auto"`` path only: a quantized decode of an on-the-fly
+    spec rehashes in the kernel.
     """
     spec = io_lib.vocab_spec(cfg)
-    if spec is not None:
+    if spec is not None and (io_lib.resolved_table_dtype(cfg) is None
+                             or not spec.on_the_fly):
         bloom_lib.cached_hash_matrix(spec, device)
 
     @torch.inference_mode()
@@ -128,6 +132,18 @@ def make_slot_decode_step(cfg: ModelConfig, topk: int, device):
                 "topk_ids": ids}
 
     return step
+
+
+def warm_bloom_caches(cfg: ModelConfig, model: torch.nn.Module) -> None:
+    """Pre-build what a serving model's quantized Bloom IO reads: with a
+    ``cfg.table_dtype`` other than "auto", the quantized embedding table
+    (``core.bloom.cached_quantized_table``), so the first prefill does not
+    pay for it (the reference's ``train.trainer.warm_bloom_caches``).  A
+    no-op otherwise."""
+    spec = io_lib.vocab_spec(cfg)
+    td = io_lib.resolved_table_dtype(cfg)
+    if spec is not None and td is not None:
+        bloom_lib.cached_quantized_table(spec, model.embed, td)
 
 
 @torch.inference_mode()
@@ -168,15 +184,19 @@ def make_retrieval_decode_step(rcfg, device):
     shape (n_slots, topk): log_softmax then the occupancy-aware fused
     Eq. 3 top-k over the d-item catalog (io.recover_topk_spec) — never
     materializing (n_slots, d) scores.  ``active`` masks retired slots to
-    scores=-inf / ids=0, and the kernel does no work for them.  The hash
-    matrix is built here, once per (spec, device), not in the first step.
+    scores=-inf / ids=0, and the kernel does no work for them.
+    ``rcfg.table_dtype`` other than "auto" stores the logp rows narrow and
+    rehashes in the kernel; only the "auto" path reads the hash matrix,
+    built here once per (spec, device), not in the first step.
     """
     spec = rcfg.spec()
-    bloom_lib.cached_hash_matrix(spec, device)
+    td = None if rcfg.table_dtype == "auto" else rcfg.table_dtype
+    if td is None:
+        bloom_lib.cached_hash_matrix(spec, device)
 
     @torch.inference_mode()
     def step(pool, active):
         return io_lib.recover_topk_spec(spec, pool, topk=rcfg.topk,
-                                        active=active)
+                                        active=active, table_dtype=td)
 
     return step

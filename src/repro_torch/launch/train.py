@@ -6,6 +6,9 @@ moved to the device as the f32 master; every step casts them to the
 compute dtype, and with Bloom IO on a GPU it runs the hand-written CUDA
 kernels: the ``bloom_embed`` forward, the ``bloom_ce`` forward and
 backward, and the CSR scatter-add that is the embedding's backward.
+``--table-dtype`` (int8, fp8_e4m3, bfloat16, float32) trains through a
+quantized embedding forward (the ``bloom_embed.<storage>`` variant) with
+the gradient straight-through into the master table.
 
 Fault tolerant as the reference's driver is:
 
@@ -165,8 +168,10 @@ def main(argv=None):
     ap.add_argument("--table-dtype", default=None,
                     choices=["auto", "float32", "bfloat16", "int8",
                              "fp8_e4m3"],
-                    help="Bloom table storage dtype; only auto is ported "
-                         "(ROADMAP B3, B5)")
+                    help="Bloom embedding table storage dtype: the "
+                         "forward gathers the table quantized in the "
+                         "graph, the gradient is straight-through into the "
+                         "f32 master (default auto: no quantization)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)

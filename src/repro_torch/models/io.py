@@ -9,8 +9,10 @@ vocab id by Eq. 3 and keeps the top k (``kernels.ops.bloom_decode_topk``,
 the same split).  The training loss ``lm_loss`` takes the fused Bloom CE
 (``kernels.ops.bloom_ce``, the same split again); both Bloom ops are
 differentiable through their backward kernels.  There is no ``io_impl``
-knob: the path follows the tensors' device.  Not ported yet:
-``_fake_quant_rows`` (with the quantized tables, ROADMAP B3/B5).
+knob: the path follows the tensors' device, and every path reads the
+quantized tables through the kernels' own storage model (``table_dtype``,
+core/quant.py), so the reference's XLA-path ``_fake_quant_rows`` has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -19,10 +21,19 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import losses
+from repro_torch.core import losses, quant
 from repro_torch.core.bloom import BloomSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+
+
+def resolved_table_dtype(cfg: ModelConfig) -> Optional[str]:
+    """ModelConfig.table_dtype -> the kernel-layer knob: the config
+    default "auto" maps to ``None`` (legacy: the table cast to the
+    activation dtype, no quantization); anything else is canonicalized by
+    core.quant."""
+    td = quant.resolve_table_dtype(cfg.table_dtype, allow_auto=True)
+    return None if td == "auto" else td
 
 
 def vocab_spec(cfg: ModelConfig) -> Optional[BloomSpec]:
@@ -49,12 +60,18 @@ def embed_tokens(embed: torch.Tensor, cfg: ModelConfig,
 
     Bloom path: x = sum_j Table[H_j(tok)] — the dense-matrix product with
     the k-hot Bloom code of the paper, computed as a k-way gather-sum.
+    With a quantized ``cfg.table_dtype`` the master-precision table goes
+    in and the kernel reads it stored narrow (gradients straight-through
+    to the master).
     """
     dt = getattr(torch, cfg.dtype)
     spec = vocab_spec(cfg)
     if spec is None:
         return embed[tokens.long()].to(dt)
-    return ops.bloom_embed(embed.to(dt), tokens, spec)
+    td = resolved_table_dtype(cfg)
+    if td is None:
+        return ops.bloom_embed(embed.to(dt), tokens, spec)
+    return ops.bloom_embed(embed, tokens, spec, table_dtype=td, out_dtype=dt)
 
 
 def lm_logits(embed: torch.Tensor, head: Optional[torch.Tensor],
@@ -82,13 +99,16 @@ def recover_topk(cfg: ModelConfig, logits: torch.Tensor, topk: int = 16,
                  active: Optional[torch.Tensor] = None):
     """Serving-time vocabulary recovery (paper Sec. 3.2): logits
     (..., m_vocab) -> (scores, token_ids) (..., topk) over the original
-    vocab (see ``recover_topk_spec``)."""
-    return recover_topk_spec(vocab_spec(cfg), logits, topk, active=active)
+    vocab (see ``recover_topk_spec``), through the config's
+    ``table_dtype``."""
+    return recover_topk_spec(vocab_spec(cfg), logits, topk, active=active,
+                             table_dtype=resolved_table_dtype(cfg))
 
 
 def recover_topk_spec(spec: Optional[BloomSpec], logits: torch.Tensor,
                       topk: int = 16, *,
-                      active: Optional[torch.Tensor] = None):
+                      active: Optional[torch.Tensor] = None,
+                      table_dtype: Optional[str] = None):
     """Top-k recovery keyed by a BloomSpec: (scores, ids), each
     (..., topk).
 
@@ -97,13 +117,16 @@ def recover_topk_spec(spec: Optional[BloomSpec], logits: torch.Tensor,
     decode-topk.  ``spec=None`` (a dense vocab) ranks the logits
     themselves with a stable sort.  ``active`` (...,) bool masks retired
     rows to scores=-inf / ids=0 and lets the kernel skip them.
+    ``table_dtype`` (None = legacy f32) stores the logp rows narrow for
+    the decode and rehashes in the kernel (``ops.bloom_decode_topk``).
     """
     if spec is None:
         srt, order = torch.sort(logits, dim=-1, descending=True, stable=True)
         scores, ids = srt[..., :topk], order[..., :topk].to(torch.int32)
     else:
         logp = torch.log_softmax(logits.float(), dim=-1)
-        scores, ids = ops.bloom_decode_topk(logp, spec, topk, active=active)
+        scores, ids = ops.bloom_decode_topk(logp, spec, topk, active=active,
+                                            table_dtype=table_dtype)
     if active is not None:
         live = active[..., None].to(torch.bool)
         scores = torch.where(live, scores, -torch.inf)

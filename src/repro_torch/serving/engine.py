@@ -578,6 +578,7 @@ class Engine:
         self.failpoints = failpoints if failpoints else None
         self.policy = admission_policy
         self.device = next(params.parameters()).device
+        steps_lib.warm_bloom_caches(cfg, params)
         self.program = LMSlotProgram(cfg, topk=topk, device=self.device,
                                      n_slots=n_slots, max_len=max_len,
                                      eos_id=eos_id,

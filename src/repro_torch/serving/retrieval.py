@@ -42,6 +42,7 @@ import torch
 from repro_torch.configs.retrieval import (RetrievalConfig,
                                            get_retrieval_config)
 from repro_torch.core import bloom as bloom_lib
+from repro_torch.core import quant
 from repro_torch.kernels.bloom_decode_topk import min_bytes, modeled_hbm_bytes
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch import steps as steps_lib
@@ -175,11 +176,18 @@ class RetrievalProgram(SlotProgram):
         scores, ids = self._stage_decodes[self._stage](state.pool, active)
         r, topk = self.rcfg, self._stage_topk[self._stage]
         # the reference's TPU grid bytes model (kept for parity), and the
-        # least traffic this step needs on any device
+        # least traffic this step needs on any device; both follow the
+        # table_dtype knob: a quantized decode reads the logp rows narrow,
+        # rehashes in the kernel (no (d, k) read) and, int8 only, reads one
+        # f32 scale per live row
+        td = None if r.table_dtype == "auto" else r.table_dtype
+        narrow = dict(logp_itemsize=quant.table_itemsize(td),
+                      inkernel_hash=td is not None,
+                      row_scales=quant.resolve_table_dtype(td) == "int8")
         state.streaming_bytes += modeled_hbm_bytes(
-            state.live, r.b_tile, m=r.m, d=r.d, k=r.k, topk=topk)
+            state.live, r.b_tile, m=r.m, d=r.d, k=r.k, topk=topk, **narrow)
         state.min_bytes += min_bytes(int(state.live.sum()), len(state.live),
-                                     m=r.m, d=r.d, k=r.k, topk=topk)
+                                     m=r.m, d=r.d, k=r.k, topk=topk, **narrow)
         return ids.cpu().numpy(), scores.cpu().numpy()
 
     def emit(self, state: _RetrievalState, req: Request, slot: int, out,
@@ -260,14 +268,18 @@ class RetrievalEngine:
 
 @torch.inference_mode()
 def evaluate_retrieval(rcfg: RetrievalConfig, params: FFTower,
-                       requests: List[Request]) -> Dict[str, float]:
+                       requests: List[Request],
+                       table_dtype: Optional[str] = None
+                       ) -> Dict[str, float]:
     """Offline ranking eval of served requests against their held-out
     targets, with the user's input items excluded from the ranking.
 
     Materializes the full (B, d) Eq. 3 score matrix (core.bloom.
     decode_scores, chunked), so it is capped at eval-scale catalogs; the
     SERVING path never does this.  Metrics are the tie-aware
-    train/metrics.py: mid-rank RR and stable-sort MAP.
+    train/metrics.py: mid-rank RR and stable-sort MAP.  ``table_dtype``
+    quantizes and dequantizes the (B, m) logp rows before Eq. 3: the
+    values a quantized decode ranks through.
     """
     _check(rcfg.d <= EVAL_MAX_CATALOG,
            f"full-score eval at d={rcfg.d} would materialize a "
@@ -288,6 +300,9 @@ def evaluate_retrieval(rcfg: RetrievalConfig, params: FFTower,
     logits = steps_lib.make_retrieval_prefill_step(rcfg)(
         params, torch.from_numpy(prompts).to(device))
     logp = torch.log_softmax(logits.float(), dim=-1)
+    td = quant.resolve_table_dtype(table_dtype)
+    if td is not None:
+        logp = quant.dequantize_table(*quant.quantize_table(logp, td))
     scores = bloom_lib.decode_scores(rcfg.spec(), logp,
                                      chunk=rcfg.chunk).cpu().numpy()
     # RR / accuracy score the FIRST held-out target (the single-correct-

@@ -8,7 +8,12 @@ dz atol 1e-7, since the kernel's expf and exp-sum order differ from
 torch's in the last ulp), their input checks, the retrieval drill
 launching the decode kernel once per decode step, the LM engine launching
 the decode and embedding kernels once per prefill and per decode step, and
-a training step launching the embedding, CSR and CE kernels once each.
+a training step launching the embedding, CSR and CE kernels once each;
+and the quantized variants (``table_dtype``): the embedding over f32, bf16,
+int8 (+ scales) and fp8 storage bit-identical to its plain version, the
+decode over the same storages with the in-kernel hash bit-identical to its
+plain version and to the explicit-H kernel, and the retrieval drill, the
+LM engine and a train step launching them once per step.
 
 Marked ``cuda``; every test skips without a GPU.  On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -313,3 +318,193 @@ def test_lm_engine_launches_both_kernels_every_step(cuda):
         assert common.LAUNCHES[dt.NAME] == want
         tokens.append({rid: r.tokens for rid, r in res.items()})
     assert tokens[0] == tokens[1]
+
+
+# ---------------------------------------------------------------------------
+# quantized tables (table_dtype): the B5 embed and B3 decode variants
+# ---------------------------------------------------------------------------
+
+QUANT_TDS = ("float32", "bfloat16", "int8", "fp8_e4m3")
+
+
+@pytest.mark.parametrize("T,D,k", [(1, 1024, 4), (14, 1024, 4), (8, 1024, 1),
+                                   (8, 1024, 3), (14, 1000, 4), (7, 1020, 4),
+                                   (3, 37, 2), (300, 64, 4)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("td", QUANT_TDS)
+def test_quantized_embed_kernel_bit_identical_to_plain(cuda, td, out_dtype,
+                                                       T, D, k):
+    from repro_torch.core import quant
+    g = torch.Generator().manual_seed(T * D + k)
+    m = 512
+    q, s = quant.quantize_table(torch.randn(m, D, generator=g).to(cuda), td)
+    idx = torch.randint(0, m, (T, k), generator=g,
+                        dtype=torch.int32).to(cuda)
+    common.reset_launches()
+    got = be.bloom_embed_quantized_cuda(q, s, idx, out_dtype)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES == {be.variant_name(q.dtype): 1}
+    want = be.bloom_embed_quantized_plain(q, s, idx, out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("td", QUANT_TDS)
+def test_quantize_table_on_cuda_equals_the_cpu(cuda, td):
+    """The one-time table quantize and the per-step logp quantize run on
+    the card: the same stored values and scales as on the CPU, where they
+    equal the reference's (tests/test_torch_quant.py)."""
+    from repro_torch.core import quant
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(300, 257, generator=g) * torch.exp(
+        6 * torch.rand(300, 1, generator=g) - 3)
+    x[0] = 0.0
+    x[1, :4] = torch.tensor([464.0, -464.0001, float("inf"), 500.0])
+    cq, cs = quant.quantize_table(x.to(cuda), td)
+    q, s = quant.quantize_table(x, td)
+    bits = (lambda t: t.view(torch.uint8)) if q.element_size() == 1 else \
+        (lambda t: t)
+    assert torch.equal(bits(cq.cpu()), bits(q))
+    assert (cs is None and s is None) or torch.equal(cs.cpu(), s)
+
+
+def test_quantized_embed_kernel_takes_an_unaligned_table(cuda):
+    from repro_torch.core import quant
+    q, s = quant.quantize_table(torch.randn(65, 64, device=cuda), "int8")
+    flat = torch.empty(65 * 64 + 1, dtype=torch.int8, device=cuda)
+    qu = flat[1:].view(65, 64)
+    qu.copy_(q)
+    assert qu.is_contiguous() and qu.data_ptr() % 16
+    idx = torch.randint(0, 65, (5, 3), dtype=torch.int32, device=cuda)
+    assert torch.equal(be.bloom_embed_quantized_cuda(qu, s, idx),
+                       be.bloom_embed_quantized_plain(q, s, idx))
+
+
+def test_quantized_embed_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.core import quant
+    q, s = quant.quantize_table(torch.randn(16, 8, device=cuda), "int8")
+    idx = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        be.bloom_embed_quantized_cuda(q, None, idx)
+    with pytest.raises(TypeError, match="out_dtype"):
+        be.bloom_embed_quantized_cuda(q, s, idx, torch.float16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        be.bloom_embed_quantized_cuda(q, s.cpu(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        be.bloom_embed_quantized_cuda(q.t().contiguous().t(), s, idx)
+
+
+def test_quantized_embed_grad_is_straight_through_on_cuda(cuda):
+    """The quantized forward (kernel) with the CSR backward (kernel): the
+    gradient equals the CPU plain pair's bit for bit."""
+    spec = io_lib.vocab_spec(configs.get_smoke_config("qwen1.5-0.5b"))
+    g = torch.Generator().manual_seed(1)
+    base = torch.randn(spec.m, 16, generator=g)
+    tokens = torch.randint(0, spec.d, (2, 9), generator=g)
+    cot = torch.randn(2, 9, 16, generator=g)
+    grads, outs = [], []
+    for dev in (cuda, torch.device("cpu")):
+        table = base.to(dev).requires_grad_()
+        common.reset_launches()
+        out = ops.bloom_embed(table, tokens.to(dev), spec, table_dtype="int8",
+                              out_dtype=torch.float32)
+        (out * cot.to(dev)).sum().backward()
+        grads.append(table.grad.cpu())
+        outs.append(out.detach().cpu())
+        if dev.type == "cuda":
+            assert common.LAUNCHES == {"bloom_embed.int8": 1, csr.NAME: 1}
+    assert torch.equal(grads[0], grads[1]) and torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("B,m,d,k,topk", [
+    (1, 32, 100, 1, 1), (5, 64, 333, 3, 8), (3, 96, 50, 2, 50),
+    (6, 8192, 100_003, 2, 10), (4, 256, 70_001, 3, 64),
+    (8, 30208, 151_936, 4, 8), (2, 56 * 1024, 5000, 2, 17)])
+@pytest.mark.parametrize("live", ["all", "some"])
+@pytest.mark.parametrize("td", QUANT_TDS)
+def test_quantized_decode_kernel_bit_identical_to_plain(cuda, td, B, m, d,
+                                                        k, topk, live):
+    """Each storage dtype with the in-kernel hash, against the plain version
+    and against the explicit-H kernel on the same logp (so the kernel's
+    hashes equal cached_hash_matrix)."""
+    from repro_torch.core import hashing, quant
+    seed = B + k
+    # what cached_hash_matrix holds for an on-the-fly spec (and for m > d,
+    # where no BloomSpec exists, what the kernel's hash still computes)
+    H = hashing.double_hash(torch.arange(d, device=cuda), k, m, seed)
+    g = torch.Generator().manual_seed(d)
+    logp = torch.log_softmax(torch.randn(B, m, generator=g), -1).to(cuda)
+    q, s = quant.quantize_table(logp, td)
+    active = None
+    if live == "some":
+        active = torch.zeros(B, dtype=torch.bool, device=cuda)
+        active[::2] = True
+    hs = (d, k, seed)
+    common.reset_launches()
+    kv, ki = dt.bloom_decode_topk_cuda(q, None, topk, active, s, hs)
+    ev, ei = dt.bloom_decode_topk_cuda(q, H, topk, active, s)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES == {dt.variant_name(q.dtype, True): 1,
+                               dt.variant_name(q.dtype, False): 1}
+    pv, pi = dt.bloom_decode_topk_plain(q, None, topk, active, s, hs)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert torch.equal(ki, ei) and torch.equal(kv, ev)
+
+
+def test_quantized_decode_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.core import quant
+    logp = torch.log_softmax(torch.randn(2, 64, device=cuda), -1)
+    q, s = quant.quantize_table(logp, "int8")
+    with pytest.raises(ValueError, match="in-kernel hash"):
+        dt.bloom_decode_topk_cuda(q, None, 5, None, s, (1000, 33, 0))
+    with pytest.raises(ValueError, match="scales"):
+        dt.bloom_decode_topk_cuda(q, None, 5, None, None, (1000, 2, 0))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        dt.bloom_decode_topk_cuda(q, None, 5, None, s.cpu(), (1000, 2, 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        dt.bloom_decode_topk_cuda(q.t().contiguous().t(), None, 5, None, s,
+                                  (1000, 2, 0))
+
+
+@pytest.mark.parametrize("td", QUANT_TDS)
+def test_quantized_drill_launches_the_hash_variant_every_step(cuda, td):
+    from repro_torch.core import quant
+    common.reset_launches()
+    report = retrieval._drill(get_retrieval_config("smoke", table_dtype=td),
+                              8, 4, 0, cuda)
+    name = dt.variant_name(quant.storage_dtype(td), True)
+    assert common.LAUNCHES == {name: 2 * report["decode_steps"]}
+
+
+@pytest.mark.parametrize("td", QUANT_TDS)
+def test_quantized_lm_engine_launches_both_variants_every_step(cuda, td):
+    from repro_torch.core import quant
+    cfg = configs.get_smoke_config("qwen1.5-0.5b", dtype="bfloat16",
+                                   table_dtype=td)
+    model = serve.build_model(cfg, 0, cuda)
+    engine = Engine(cfg, model, n_slots=3, max_len=40, topk=4)
+    wl = mixed_length_workload(cfg.vocab, 10, seed=0)
+    tokens = []
+    sd = quant.storage_dtype(td)
+    for run in (engine.run, engine.run_static):
+        common.reset_launches()
+        res, st = run([r.fresh_copy() for r in wl])
+        want = st.prefills + st.decode_steps
+        assert common.LAUNCHES == {be.variant_name(sd): want,
+                                   dt.variant_name(sd, True): want}
+        tokens.append({rid: r.tokens for rid, r in res.items()})
+    assert tokens[0] == tokens[1]
+
+
+def test_quantized_train_step_launches_the_embed_variant(cuda):
+    cfg = configs.get_smoke_config("qwen1.5-0.5b", dtype="bfloat16",
+                                   table_dtype="int8")
+    model = steps_lib.init_fn_for(cfg)(0).to(cuda)
+    step, opt = steps_lib.make_train_step(cfg, TrainConfig(optimizer="adamw"))
+    state = opt.init({n: p.detach() for n, p in model.named_parameters()})
+    tokens = torch.randint(0, cfg.vocab, (4, 17), device=cuda)
+    for _ in range(2):
+        common.reset_launches()
+        state, metrics = step(model, state, {"tokens": tokens})
+        assert common.LAUNCHES == {"bloom_embed.int8": 1, csr.NAME: 1,
+                                   ce.FWD: 1, ce.BWD: 1}
+        assert bool(torch.isfinite(metrics["loss"]))

@@ -82,8 +82,10 @@ def test_config_matches_the_reference(models):
         assert t.param_count() == j.param_count()
     with pytest.raises(NotImplementedError, match="A12"):
         tconfigs.get_config("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="B3"):
-        tconfigs.get_config(ARCH, table_dtype="int8")
+    assert tconfigs.get_config(ARCH, table_dtype="int8").table_dtype == \
+        "int8"
+    with pytest.raises(ValueError, match="table_dtype must be one of"):
+        tconfigs.get_config(ARCH, table_dtype="int4")
     with pytest.raises(NotImplementedError, match="A12"):
         t_tf.TransformerLM(dataclasses.replace(tcfg, family="moe"))
 
@@ -334,9 +336,9 @@ def test_serve_cli_serves_every_request_on_cpu(capsys):
         capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="A13"):
         serve.main(["--arch", ARCH, "--device", "cpu", "--sharded"])
-    with pytest.raises(NotImplementedError, match="B3"):
+    with pytest.raises(ValueError, match="table_dtype must be one of"):
         serve.main(["--arch", ARCH, "--device", "cpu",
-                    "--table-dtype", "int8"])
+                    "--table-dtype", "int4"])
 
 
 def test_embed_kernel_path_refuses_grad_on_cuda_tensors_only():

@@ -87,8 +87,9 @@ def test_config_presets_match_the_reference():
                 if f != "impl"}      # the port resolves its path by device
         got = {f: getattr(T[name], f) for f in T[name].__dataclass_fields__}
         assert got == want, name
-    with pytest.raises(NotImplementedError, match="table_dtype"):
-        t_config("smoke", table_dtype="int8")
+    assert t_config("smoke", table_dtype="int8").table_dtype == "int8"
+    with pytest.raises(ValueError, match="table_dtype must be one of"):
+        t_config("smoke", table_dtype="f16")
 
 
 def test_workload_is_the_reference_workload(both):
