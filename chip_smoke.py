@@ -80,6 +80,34 @@ Phases, one line of numbers each:
                 served first token must equal the plain versions' on the
                 same inputs; then the median decode step time of the int8
                 path beside the auto path's.
+ 10. kernels-decode — the full Eq. 3 decode (bloom_decode) over f32, bf16,
+                int8 and fp8 e4m3 logp at the LM vocabulary (B = 1 and 8,
+                d = 151,936, m = 30,208, k = 4) and at an edge shape (B = 3,
+                m = 1,001, d = 5,003, k = 3, with values past fp8's range),
+                bit-identical to its plain version (NaN in the same places;
+                int8 as (sum q) * s); the dense decode backward bit-identical
+                to its plain version on a CPU copy, to the CSR decode caller
+                on an H without repeated indices (within 1e-6 on the spec's
+                H) and to a second launch; the dense embedding backward at
+                (T = 520, k = 4, D = 1024, m = 30,208) and edge cases
+                bit-identical to its plain version on a CPU copy, to the CSR
+                kernel and to a second launch; then the times, plain and
+                library times and bounds;
+ 11. decode-grad — ops.bloom_decode on the last-position log_softmax of
+                full-width qwen1.5-0.5b (seed 0, 8 prompts of 16 tokens), in
+                f32 and with each table_dtype, differentiated under bwd_impl
+                csr and dense with a seeded cotangent: counts reset before
+                and read after each run (one forward and one backward
+                launch), scores equal to the plain version's, the csr and
+                dense gradients within 1e-6, the quantized gradients
+                straight-through;
+ 12. train-lm-dense — 8 full-width training steps through launch/train.run
+                with bwd_impl="dense", twice, in turns with a CSR run: every
+                step launches bloom_embed_bwd (and never bloom_csr), losses
+                finite and falling, the first loss equal to the CSR run's,
+                the first step's embedding gradient bit-identical to the CSR
+                backward's off the rows of tokens that repeat a row (within
+                1e-6 there), and the median step walls side by side.
 Then the card's name and power limit, one JSON line of kernel numbers, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code
 is not 0 and the last line is not printed.  Without a CUDA device, or
@@ -377,6 +405,18 @@ def _times(common, fns, calls=20, replays=5, iters=20):
                 common.time_ms(f, iters, 3)) for n, f in fns.items()}
 
 
+def _times_kernels(common, kernels, others, iters=20):
+    """As ``_times`` for the calls in ``kernels``; the calls in ``others``
+    (plain versions and library calls, some of which sync the host and so
+    cannot be captured in a graph) back to back only, their one time
+    given twice."""
+    times = _times(common, kernels, iters=iters)
+    for n, f in others.items():
+        t = common.time_ms(f, iters, 3)
+        times[n] = (t, t)
+    return times
+
+
 def _times_line(times) -> str:
     return ", ".join(f"{n} {d:.6f} / {h:.6f}" for n, (d, h) in times.items())
 
@@ -505,7 +545,7 @@ def phase_csr(torch, csr, common):
 def phase_train_lm(torch, common, names):
     """qwen1.5-0.5b at full width, 8 steps through launch/train.run, then
     the resume drill; returns each training kernel's launches in the
-    8-step run."""
+    8-step run, its losses and its step walls (ms, steps 2-8)."""
     import numpy as np
     from repro_torch import configs
     from repro_torch.launch import train
@@ -556,7 +596,7 @@ def phase_train_lm(torch, common, names):
     print(f"train-lm: resume drill (4 steps, checkpoint, restore, to 8): "
           f"losses {drill} equal the straight run's within rtol 1e-6",
           flush=True)
-    return counts
+    return counts, losses, step_ms
 
 
 def phase_serve(torch, dt, common, bloom, retrieval, get_retrieval_config):
@@ -926,6 +966,354 @@ def phase_serve_quant(torch, be, dt, common, bloom, quant, retrieval,
     return totals
 
 
+def _equal_nan(torch, a, b) -> bool:
+    """Equal values, and NaN in the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def _no_repeats(torch, H, m):
+    """H with each row that repeats an index replaced by k distinct ones."""
+    k = H.shape[1]
+    srt = H.sort(dim=1).values
+    rep = (srt[:, 1:] == srt[:, :-1]).any(dim=1)
+    fix = (H[:, :1] + torch.arange(k, device=H.device, dtype=H.dtype)) % m
+    return torch.where(rep[:, None], fix, H).contiguous(), int(rep.sum())
+
+
+def phase_kernels_decode(torch, bd, csr, be, common, bloom, quant):
+    """The full Eq. 3 decode (B8) over f32, bf16, int8 and fp8 logp, bit-
+    identical to its plain version; the dense decode backward (B9) against
+    its plain version, the CSR decode caller and itself; the dense
+    embedding backward (B9) at the training shape against its plain
+    version, the CSR kernel and itself.  Returns one JSON row per kernel
+    and variant, timed at the LM shapes (B = 8; T = 520)."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.models import io as io_lib
+    dev = torch.device("cuda")
+    spec = io_lib.vocab_spec(configs.get_config("qwen1.5-0.5b"))
+    H = bloom.cached_hash_matrix(spec, dev)
+    (d, k), m = H.shape, spec.m
+    gen = torch.Generator().manual_seed(7)
+    logp8 = torch.log_softmax(3 * torch.randn(8, m, generator=gen), -1)
+    edge_H = torch.randint(0, 1001, (5003, 3), generator=gen,
+                           dtype=torch.int32)
+    edge_lp = torch.log_softmax(torch.randn(3, 1001, generator=gen), -1)
+    edge_lp[0, :5] = -500.0            # past fp8's range: NaN there
+    edge_H[:4, 0] = torch.arange(4, dtype=torch.int32)
+    cases = [("LM B=1", logp8[:1], H), ("LM B=8", logp8, H),
+             ("edge B=3 m=1001 d=5003 k=3", edge_lp, edge_H.to(dev))]
+    rows, Hl = [], H.long()
+    for td in (None, "bfloat16", "int8", "fp8_e4m3"):
+        err = 0.0
+        for label, lp, h in cases:
+            lp = lp.to(dev).contiguous()
+            q, s = (lp, None) if td is None else quant.quantize_table(lp, td)
+            got = bd.bloom_decode_cuda(q, h, s)
+            torch.cuda.synchronize()
+            want = bd.bloom_decode_plain(q, h, s)
+            _check(_equal_nan(torch, got, want),
+                   f"bloom_decode {td} {label}: kernel != plain version")
+            if td == "int8":       # (sum q) * s, one rounding per output
+                raw = bd.bloom_decode_plain(q.float(), h) * s[:, None]
+                _check(torch.equal(got, raw), f"int8 {label}: not (sum q)*s")
+            if td == "fp8_e4m3" and label.startswith("edge"):
+                _check(bool(torch.isnan(got[0, :4]).all()),
+                       "fp8: no NaN where the reference has one")
+            err = max(err, _max_abs_err(got[~torch.isnan(got)],
+                                        want[~torch.isnan(want)]))
+        q, s = ((logp8.to(dev), None) if td is None
+                else quant.quantize_table(logp8.to(dev), td))
+        name = bd.variant_name(q.dtype)
+        wide_t = quant.dequantize_table(q, s).t().contiguous()
+        lp_t = logp8.to(dev)
+        library = ((lambda: F.embedding_bag(Hl, lp_t.t().contiguous(),
+                                            mode="sum").t())
+                   if td is None else
+                   (lambda: F.embedding_bag(Hl, wide_t, mode="sum").t()))
+        times = _times_kernels(
+            common, {"kernel": lambda: bd.bloom_decode_cuda(q, H, s)},
+            {"plain": lambda: bd.bloom_decode_plain(q, H, s),
+             "library": library})
+        itemsize = quant.table_itemsize(td)
+        nbytes = bd.min_bytes(8, m, d, k, itemsize, s is not None)
+        bound_ms, by = _bound(nbytes, 8 * d * (k - 1)
+                              + (8 * d if s is not None else 0))
+        print(f"kernels-decode: {name} B=8 m={m} d={d} k={k}: bit-identical "
+              f"to plain on {[c[0] for c in cases]}; device ms (graph) / "
+              f"back-to-back ms (events; plain and library: events only): "
+              f"{_times_line(times)}, bound "
+              f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/bloom_decode.cu",
+                     "replaces": ("src/repro/kernels/bloom_decode.py:58"
+                                  if td == "int8" else
+                                  "src/repro/kernels/bloom_decode.py:203"),
+                     "launches": None, "max_abs_err": err,
+                     "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": times["library"][0]})
+
+    # the decode backwards: dense kernel vs plain (CPU copy), vs the CSR
+    # caller, vs itself
+    g = torch.randn(8, d, generator=gen).to(dev)
+    Hn, n_rep = _no_repeats(torch, H, m)
+    dense = bd.bloom_decode_bwd_cuda(g, Hn, m)
+    again = bd.bloom_decode_bwd_cuda(g, Hn, m)
+    via_csr = csr.bloom_decode_bwd_csr(g, Hn, m)
+    torch.cuda.synchronize()
+    _check(torch.equal(dense, again), "dense decode backward: two launches "
+           "gave other bits")
+    _check(torch.equal(dense, via_csr), "dense decode backward != CSR on an "
+           "H without repeated indices")
+    _check(torch.equal(dense.cpu(), bd.bloom_decode_bwd_plain(
+        g.cpu(), Hn.cpu(), m)), "dense decode backward != plain version")
+    dense_r = bd.bloom_decode_bwd_cuda(g, H, m)
+    bins = bloom.cached_decode_bins(spec, dev)
+    csr_r = csr.bloom_decode_bwd_csr(g, H, m, bins)
+    torch.cuda.synchronize()
+    err_dec = float((dense_r - csr_r).abs().max())
+    _check(err_dec <= 1e-6, f"dense vs CSR decode backward on the spec's H: "
+           f"{err_dec}")
+    _check(torch.equal(dense_r.cpu(), bd.bloom_decode_bwd_plain(
+        g.cpu(), H.cpu(), m)), "dense decode backward != plain (spec H)")
+    print(f"kernels-decode: decode backwards: dense == CSR == plain bit for "
+          f"bit on H without repeats ({n_rep} of {d} spec rows repeat an "
+          f"index and were replaced), dense twice equal; on the spec's H "
+          f"dense vs CSR max abs err {err_dec} (bit-identical: "
+          f"{torch.equal(dense_r, csr_r)})", flush=True)
+    flat, src = H.reshape(-1).long(), torch.arange(
+        d, device=dev).repeat_interleave(k)
+    nbytes = bd.min_bytes(8, m, d, k)
+    bound_ms, by = _bound(nbytes, 8 * d * k)
+    dec_times = _times_kernels(common, {
+        "dense kernel": lambda: bd.bloom_decode_bwd_cuda(g, H, m),
+        "CSR caller": lambda: csr.bloom_decode_bwd_csr(g, H, m, bins)}, {
+        "plain": lambda: bd.bloom_decode_bwd_plain(g, H, m),
+        "library": lambda: torch.zeros(m, 8, device=dev).index_add_(
+            0, flat, g.t()[src]).t()})
+    print(f"kernels-decode: decode backward B=8 d={d} m={m} k={k}: device ms "
+          f"(graph) / back-to-back ms (events; plain and library: events "
+          f"only): {_times_line(dec_times)}, "
+          f"bound {bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)",
+          flush=True)
+    for name, key, source, line, err in (
+            (bd.BWD, "dense kernel", "bloom_decode.cu", "bloom_decode.py:128",
+             0.0),
+            (csr.DECODE, "CSR caller", "bloom_csr.cu", "bloom_csr.py:282",
+             err_dec)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{source}",
+                     "replaces": f"src/repro/kernels/{line}",
+                     "launches": None, "max_abs_err": err,
+                     "ms": dec_times[key][0],
+                     "plain_ms": dec_times["plain"][0],
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": dec_times["library"][0]})
+
+    # the dense embedding backward at the training shape and edge cases
+    T, D = 520, 1024
+    cases = [("main", T, D, None), ("rows 0,5,9", T, D, [0, 5, 5, 9]),
+             ("D=1000", T, 1000, None), ("D=2500 row 7", 64, 2500, [7])]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, Tc, Dc, rows_ in cases:
+            gc = torch.randn(Tc, Dc, generator=gen).to(dtype)
+            if rows_ is None:
+                idx = torch.randint(0, m, (Tc, k), generator=gen,
+                                    dtype=torch.int32)
+            else:
+                pick = torch.randint(0, len(rows_), (Tc, k), generator=gen)
+                idx = torch.tensor(rows_, dtype=torch.int32)[pick]
+            got = be.bloom_embed_bwd_cuda(gc.to(dev), idx.to(dev), m)
+            again = be.bloom_embed_bwd_cuda(gc.to(dev), idx.to(dev), m)
+            via_csr = csr.csr_scatter_add(gc.to(dev), idx.to(dev), m)
+            torch.cuda.synchronize()
+            _check(torch.equal(got, again), f"dense embed backward {label}: "
+                   "two launches gave other bits")
+            _check(torch.equal(got, via_csr), f"dense embed backward "
+                   f"{label}: != CSR kernel")
+            want = be.bloom_embed_bwd_plain(gc, idx, m)
+            _check(torch.equal(got.cpu(), want), f"dense embed backward "
+                   f"{dtype} {label}: != plain version")
+        print(f"kernels-decode: bloom_embed_bwd {dtype}: bit-identical to the "
+              f"plain version on the CPU, to the CSR kernel and to a second "
+              f"launch for {[c[0] for c in cases]} (m={m}, k={k})",
+              flush=True)
+    gc = torch.randn(T, D, generator=gen).to(torch.bfloat16).to(dev)
+    idx = torch.randint(0, m, (T, k), generator=gen,
+                        dtype=torch.int32).to(dev)
+    flat, src = idx.reshape(-1).long(), torch.arange(
+        T, device=dev).repeat_interleave(k)
+    times = _times_kernels(common, {
+        "kernel": lambda: be.bloom_embed_bwd_cuda(gc, idx, m)}, {
+        "plain": lambda: be.bloom_embed_bwd_plain(gc, idx, m),
+        "library": lambda: torch.zeros(m, D, device=dev).index_add_(
+            0, flat, gc[src].float())})
+    nbytes = m * D * 4 + T * D * 2 + T * k * 4
+    bound_ms, by = _bound(nbytes, T * k * D)
+    print(f"kernels-decode: bloom_embed_bwd bf16 T={T} k={k} D={D} m={m}: "
+          f"device ms (graph) / back-to-back ms (events; plain and library: "
+          f"events only): "
+          f"{_times_line(times)}, bound {bound_ms * 1e3:.3f} us ({by}, "
+          f"{nbytes} bytes)", flush=True)
+    rows.append({"name": be.BWD, "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/bloom_embed.cu",
+                 "replaces": "src/repro/kernels/bloom_embed.py:189",
+                 "launches": None, "max_abs_err": 0.0,
+                 "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+                 "bound_ms": bound_ms, "bound_by": by,
+                 "library_ms": times["library"][0]})
+    return rows
+
+
+def phase_decode_grad(torch, bd, csr, common, bloom, quant):
+    """ops.bloom_decode on the logits of full-width qwen1.5-0.5b (seed 0):
+    8 prompts, last positions, log_softmax, scores at d = 151,936 in f32
+    and with each table_dtype, and a seeded cotangent's gradient under
+    bwd_impl csr and dense; returns the launches of each kernel."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, steps as steps_lib
+    from repro_torch.models import io as io_lib
+    from repro_torch.models import transformer as tf
+    dev = torch.device("cuda")
+    cfg = configs.get_config("qwen1.5-0.5b")
+    spec = io_lib.vocab_spec(cfg)
+    model = serve.build_model(cfg, 0, dev)
+    steps_lib.warm_bloom_caches(cfg, model, decode_grad=True)
+    tokens = torch.as_tensor(synthetic.make_token_stream(
+        8 * 16, cfg.vocab, seed=0).reshape(8, 16)).to(dev)
+    with torch.no_grad():
+        last = tf.lm_apply(model, cfg, tokens, mode="prefill")["logits"][:, -1]
+    logp = torch.log_softmax(last.float(), -1)
+    _check(tuple(logp.shape) == (8, spec.m)
+           and bool(torch.isfinite(logp).all()), "decode-grad: logits")
+    cot = torch.randn(8, spec.d, generator=torch.Generator().manual_seed(8)
+                      ).to(dev)
+    del model
+    runs = [(None, "csr"), (None, "dense"), ("float32", "csr"),
+            ("bfloat16", "csr"), ("int8", "csr"), ("int8", "dense"),
+            ("fp8_e4m3", "dense")]
+    totals, grads = {}, {}
+    H = bloom.cached_hash_matrix(spec, dev)
+    for td, impl in runs:
+        x = logp.detach().requires_grad_()
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        scores = ops.bloom_decode(x, spec, bwd_impl=impl, table_dtype=td)
+        dlogp, = torch.autograd.grad(scores, x, cot)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(common.LAUNCHES)
+        q, s = ((logp, None) if td is None
+                else quant.quantize_table(logp, td))
+        want = {bd.variant_name(q.dtype): 1,
+                (csr.DECODE if impl == "csr" else bd.BWD): 1}
+        _check(counts == want, f"decode-grad {td} {impl}: launches {counts}")
+        for n, c in counts.items():
+            totals[n] = totals.get(n, 0) + c
+        _check(tuple(scores.shape) == (8, spec.d)
+               and _equal_nan(torch, scores.detach(),
+                              bd.bloom_decode_plain(q, H, s)),
+               f"decode-grad {td} {impl}: scores != plain version")
+        _check(dlogp.dtype == torch.float32
+               and bool(torch.isfinite(dlogp).all()),
+               f"decode-grad {td} {impl}: gradient")
+        grads[(td, impl)] = dlogp
+        print(f"decode-grad: table_dtype {td} bwd_impl {impl}: scores "
+              f"(8, {spec.d}) == plain version, forward + backward "
+              f"{wall:.3f} ms (host clock, synchronised), launches {counts}",
+              flush=True)
+    err = float((grads[(None, "csr")] - grads[(None, "dense")]).abs().max())
+    _check(err <= 1e-6, f"decode-grad: csr vs dense gradient {err}")
+    _check(torch.equal(grads[("int8", "csr")], grads[(None, "csr")])
+           and torch.equal(grads[("int8", "dense")], grads[(None, "dense")]),
+           "decode-grad: int8 gradient is not straight-through")
+    print(f"decode-grad: csr vs dense dlogp max abs err {err} (bit-identical:"
+          f" {torch.equal(grads[(None, 'csr')], grads[(None, 'dense')])}); "
+          f"the int8 and fp8 gradients equal the f32 ones (straight-through)",
+          flush=True)
+    return totals
+
+
+def phase_train_lm_dense(torch, be, common, names, csr_losses, csr_ms):
+    """qwen1.5-0.5b at full width, 8 steps through launch/train.run with
+    bwd_impl="dense", twice, in turns with a CSR run; the first step's
+    loss and embedding gradient against the CSR run's.  Returns the
+    launches of the first dense run."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.data.pipeline import BatchIterator, lm_batches
+    from repro_torch.launch import steps as steps_lib, train
+    from repro_torch.models import io as io_lib
+    dev = torch.device("cuda")
+    steps, batch, seq = 8, 8, 64
+    step_ms = {"csr": list(csr_ms), "dense": []}
+    counts = None
+    for impl in ("dense", "csr", "dense"):
+        torch.cuda.synchronize()
+        common.reset_launches()
+        _, hist = train.run("qwen1.5-0.5b", steps=steps, batch=batch,
+                            seq=seq, full=True, log_every=1, bwd_impl=impl)
+        torch.cuda.synchronize()
+        step_ms[impl] += [h["step_s"] * 1e3 for h in hist[1:]]
+        losses = [h["loss"] for h in hist]
+        if impl == "dense" and counts is None:
+            counts = dict(common.LAUNCHES)
+            for name in names:
+                _check(counts.get(name, 0) == steps,
+                       f"train-lm-dense: {counts.get(name, 0)} {name} "
+                       f"launches for {steps} steps")
+            _check(all(math.isfinite(x) for x in losses)
+                   and losses[-1] < losses[0],
+                   f"train-lm-dense: losses {losses}")
+            _check(losses[0] == csr_losses[0], f"train-lm-dense: first loss "
+                   f"{losses[0]} != the CSR run's {csr_losses[0]}")
+            print(f"train-lm-dense: losses {losses} (CSR run: "
+                  f"{csr_losses}); launches {counts}", flush=True)
+
+    # the first step's gradients under both backwards, same params, batch
+    cfg = configs.get_config("qwen1.5-0.5b")
+    model = steps_lib.init_fn_for(cfg)(0).to(dev)
+    stream = synthetic.make_token_stream(
+        n_tokens=batch * (seq + 1) * 64, vocab=cfg.vocab, seed=0)
+    tokens = torch.as_tensor(next(BatchIterator(
+        [lm_batches(stream, batch, seq)], batch, seed=0))[0]).to(dev)
+    out = {}
+    for impl in ("csr", "dense"):
+        c = configs.get_config("qwen1.5-0.5b", bwd_impl=impl)
+        loss, _, grads = steps_lib.value_and_grad(model, c,
+                                                  {"tokens": tokens})
+        out[impl] = (float(loss), grads["embed"])
+    _check(out["csr"][0] == out["dense"][0], "first-step losses differ")
+    idx = io_lib.vocab_spec(cfg).indices_for(
+        tokens.reshape(-1)).long()
+    srt = idx.sort(dim=1).values
+    rep = (srt[:, 1:] == srt[:, :-1]).any(dim=1)
+    touched = torch.zeros(cfg.m_vocab, dtype=torch.bool, device=dev)
+    touched[idx[rep].reshape(-1)] = True
+    a, b = out["csr"][1], out["dense"][1]
+    err = float((a - b).abs().max())
+    _check(torch.equal(a[~touched], b[~touched]),
+           "first-step embedding gradient differs off the repeating rows")
+    _check(err <= 1e-6, f"first-step embedding gradient err {err}")
+    med = {n: float(np.median(v)) for n, v in step_ms.items()}
+    print(f"train-lm-dense: first-step loss equal to the CSR run's; "
+          f"embedding gradient bit-identical on the rows no repeating token "
+          f"reaches ({int(rep.sum())} of {idx.shape[0]} tokens repeat a row; "
+          f"max abs err {err} over all rows, bit-identical: "
+          f"{torch.equal(a, b)}); median step wall, steps 2-8 of each run, "
+          f"runs in turns (csr, dense, csr, dense): dense {med['dense']:.6f} "
+          f"ms ({batch * seq / med['dense'] * 1e3:.1f} tokens/s), csr "
+          f"{med['csr']:.6f} ms ({batch * seq / med['csr'] * 1e3:.1f} "
+          f"tokens/s)", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -942,6 +1330,7 @@ def main() -> int:
     from repro_torch.core import bloom
     from repro_torch.kernels import bloom_ce as ce
     from repro_torch.kernels import bloom_csr as csr
+    from repro_torch.kernels import bloom_decode as bd
     from repro_torch.kernels import bloom_decode_topk as dt
     from repro_torch.kernels import bloom_embed as be
     from repro_torch.kernels import common
@@ -951,7 +1340,7 @@ def main() -> int:
     built = common.build()
     print("build: " + ", ".join(f"{n} {s:.3f} s" for n, s in built.items())
           + f" (wall {time.perf_counter() - t0:.3f} s)", flush=True)
-    _check(set(built) == {dt.NAME, be.NAME, ce.NAME, csr.NAME},
+    _check(set(built) == {dt.NAME, be.NAME, ce.NAME, csr.NAME, bd.NAME},
            f"unexpected kernels {sorted(built)}")
 
     row = phase_kernels(torch, dt, common, bloom, get_retrieval_config)
@@ -966,8 +1355,8 @@ def main() -> int:
     row["launches"] += lm[dt.NAME]
     embed_row["launches"] = lm[be.NAME]
     train_rows = phase_ce(torch, ce, common) + [phase_csr(torch, csr, common)]
-    trained = phase_train_lm(torch, common,
-                             [be.NAME, csr.NAME, ce.FWD, ce.BWD])
+    trained, csr_losses, csr_ms = phase_train_lm(
+        torch, common, [be.NAME, csr.NAME, ce.FWD, ce.BWD])
     embed_row["launches"] += trained[be.NAME]
     for r in train_rows:
         r["launches"] = trained[r["name"]]
@@ -982,7 +1371,17 @@ def main() -> int:
            f"{sorted(r['name'] for r in quant_rows)}")
     for r in quant_rows:
         r["launches"] = served[r["name"]]
-    rows = [row, embed_row, *train_rows, *quant_rows]
+    decode_rows = phase_kernels_decode(torch, bd, csr, be, common, bloom,
+                                       quant)
+    launched = phase_decode_grad(torch, bd, csr, common, bloom, quant)
+    launched.update(phase_train_lm_dense(
+        torch, be, common, [be.NAME, be.BWD, ce.FWD, ce.BWD], csr_losses,
+        csr_ms))
+    _check(launched.get(csr.NAME, 0) == 0,
+           "the dense training run launched the CSR kernel")
+    for r in decode_rows:
+        r["launches"] = launched.get(r["name"], 0)
+    rows = [row, embed_row, *train_rows, *quant_rows, *decode_rows]
     _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")
 

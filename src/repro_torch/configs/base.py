@@ -4,20 +4,23 @@ Copied from the JAX package's ``configs/base.py``: ``BloomConfig`` and
 ``ModelConfig`` with the fields the dense decoder-only family reads, and
 ``TrainConfig`` whole.  Left out: the MoE, Mamba, hybrid, encoder-decoder
 and frontend fields and ``param_dtype`` (a ``family`` other than
-``"dense"`` raises where a model is built, ROADMAP A12); ``io_impl`` and
-``bwd_impl`` (the port's IO path follows the tensors' device: kernel on
-CUDA, plain version on the CPU; its Bloom embedding backward is the CSR
-scatter-add); the XLA execution knobs (``scan_layers``, ``remat``,
+``"dense"`` raises where a model is built, ROADMAP A12); ``io_impl`` (the
+port's IO path follows the tensors' device: kernel on CUDA, plain version
+on the CPU); the XLA execution knobs (``scan_layers``, ``remat``,
 ``attn_chunk_*``, ``attn_impl``, ``causal_skip``, ``attn_bf16_scores``,
 ``moe_impl``, ``unroll_for_analysis``); and the shape and mesh configs,
-which no ported module reads.  ``table_dtype`` is validated when the
-config is made: an unknown value raises ``ValueError``.
+which no ported module reads.  ``bwd_impl`` picks the Bloom embedding's
+backward, "csr" (the CSR scatter-add) or "dense" (the dense m-tile
+sweep), as in the reference.  ``table_dtype`` and ``bwd_impl`` are
+validated when the config is made: an unknown value raises
+``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.core import quant
+from repro_torch.kernels.common import resolve_bwd_impl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +67,12 @@ class ModelConfig:
                                   # bfloat16 | int8 (per-row scales) |
                                   # fp8_e4m3 — core.quant is the source
                                   # of truth; grads are straight-through
+    bwd_impl: str = "csr"         # Bloom embedding backward: csr (CSR
+                                  # scatter-add) | dense (m-tile sweep)
 
     def __post_init__(self):
         quant.resolve_table_dtype(self.table_dtype, allow_auto=True)
+        resolve_bwd_impl(self.bwd_impl)
 
     @property
     def resolved_head_dim(self) -> int:

@@ -71,16 +71,38 @@ def cached_hash_matrix(spec: BloomSpec, device) -> torch.Tensor:
     once per (spec, device) and shared by every caller: serving decodes the
     same spec every step.  Exactly what ``spec.indices_for`` returns for
     every id (it respects ``on_the_fly``); ~80 MB at d = 10M, k = 2."""
+    return _cached_hash_matrix(spec, _device_key(device))
+
+
+def _device_key(device) -> str:
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:   # one copy per card
         dev = torch.device("cuda", torch.cuda.current_device())
-    return _cached_hash_matrix(spec, str(dev))
+    return str(dev)
 
 
 @functools.lru_cache(maxsize=8)
 def _cached_hash_matrix(spec: BloomSpec, device: str) -> torch.Tensor:
     ids = torch.arange(spec.d, dtype=torch.int64, device=device)
     return spec.indices_for(ids).contiguous()
+
+
+def cached_decode_bins(spec: BloomSpec, device):
+    """CSR bins (``kernels.bloom_csr.bin_csr``) of the whole-vocab hash
+    matrix, built once per (spec, device) beside the cached matrix they
+    bin.  The ``bwd_impl="csr"`` backward of the Eq. 3 decode
+    (``kernels.ops.bloom_decode``) scatter-adds the (B, d) cotangent
+    through them, so a caller that differentiates the decode (ranking
+    losses, gradient sweeps) sorts the d*k entries once, not every step;
+    a forward-only caller never builds them.  (The reference keys its
+    bins on the spec and its TPU tiling; the port's bins are not tiled.)"""
+    return _cached_decode_bins(spec, _device_key(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _cached_decode_bins(spec: BloomSpec, device: str):
+    from repro_torch.kernels.bloom_csr import bin_csr   # core -> kernels
+    return bin_csr(_cached_hash_matrix(spec, device), spec.m)
 
 
 _QUANT_CACHE: dict = {}
@@ -135,8 +157,23 @@ def encode(spec: BloomSpec, p: torch.Tensor,
     return u.scatter_reduce(-1, flat, mask.to(dtype), reduce="amax")
 
 
+def encode_dense(spec: BloomSpec, x: torch.Tensor,
+                 hash_matrix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Encode dense binary instances (..., d) -> (..., m):
+    u_i = max over the original positions that hash to i.  Oracle only: it
+    materializes a (d, k, m) one-hot; production encodes index sets
+    (``encode``)."""
+    if hash_matrix is None:
+        hash_matrix = spec.indices_for(
+            torch.arange(spec.d, dtype=torch.int64, device=x.device))
+    onehot = torch.nn.functional.one_hot(hash_matrix.long(),
+                                         spec.m).to(x.dtype)  # (d, k, m)
+    proj = torch.einsum("...d,dkm->...m", x, onehot)
+    return torch.clamp_max(proj, 1.0)
+
+
 # --------------------------------------------------------------------------
-# Recovery (Eq. 3)
+# Recovery (Eqs. 2 and 3)
 # --------------------------------------------------------------------------
 
 def _gather_sum(log_v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -199,3 +236,13 @@ def decode_topk(spec: BloomSpec, log_v: torch.Tensor, topk: int,
         best_v = srt[..., :topk]
         best_i = torch.gather(cat_i, -1, order[..., :topk])
     return best_v, best_i
+
+
+def recover_probabilities(spec: BloomSpec, v_hat: torch.Tensor,
+                          hash_matrix: Optional[torch.Tensor] = None,
+                          eps: float = 1e-30) -> torch.Tensor:
+    """Eq. 2 likelihoods renormalized to a distribution over the d items
+    (the paper ranks without renormalizing).  Oracle path: materializes
+    (..., d)."""
+    log_v = torch.log(torch.clamp(v_hat, eps, 1.0))
+    return torch.softmax(decode_scores(spec, log_v, hash_matrix), dim=-1)

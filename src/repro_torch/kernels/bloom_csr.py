@@ -21,6 +21,11 @@ so the result is the same from run to run: no float atomics anywhere.
   comparisons hold the kernel against a CPU copy.
 * ``csr_scatter_add`` bins and picks one of them by the tensors' device
   (``common.resolve_impl``).
+* ``bloom_decode_bwd_csr`` is the same scatter-add as the backward of the
+  Eq. 3 decode (the reference's ``bloom_decode_bwd_csr_pallas``): on the
+  transposed (d, B) cotangent with H's bins, usually the per-spec cached
+  ones (``core.bloom.cached_decode_bins``), transposed back.  Its kernel
+  launches are counted as ``bloom_csr.decode``.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 from repro_torch.kernels import common
 
 NAME = "bloom_csr"
+DECODE = f"{NAME}.decode"    # launches from the decode backward
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -72,14 +78,20 @@ def _check_shapes(g: torch.Tensor, idx: torch.Tensor) -> None:
 
 def csr_scatter_add_plain(g: torch.Tensor, bins: CSRBins,
                           m: int) -> torch.Tensor:
-    """The plain PyTorch version: (m, D) f32 on g's device."""
-    out = torch.zeros(m, g.shape[1], dtype=torch.float32, device=g.device)
-    return out.index_add_(0, bins.rows, g.float()[bins.src.long()])
+    """The plain PyTorch version: (m, D) f32 on g's device.  Entries
+    outside [0, m), which fall outside every segment, are skipped, as the
+    kernel skips them (added into a spare row m that is cut off, so no
+    host sync is needed)."""
+    rows = torch.where((bins.rows >= 0) & (bins.rows < m), bins.rows, m)
+    out = torch.zeros(m + 1, g.shape[1], dtype=torch.float32,
+                      device=g.device)
+    return out.index_add_(0, rows, g.float()[bins.src.long()])[:m]
 
 
 def csr_scatter_add_cuda(g: torch.Tensor, bins: CSRBins,
-                         m: int) -> torch.Tensor:
-    """Launch the Hopper kernel on PyTorch's current stream (no sync).
+                         m: int, name: str = NAME) -> torch.Tensor:
+    """Launch the Hopper kernel on PyTorch's current stream (no sync),
+    counted under ``name``.
 
     g (T, D) float32 or bfloat16, contiguous, and ``bins`` from
     ``bin_csr`` over m rows, on one CUDA device.  Raises on anything the
@@ -114,7 +126,7 @@ def csr_scatter_add_cuda(g: torch.Tensor, bins: CSRBins,
         msg = lib.bloom_csr_error_string(err).decode()
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err} "
                            f"({msg})")
-    common.count_launch(NAME)
+    common.count_launch(name)
     return out
 
 
@@ -128,6 +140,25 @@ def csr_scatter_add(g: torch.Tensor, idx: torch.Tensor,
     if impl == "kernel":
         return csr_scatter_add_cuda(g, bins, m)
     return csr_scatter_add_plain(g, bins, m)
+
+
+def bloom_decode_bwd_csr(g: torch.Tensor, H: torch.Tensor, m: int,
+                        bins: CSRBins | None = None) -> torch.Tensor:
+    """g (B, d) cotangent of the Eq. 3 scores; H (d, k) -> dlogp (B, m)
+    f32 = the scatter-add of g's transpose with H's bins (``bin_csr(H, m)``
+    when ``bins`` is None): dlogp.T[c] = sum over (i, j) with H[i, j] == c
+    of g.T[i].  The kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if g.ndim != 2 or H.ndim != 2 or g.shape[1] != H.shape[0]:
+        raise ValueError(f"need g (B, d) and H (d, k), got "
+                         f"{tuple(g.shape)} and {tuple(H.shape)}")
+    impl = common.resolve_impl(g, H)
+    if bins is None:
+        bins = bin_csr(H, m)
+    gt = g.t().contiguous()
+    if impl == "kernel":
+        return csr_scatter_add_cuda(gt, bins, m, DECODE).t()
+    return csr_scatter_add_plain(gt, bins, m).t()
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,10 +6,12 @@ For a table (m, D) and hash indices idx (T, k) int32 in [0, m):
 and rounded once to the output dtype.  ``row(r)`` is the table's row r
 widened to f32; a quantized table (``table_dtype``, core/quant.py) stores
 rows narrow — bf16, fp8 e4m3, or int8 with one f32 scale per row, where
-``row(r) = q[r] * scales[r]``.  The gradient is the CSR scatter-add of the
-cotangent (``kernels/bloom_csr.py``) into the master table's dtype: with a
-quantized forward it is straight-through (the exact gradient of the
-unquantized gather-sum), as the reference's custom VJP does.
+``row(r) = q[r] * scales[r]``.  The gradient is the scatter-add of the
+cotangent into the master table's dtype, by ``bwd_impl``: the CSR
+scatter-add (``kernels/bloom_csr.py``, "csr") or the dense m-tile sweep
+(``bloom_embed_bwd``, "dense"); with a quantized forward it is
+straight-through (the exact gradient of the unquantized gather-sum), as
+the reference's custom VJP does.
 
 * ``bloom_embed_cuda`` / ``bloom_embed_quantized_cuda`` launch the
   hand-written Hopper kernel (``csrc/bloom_embed.cu``, which replaces the
@@ -22,12 +24,21 @@ unquantized gather-sum), as the reference's custom VJP does.
   kernel is held against on the card.
 * ``bloom_embed_fwd_quantized`` is the forward-only serving entry on a
   pre-quantized table (``core.bloom.cached_quantized_table``).
+* ``bloom_embed_bwd_cuda`` launches the dense backward kernel (same
+  source; replaces ``bloom_embed_bwd_pallas``), counted as
+  ``bloom_embed_bwd``: ``dtable[r] = sum over (t, j) with idx[t, j] == r
+  of g[t]``, summed in (t, j) order from 0.0 with no float atomics, so it
+  equals the CSR kernel bit for bit.  ``bloom_embed_bwd_plain`` is the
+  same sum as ``zeros(m, D).index_add_`` over the entries in (t, j) order
+  (the kernel's order on the CPU, where ``index_add_`` adds in index
+  order); ``bloom_embed_bwd`` picks one by the tensors' device.
 * ``bloom_embed`` is the differentiable entry: an ``autograd.Function``
   whose forward picks kernel or plain version by the tensors' device
   (kernels.common.resolve_impl: CUDA tensors launch the kernel or raise),
   quantizing the table first when ``table_dtype`` is given, and whose
-  backward is ``bloom_csr.csr_scatter_add`` (the CSR kernel on CUDA, its
-  plain version on the CPU).
+  backward is ``bloom_csr.csr_scatter_add`` (``bwd_impl="csr"``) or
+  ``bloom_embed_bwd`` (``"dense"``): the kernel on CUDA, its plain version
+  on the CPU.
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ from repro_torch.core import quant
 from repro_torch.kernels import bloom_csr, common
 
 NAME = "bloom_embed"
+BWD = "bloom_embed_bwd"
 DTYPES = (torch.float32, torch.bfloat16)     # also the output dtypes
 # the storage dtype codes of csrc/bloom_embed.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -208,12 +220,75 @@ def default_out_dtype(table_dtype: Optional[str],
     return st if st in DTYPES else torch.float32
 
 
+def _check_bwd(g: torch.Tensor, idx: torch.Tensor) -> None:
+    if g.ndim != 2 or idx.ndim != 2 or idx.shape[0] != g.shape[0]:
+        raise ValueError(f"need g (T, D) and idx (T, k), got "
+                         f"{tuple(g.shape)} and {tuple(idx.shape)}")
+
+
+def bloom_embed_bwd_plain(g: torch.Tensor, idx: torch.Tensor,
+                          m: int) -> torch.Tensor:
+    """The plain PyTorch dense backward: (m, D) f32 on g's device, each row
+    summed over the entries in (t, j) order (on the CPU; on a CUDA tensor
+    ``index_add_`` adds with atomics).  Entries outside [0, m) never
+    match (they add into a spare row m that is cut off)."""
+    _check_bwd(g, idx)
+    T, k = idx.shape
+    flat = idx.reshape(-1).long()
+    flat = torch.where((flat >= 0) & (flat < m), flat, m)
+    src = torch.arange(T, device=g.device).repeat_interleave(k)
+    out = torch.zeros(m + 1, g.shape[1], dtype=torch.float32,
+                      device=g.device)
+    return out.index_add_(0, flat, g.float()[src])[:m]
+
+
+def bloom_embed_bwd_cuda(g: torch.Tensor, idx: torch.Tensor,
+                         m: int) -> torch.Tensor:
+    """Launch the dense backward kernel on PyTorch's current stream (no
+    sync).  g (T, D) float32 or bfloat16 and idx (T, k) int32, contiguous,
+    on one CUDA device; (m, D) f32.  Raises on anything the kernel does not
+    take."""
+    _check_bwd(g, idx)
+    if not (g.is_cuda and idx.device == g.device):
+        raise ValueError("g and idx must lie on one CUDA device")
+    if g.dtype not in DTYPES or idx.dtype != torch.int32:
+        raise TypeError(f"need a float32 or bfloat16 g and int32 idx, got "
+                        f"{g.dtype} and {idx.dtype}")
+    if not (g.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("g and idx must be contiguous")
+    (T, D), k = g.shape, idx.shape[1]
+    if T * k >= 2 ** 31 or T * D >= 2 ** 31 or m >= 2 ** 31:
+        raise ValueError(f"need T*k, T*D, m < 2**31, got T*k={T * k} "
+                         f"T*D={T * D} m={m}")
+    out = torch.empty((m, D), dtype=torch.float32, device=g.device)
+    if m and D:
+        lib = _library()
+        err = lib.bloom_embed_bwd_dense(
+            g.data_ptr(), _CODES[g.dtype], idx.data_ptr(), out.data_ptr(),
+            T, D, m, k, torch.cuda.current_stream(g.device).cuda_stream)
+        if err != 0:
+            msg = lib.bloom_embed_error_string(err).decode()
+            raise RuntimeError(f"{BWD} kernel launch failed: CUDA error "
+                               f"{err} ({msg})")
+        common.count_launch(BWD)
+    return out
+
+
+def bloom_embed_bwd(g: torch.Tensor, idx: torch.Tensor,
+                    m: int) -> torch.Tensor:
+    """The dense backward: the kernel for CUDA tensors, the plain version
+    for CPU tensors.  (m, D) f32."""
+    if common.resolve_impl(g, idx) == "kernel":
+        return bloom_embed_bwd_cuda(g, idx, m)
+    return bloom_embed_bwd_plain(g, idx, m)
+
+
 class _BloomEmbed(torch.autograd.Function):
     """(T, D) forward; the backward returns dtable (m, D) in the master
     table's dtype (straight-through when the forward was quantized)."""
 
     @staticmethod
-    def forward(ctx, table, idx, table_dtype, out_dtype):
+    def forward(ctx, table, idx, table_dtype, out_dtype, bwd_impl):
         if table_dtype is None:
             if common.resolve_impl(table, idx) == "kernel":
                 out = bloom_embed_cuda(table, idx)
@@ -225,30 +300,35 @@ class _BloomEmbed(torch.autograd.Function):
                 qtable, scales, idx,
                 out_dtype or default_out_dtype(table_dtype, table))
         ctx.save_for_backward(idx)
-        ctx.m, ctx.dtype = table.shape[0], table.dtype
+        ctx.m, ctx.dtype, ctx.bwd_impl = table.shape[0], table.dtype, bwd_impl
         return out
 
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
-        dtable = bloom_csr.csr_scatter_add(g.contiguous(), idx, ctx.m)
-        return dtable.to(ctx.dtype), None, None, None
+        scatter = (bloom_csr.csr_scatter_add if ctx.bwd_impl == "csr"
+                   else bloom_embed_bwd)
+        dtable = scatter(g.contiguous(), idx, ctx.m)
+        return dtable.to(ctx.dtype), None, None, None, None
 
 
 def bloom_embed(table: torch.Tensor, idx: torch.Tensor,
                 table_dtype: Optional[str] = None,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                bwd_impl: str = "csr") -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version for CPU tensors;
-    differentiable in ``table`` through the CSR scatter-add.
+    differentiable in ``table`` through the CSR scatter-add
+    (``bwd_impl="csr"``) or the dense backward (``"dense"``).
 
     ``table_dtype`` (core/quant.py) quantizes the table in the graph and
     gathers the stored rows (straight-through gradient into ``table``);
     ``out_dtype`` sets the output dtype (default ``default_out_dtype``)."""
     td = quant.resolve_table_dtype(table_dtype)
+    common.resolve_bwd_impl(bwd_impl)
     if td is None and out_dtype not in (None, table.dtype):
         raise ValueError("out_dtype other than the table's needs a "
                          "table_dtype")
-    return _BloomEmbed.apply(table, idx, td, out_dtype)
+    return _BloomEmbed.apply(table, idx, td, out_dtype, bwd_impl)
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,6 +337,8 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bloom_embed_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.bloom_embed_fwd.restype = i
+    lib.bloom_embed_bwd_dense.argtypes = [p, i, p, p, i, i, i, i, p]
+    lib.bloom_embed_bwd_dense.restype = i
     lib.bloom_embed_error_string.argtypes = [i]
     lib.bloom_embed_error_string.restype = ctypes.c_char_p
     return lib

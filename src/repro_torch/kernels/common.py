@@ -14,6 +14,10 @@
 * Launch counts: each kernel wrapper adds one to ``LAUNCHES[name]`` where it
   launches its kernel, and nowhere else, so a run can show which kernels
   its main path went through.
+* The backward knob: ``resolve_bwd_impl`` validates ``bwd_impl`` ("csr",
+  the CSR scatter-add, or "dense", the m-tile sweep), and ``onehot_count``
+  is the one-hot count the JAX package's dense backwards contract with,
+  kept here as a plain torch function for the oracles.
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {}
+
+BWD_IMPLS = ("dense", "csr")
 
 
 def count_launch(name: str) -> None:
@@ -69,6 +75,21 @@ def resolve_impl(*tensors: torch.Tensor) -> str:
     if dev.type == "cpu":
         return "plain"
     raise ValueError(f"unsupported device {dev}")
+
+
+def resolve_bwd_impl(bwd_impl: str) -> str:
+    """Validate a differentiable entry's ``bwd_impl``: "dense" or "csr"."""
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"bwd_impl must be 'dense' or 'csr', "
+                         f"got {bwd_impl!r}")
+    return bwd_impl
+
+
+def onehot_count(ids: torch.Tensor, n: int, base: int = 0) -> torch.Tensor:
+    """counts[r, c] = #{j : ids[r, j] == base + c} as float32, (rows, n).
+    Out-of-range ids (the -1 pad) never match."""
+    cols = torch.arange(base, base + n, device=ids.device)
+    return (ids.long()[:, :, None] == cols).sum(1).to(torch.float32)
 
 
 # --------------------------------------------------------------------------

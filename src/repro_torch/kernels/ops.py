@@ -3,27 +3,37 @@
 These adapt model-layer shapes ((..., m) activations, BloomSpec hash
 generation) to the flat kernel interfaces.  Each kernel entry picks its
 hand-written CUDA kernel for CUDA tensors and its plain PyTorch version for
-CPU tensors, so the same call sites run everywhere.  ``bloom_embed`` and
-``bloom_ce`` are differentiable: their backwards are kernels too (the CSR
-scatter-add and the Bloom CE backward).
+CPU tensors, so the same call sites run everywhere.  ``bloom_embed``,
+``bloom_ce`` and ``bloom_decode`` are differentiable: their backwards are
+kernels too (the Bloom CE backward, and for the embedding and the decode
+the CSR scatter-add or, with ``bwd_impl="dense"``, the dense m-tile
+sweep).  ``bloom_decode`` is the full Eq. 3 recovery, (..., d) scores for
+ranking losses and gradient sweeps; ``bloom_decode_topk`` is the serving
+path that never materializes them.
 
 Vocab-sized hash matrices come from ``core.bloom.cached_hash_matrix`` — one
 (d, k) device tensor per (BloomSpec, device), shared across decode calls so
 the serving loop never rehashes the vocabulary per step.  With a
 ``table_dtype`` (core/quant.py) the decode drops that matrix for an
 on-the-fly spec and hashes in the kernel, and a frozen embedding table is
-quantized once (``core.bloom.cached_quantized_table``).
+quantized once (``core.bloom.cached_quantized_table``).  The CSR bins of
+that matrix, which the decode's ``bwd_impl="csr"`` backward reads, are
+built once per (spec, device) too (``core.bloom.cached_decode_bins``), and
+only when the decode is differentiated.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.bloom import (BloomSpec, cached_hash_matrix,
+from repro_torch.core.bloom import (BloomSpec, cached_decode_bins,
+                                    cached_hash_matrix,
                                     cached_quantized_table)
 from repro_torch.kernels.bloom_ce import bloom_ce as _ce
+from repro_torch.kernels.bloom_decode import bloom_decode as _decode
 from repro_torch.kernels.bloom_decode_topk import \
     bloom_decode_topk as _decode_topk
 from repro_torch.kernels.bloom_embed import bloom_embed as _embed
@@ -31,11 +41,14 @@ from repro_torch.kernels.bloom_embed import bloom_embed_fwd_quantized
 
 
 def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
-                spec: BloomSpec, table_dtype: Optional[str] = None,
+                spec: BloomSpec, bwd_impl: str = "csr",
+                table_dtype: Optional[str] = None,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """table (m, D); tokens (B, S) -> (B, S, D): each token's k hashed
     table rows summed (Eq. 1's k-hot code times the table).
-    Differentiable in ``table``: the backward is the CSR scatter-add.
+    Differentiable in ``table``: the backward is the CSR scatter-add
+    (``bwd_impl="csr"``) or the dense m-tile sweep (``"dense"``), as
+    ``ModelConfig.bwd_impl`` says through models/io.py.
 
     ``table_dtype`` stores the table narrow for the gather.  When a
     gradient is wanted (grad mode on and ``table`` requiring it) the table
@@ -54,7 +67,8 @@ def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
             qtable, scales, idx,
             torch.float32 if out_dtype is None else out_dtype)
     else:
-        out = _embed(table, idx, table_dtype=td, out_dtype=out_dtype)
+        out = _embed(table, idx, table_dtype=td, out_dtype=out_dtype,
+                     bwd_impl=bwd_impl)
     return out.reshape(B, S, -1)
 
 
@@ -67,6 +81,36 @@ def bloom_ce(logits: torch.Tensor, labels: torch.Tensor,
     z = logits.reshape(-1, logits.shape[-1]).contiguous()
     h = spec.indices_for(labels.reshape(-1).clamp_min(0)).contiguous()
     return _ce(z, h).reshape(shape)
+
+
+def bloom_decode(logp: torch.Tensor, spec: BloomSpec,
+                 hash_matrix: Optional[torch.Tensor] = None,
+                 bwd_impl: str = "csr",
+                 table_dtype: Optional[str] = None) -> torch.Tensor:
+    """logp (..., m) -> Eq. 3 scores (..., d) f32 over the original vocab,
+    differentiable in ``logp``.
+
+    With the spec-cached hash matrix and ``bwd_impl="csr"`` the backward
+    reads the spec's cached CSR bins (``core.bloom.cached_decode_bins``,
+    built at the first backward, never by a forward-only caller); a
+    caller-supplied ``hash_matrix`` is binned inside the backward.
+    ``bwd_impl="dense"`` takes the dense m-tile sweep kernel.
+    ``table_dtype`` quantizes the logp rows per call for the kernel to
+    read narrow; the gradient is straight-through."""
+    lead = logp.shape[:-1]
+    flat = logp.reshape(-1, logp.shape[-1]).contiguous()
+    bins_fn = None
+    if hash_matrix is None:
+        H = cached_hash_matrix(spec, logp.device)
+        if bwd_impl == "csr":
+            bins_fn = functools.partial(cached_decode_bins, spec,
+                                        logp.device)
+    else:
+        H = hash_matrix.to(torch.int32).contiguous()
+    scores = _decode(flat, H, bwd_impl=bwd_impl,
+                     table_dtype=quant.resolve_table_dtype(table_dtype),
+                     bins_fn=bins_fn)
+    return scores.reshape(*lead, spec.d)
 
 
 def bloom_decode_topk(logp: torch.Tensor, spec: BloomSpec, topk: int,

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import onehot_count
+
 
 def bloom_embed_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table (m, D); idx (T, k) hash indices -> (T, D) k-way gather-sum."""
@@ -18,6 +20,27 @@ def bloom_decode_ref(logp: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
     for j in range(1, H.shape[1]):
         scores = scores + logp[:, h[:, j]]
     return scores
+
+
+def bloom_decode_scaled_ref(q: torch.Tensor, scales: torch.Tensor,
+                            H: torch.Tensor) -> torch.Tensor:
+    """The int8 decode: the raw stored values summed in j order as f32,
+    times each row's scale once, (sum_j q[b, H[i, j]]) * scales[b]."""
+    return bloom_decode_ref(q.float(), H) * scales[:, None]
+
+
+def bloom_decode_bwd_ref(g: torch.Tensor, H: torch.Tensor,
+                         m: int) -> torch.Tensor:
+    """g (B, d); H (d, k) -> dlogp (B, m) f32 = g @ onehot_count(H), the
+    TPU kernel's one-hot contraction (-1 pads never match)."""
+    return g.float() @ onehot_count(H, m)
+
+
+def bloom_embed_bwd_ref(g: torch.Tensor, idx: torch.Tensor,
+                        m: int) -> torch.Tensor:
+    """g (T, D); idx (T, k) -> dtable (m, D) f32 = onehot_count(idx)^T @ g
+    (-1 pads never match)."""
+    return onehot_count(idx, m).t() @ g.float()
 
 
 def bloom_ce_ref(logits: torch.Tensor, h_idx: torch.Tensor) -> torch.Tensor:

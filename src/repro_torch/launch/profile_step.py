@@ -1,7 +1,8 @@
 """Where one full-width LM step spends its time, on a GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
-        [--step decode|train] [--steps 20] [--table-dtype int8]
+        [--step decode|train] [--steps 20] [--table-dtype int8] \\
+        [--bwd-impl dense]
 
 Builds qwen1.5-0.5b at full width (random weights from seed 0) and runs
 ``--steps`` steps of one kind:
@@ -16,6 +17,8 @@ Builds qwen1.5-0.5b at full width (random weights from seed 0) and runs
 the Bloom tables stored narrow: the quantized embedding and, for decode,
 the per-step quantize of the (8, m) logp rows and the in-kernel-hash
 decode; the quantize ops' own device time is timed apart as well.
+``--bwd-impl dense`` (train) takes the Bloom embedding's backward through
+the dense m-tile sweep kernel instead of the CSR scatter-add.
 
 The steps are first timed on the host clock with a synchronise after
 each, then run again under ``torch.profiler`` (CPU and CUDA activities).
@@ -50,7 +53,7 @@ from repro_torch.serving.scheduler import ServeStats
 PORT_KERNELS = {"bloom_embed": "embed_fwd",
                 "bloom_decode_topk": "decode_topk",
                 "bloom_ce_fwd": "ce_fwd", "bloom_ce_bwd": "ce_bwd",
-                "bloom_csr": "csr_"}
+                "bloom_csr": "csr_", "bloom_embed_bwd": "embed_bwd_dense"}
 
 
 def decode_step(cfg, dev, steps: int):
@@ -92,12 +95,15 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--table-dtype", default="auto",
                     choices=("auto", *quant.TABLE_DTYPES))
+    ap.add_argument("--bwd-impl", default="csr", choices=("csr", "dense"),
+                    help="the Bloom embedding's backward in a train step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     dev = torch.device("cuda")
     common.build()
-    cfg = configs.get_config("qwen1.5-0.5b", table_dtype=args.table_dtype)
+    cfg = configs.get_config("qwen1.5-0.5b", table_dtype=args.table_dtype,
+                             bwd_impl=args.bwd_impl)
     fn = (decode_step(cfg, dev, args.steps) if args.step == "decode"
           else train_step(cfg, dev))
 
@@ -123,7 +129,8 @@ def main(argv=None) -> None:
     busy = sum(dev_us.values()) / args.steps
     wall_ms = float(np.mean(walls)) * 1e3
     print(f"profile: {cfg.name} {args.step} step, table_dtype "
-          f"{cfg.table_dtype}, {args.steps} steps: wall "
+          f"{cfg.table_dtype}, bwd_impl {cfg.bwd_impl}, {args.steps} steps: "
+          f"wall "
           f"{wall_ms:.6f} ms per step (median "
           f"{float(np.median(walls)) * 1e3:.6f}), device busy "
           f"{busy / 1e3:.6f} ms per step"

@@ -9,7 +9,8 @@ master params.  LM serving: ``init_fn_for`` + ``cast_params_for_compute``
 make the serving model, ``make_prefill_step`` / ``make_slot_decode_step``
 run it (the decode step includes the paper's Eq. 3 top-k recovery, so
 serving cost is end to end), ``warm_bloom_caches`` pre-builds a quantized
-embedding table, and ``insert_cache_slot`` writes a prefill's caches into
+embedding table (and, for a differentiated decode, the CSR bins of the
+vocab hash matrix), and ``insert_cache_slot`` writes a prefill's caches into
 the slot pool.
 """
 from __future__ import annotations
@@ -134,16 +135,25 @@ def make_slot_decode_step(cfg: ModelConfig, topk: int, device):
     return step
 
 
-def warm_bloom_caches(cfg: ModelConfig, model: torch.nn.Module) -> None:
-    """Pre-build what a serving model's quantized Bloom IO reads: with a
-    ``cfg.table_dtype`` other than "auto", the quantized embedding table
-    (``core.bloom.cached_quantized_table``), so the first prefill does not
-    pay for it (the reference's ``train.trainer.warm_bloom_caches``).  A
-    no-op otherwise."""
+def warm_bloom_caches(cfg: ModelConfig, model: torch.nn.Module,
+                      decode_grad: bool = False) -> None:
+    """Pre-build the per-spec Bloom caches the hot path reads, so the first
+    step does not pay for them (the reference's
+    ``train.trainer.warm_bloom_caches``): with a ``cfg.table_dtype`` other
+    than "auto", a serving model's quantized embedding table
+    (``core.bloom.cached_quantized_table``); with ``decode_grad`` (a
+    workload that differentiates the Eq. 3 decode through
+    ``ops.bloom_decode``) and ``cfg.bwd_impl == "csr"``, the hash matrix
+    and its CSR bins (``core.bloom.cached_decode_bins``) on the model's
+    device.  A no-op without Bloom IO."""
     spec = io_lib.vocab_spec(cfg)
+    if spec is None:
+        return
     td = io_lib.resolved_table_dtype(cfg)
-    if spec is not None and td is not None:
+    if td is not None:
         bloom_lib.cached_quantized_table(spec, model.embed, td)
+    if decode_grad and cfg.bwd_impl == "csr":
+        bloom_lib.cached_decode_bins(spec, model.embed.device)
 
 
 @torch.inference_mode()

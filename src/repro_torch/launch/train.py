@@ -5,7 +5,8 @@ Trains ``--arch`` (its smoke config by default, the full config with
 moved to the device as the f32 master; every step casts them to the
 compute dtype, and with Bloom IO on a GPU it runs the hand-written CUDA
 kernels: the ``bloom_embed`` forward, the ``bloom_ce`` forward and
-backward, and the CSR scatter-add that is the embedding's backward.
+backward, and the embedding's backward: the CSR scatter-add, or with
+``--bwd-impl dense`` the dense m-tile sweep (``bloom_embed_bwd``).
 ``--table-dtype`` (int8, fp8_e4m3, bfloat16, float32) trains through a
 quantized embedding forward (the ``bloom_embed.<storage>`` variant) with
 the gradient straight-through into the master table.
@@ -26,7 +27,7 @@ the reference's LM step.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
-      --full --steps 20
+      --full --steps 20 [--bwd-impl dense]
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --device cpu --steps 16 [--ckpt /tmp/ckpt_qwen]
 """
@@ -58,15 +59,13 @@ def run(arch: str, steps: int = 100, batch: int = 8, seq: int = 64,
         failpoints: str | None = None, device=None):
     """Train; returns (model, history), history one {"step", "loss",
     "step_s"} per logged step."""
-    if bwd_impl not in (None, "csr"):
-        raise NotImplementedError(
-            f"bwd_impl={bwd_impl!r}: the dense Bloom backward is not ported "
-            "yet (ROADMAP B9); the port's backward is the CSR scatter-add")
     device = resolve_device(device)
     if device.type == "cuda":
         kernels_common.build()     # nvcc at first use: not in the run's wall
     cfg = (configs.get_config(arch, bloom=bloom) if full
            else configs.get_smoke_config(arch))
+    if bwd_impl is not None:
+        cfg = dataclasses.replace(cfg, bwd_impl=bwd_impl)
     if table_dtype is not None:
         cfg = dataclasses.replace(cfg, table_dtype=table_dtype)
     tc = TrainConfig(optimizer="adamw", learning_rate=learning_rate,
@@ -164,7 +163,8 @@ def main(argv=None):
                          "e.g. train_fault@7")
     ap.add_argument("--bwd-impl", default=None, choices=["dense", "csr"],
                     help="Bloom embedding backward: csr (the CSR "
-                         "scatter-add); dense is not ported yet (ROADMAP B9)")
+                         "scatter-add, the default) or dense (the m-tile "
+                         "sweep)")
     ap.add_argument("--table-dtype", default=None,
                     choices=["auto", "float32", "bfloat16", "int8",
                              "fp8_e4m3"],

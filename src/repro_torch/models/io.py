@@ -62,7 +62,8 @@ def embed_tokens(embed: torch.Tensor, cfg: ModelConfig,
     the k-hot Bloom code of the paper, computed as a k-way gather-sum.
     With a quantized ``cfg.table_dtype`` the master-precision table goes
     in and the kernel reads it stored narrow (gradients straight-through
-    to the master).
+    to the master).  ``cfg.bwd_impl`` picks the table's backward: the CSR
+    scatter-add or the dense m-tile sweep.
     """
     dt = getattr(torch, cfg.dtype)
     spec = vocab_spec(cfg)
@@ -70,8 +71,10 @@ def embed_tokens(embed: torch.Tensor, cfg: ModelConfig,
         return embed[tokens.long()].to(dt)
     td = resolved_table_dtype(cfg)
     if td is None:
-        return ops.bloom_embed(embed.to(dt), tokens, spec)
-    return ops.bloom_embed(embed, tokens, spec, table_dtype=td, out_dtype=dt)
+        return ops.bloom_embed(embed.to(dt), tokens, spec,
+                               bwd_impl=cfg.bwd_impl)
+    return ops.bloom_embed(embed, tokens, spec, bwd_impl=cfg.bwd_impl,
+                           table_dtype=td, out_dtype=dt)
 
 
 def lm_logits(embed: torch.Tensor, head: Optional[torch.Tensor],

@@ -13,7 +13,14 @@ and the quantized variants (``table_dtype``): the embedding over f32, bf16,
 int8 (+ scales) and fp8 storage bit-identical to its plain version, the
 decode over the same storages with the in-kernel hash bit-identical to its
 plain version and to the explicit-H kernel, and the retrieval drill, the
-LM engine and a train step launching them once per step.
+LM engine and a train step launching them once per step; and the
+differentiable Eq. 3 decode and the dense backwards (``bwd_impl``): the
+decode forward over f32, bf16, int8 and fp8 logp bit-identical to its
+plain version (NaN where the plain version has NaN), the dense decode and
+embedding backwards bit-identical to their plain versions on a CPU copy,
+to the CSR kernel and to themselves on a second launch, ``ops.bloom_decode``
+and its gradient equal to the CPU path under both backwards, and a dense
+train step launching the dense embedding backward.
 
 Marked ``cuda``; every test skips without a GPU.  On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -29,6 +36,7 @@ from repro_torch.core.bloom import cached_hash_matrix
 from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels import bloom_ce as ce
 from repro_torch.kernels import bloom_csr as csr
+from repro_torch.kernels import bloom_decode as bd
 from repro_torch.kernels import bloom_decode_topk as dt
 from repro_torch.kernels import bloom_embed as be
 from repro_torch.kernels import common, ops
@@ -507,4 +515,147 @@ def test_quantized_train_step_launches_the_embed_variant(cuda):
         state, metrics = step(model, state, {"tokens": tokens})
         assert common.LAUNCHES == {"bloom_embed.int8": 1, csr.NAME: 1,
                                    ce.FWD: 1, ce.BWD: 1}
+        assert bool(torch.isfinite(metrics["loss"]))
+
+
+def _equal_nan(a, b):
+    """Equal values, and NaN in the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.mark.parametrize("B,m,d,k", [
+    (1, 30208, 151936, 4), (8, 30208, 151936, 4), (3, 1001, 5003, 3),
+    (2, 56 * 1024, 1000, 2), (5, 64, 333, 1)])
+@pytest.mark.parametrize("td", [None, *QUANT_TDS])
+def test_decode_kernel_bit_identical_to_plain(cuda, td, B, m, d, k):
+    from repro_torch.core import quant
+    logp, H = _inputs(B, m, d, k, cuda, seed=B + d)
+    logp[0, :3] = -500.0               # past fp8's range: NaN, as in JAX
+    H[0, 0] = 1                        # id 0 reads one of them
+    q, s = (logp, None) if td is None else quant.quantize_table(logp, td)
+    common.reset_launches()
+    got = bd.bloom_decode_cuda(q, H, s)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES == {bd.variant_name(q.dtype): 1}
+    want = bd.bloom_decode_plain(q, H, s)
+    assert got.shape == (B, d) and _equal_nan(got, want)
+    assert torch.isnan(got).any() == (td == "fp8_e4m3")
+
+
+def test_decode_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    logp, H = _inputs(2, 64, 100, 2, cuda)
+    with pytest.raises(TypeError):
+        bd.bloom_decode_cuda(logp.double(), H)
+    with pytest.raises(TypeError):
+        bd.bloom_decode_cuda(logp, H.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        bd.bloom_decode_cuda(logp.t().contiguous().t(), H)
+    with pytest.raises(ValueError, match="shared-memory"):
+        big, _ = _inputs(1, bd.MAX_M + 1, 10, 2, cuda)
+        bd.bloom_decode_cuda(big, H)
+    with pytest.raises(ValueError, match="scales"):
+        bd.bloom_decode_cuda(logp.to(torch.int8), H)
+    with pytest.raises(ValueError, match="one device"):
+        bd.bloom_decode_fwd(logp, H.cpu())
+    with pytest.raises(TypeError):
+        bd.bloom_decode_bwd_cuda(logp.double(), H[:64], 64)
+
+
+@pytest.mark.parametrize("B,d,m,k,pads", [
+    (8, 151936, 30208, 4, False), (3, 1000, 77, 3, True),
+    (11, 5000, 300, 2, False), (1, 20000, 600, 1, True)])
+def test_dense_decode_backward_bit_identical(cuda, B, d, m, k, pads):
+    g = torch.Generator().manual_seed(d)
+    cot = torch.randn(B, d, generator=g)
+    H = torch.randint(0, m, (d, k), generator=g, dtype=torch.int32)
+    if pads:
+        H[::5, -1] = -1
+    common.reset_launches()
+    got = bd.bloom_decode_bwd_cuda(cot.to(cuda), H.to(cuda), m)
+    again = bd.bloom_decode_bwd_cuda(cot.to(cuda), H.to(cuda), m)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES == {bd.BWD: 2}
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), bd.bloom_decode_bwd_plain(cot, H, m))
+    via_csr = csr.bloom_decode_bwd_csr(cot.to(cuda), H.to(cuda), m)
+    assert common.LAUNCHES[csr.DECODE] == 1
+    assert torch.equal(got, via_csr)
+
+
+@pytest.mark.parametrize("T,k,D,m,rows", [
+    (520, 4, 1024, 30208, None), (14, 4, 1000, 512, None),
+    (9, 3, 37, 64, None), (300, 4, 2500, 4096, [0, 5, 5, 9]),
+    (40, 2, 1020, 128, [7]), (3000, 4, 64, 40, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_embed_backward_bit_identical(cuda, T, k, D, m, rows, dtype):
+    g = torch.Generator().manual_seed(T + D)
+    cot = torch.randn(T, D, generator=g).to(dtype)
+    if rows is None:
+        idx = torch.randint(0, m, (T, k), generator=g, dtype=torch.int32)
+    else:
+        pick = torch.randint(0, len(rows), (T, k), generator=g)
+        idx = torch.tensor(rows, dtype=torch.int32)[pick]
+    common.reset_launches()
+    got = be.bloom_embed_bwd_cuda(cot.to(cuda), idx.to(cuda), m)
+    again = be.bloom_embed_bwd_cuda(cot.to(cuda), idx.to(cuda), m)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES == {be.BWD: 2}
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert torch.equal(got.cpu(), be.bloom_embed_bwd_plain(cot, idx, m))
+    assert torch.equal(got, csr.csr_scatter_add(cot.to(cuda), idx.to(cuda),
+                                                m))
+    padded = idx.clone()
+    padded[::3, 0] = -1
+    assert torch.equal(
+        be.bloom_embed_bwd_cuda(cot.to(cuda), padded.to(cuda), m).cpu(),
+        be.bloom_embed_bwd_plain(cot, padded, m))
+
+
+def test_dense_embed_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    cot = torch.randn(4, 8, device=cuda)
+    idx = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        be.bloom_embed_bwd_cuda(cot.double(), idx, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        be.bloom_embed_bwd_cuda(cot.t().contiguous().t(), idx, 16)
+    with pytest.raises(ValueError, match="one device"):
+        be.bloom_embed_bwd(cot, idx.cpu(), 16)
+
+
+@pytest.mark.parametrize("td", [None, "int8"])
+@pytest.mark.parametrize("bwd_impl", ["csr", "dense"])
+def test_ops_decode_and_its_gradient_equal_the_cpu_path(cuda, bwd_impl, td):
+    spec = io_lib.vocab_spec(configs.get_smoke_config("qwen1.5-0.5b"))
+    g = torch.Generator().manual_seed(1)
+    base = torch.log_softmax(torch.randn(2, 3, spec.m, generator=g), -1)
+    cot = torch.randn(2, 3, spec.d, generator=g)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        logp = base.to(dev).requires_grad_()
+        common.reset_launches()
+        scores = ops.bloom_decode(logp, spec, bwd_impl=bwd_impl,
+                                  table_dtype=td)
+        (scores * cot.to(dev)).sum().backward()
+        out.append((scores.detach().cpu(), logp.grad.cpu()))
+        if dev.type == "cuda":
+            name = bd.variant_name(torch.int8 if td else torch.float32)
+            assert common.LAUNCHES == {
+                name: 1, (csr.DECODE if bwd_impl == "csr" else bd.BWD): 1}
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+def test_dense_train_step_launches_the_dense_embed_backward(cuda):
+    cfg = configs.get_smoke_config("qwen1.5-0.5b", dtype="bfloat16",
+                                   bwd_impl="dense")
+    model = steps_lib.init_fn_for(cfg)(0).to(cuda)
+    step, opt = steps_lib.make_train_step(cfg, TrainConfig(optimizer="adamw"))
+    state = opt.init({n: p.detach() for n, p in model.named_parameters()})
+    tokens = torch.randint(0, cfg.vocab, (4, 17), device=cuda)
+    for _ in range(2):
+        common.reset_launches()
+        state, metrics = step(model, state, {"tokens": tokens})
+        assert common.LAUNCHES == {be.NAME: 1, be.BWD: 1, ce.FWD: 1,
+                                   ce.BWD: 1}
         assert bool(torch.isfinite(metrics["loss"]))

@@ -7,8 +7,8 @@ Tolerances: optimizer updates on the same gradients within rtol 1e-6 (the
 same f32 operations in the same order; the global norm sums its leaves in
 another order); ``lm_loss_fn``'s loss and every parameter's gradient within
 1e-4, the reference's own gradient tolerance, against both its
-``io_impl="pallas"`` (interpret mode, ``bwd_impl="csr"``) and ``"xla"``
-paths; a 4-step trajectory of ``launch/train.run`` within rtol 1e-5 of the
+``io_impl="pallas"`` (interpret mode, ``bwd_impl`` "csr" and "dense") and
+``"xla"`` paths; a 4-step trajectory of ``launch/train.run`` within rtol 1e-5 of the
 reference's ``run``.  Integers are exact: the token stream, the batches and
 the data cursor.  The port's own crash and resume equals a straight run
 within rtol 1e-6 (``tests/test_checkpoint.py``'s tolerance); a checkpoint
@@ -98,10 +98,15 @@ def test_optimizer_updates_match(name, wd, warmup, compression):
         t_trainer.make_optimizer(TrainConfig(optimizer="sgd"))
 
 
-@pytest.mark.parametrize("io_impl,masked", [("pallas", False),
-                                            ("xla", False), ("xla", True)])
-def test_loss_and_every_gradient_match(ref, io_impl, masked):
-    jcfg = dataclasses.replace(ref["jcfg"], io_impl=io_impl, bwd_impl="csr")
+@pytest.mark.parametrize("io_impl,bwd_impl,masked", [
+    pytest.param("pallas", "csr", False, id="pallas-False"),
+    pytest.param("xla", "csr", False, id="xla-False"),
+    pytest.param("xla", "csr", True, id="xla-True"),
+    pytest.param("pallas", "dense", False, id="pallas-dense-False")])
+def test_loss_and_every_gradient_match(ref, io_impl, bwd_impl, masked):
+    jcfg = dataclasses.replace(ref["jcfg"], io_impl=io_impl,
+                               bwd_impl=bwd_impl)
+    tcfg = dataclasses.replace(ref["tcfg"], bwd_impl=bwd_impl)
     tokens = np.random.default_rng(1).integers(
         0, jcfg.vocab, size=(2, 16)).astype(np.int32)
     jbatch, tbatch = {"tokens": jnp.asarray(tokens)}, {
@@ -118,7 +123,7 @@ def test_loss_and_every_gradient_match(ref, io_impl, masked):
 
     (jloss, jm), jgrads = jax.value_and_grad(f, has_aux=True)(ref["jparams"])
     model = _model(ref)
-    loss, metrics, grads = t_steps.value_and_grad(model, ref["tcfg"], tbatch)
+    loss, metrics, grads = t_steps.value_and_grad(model, tcfg, tbatch)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=0, atol=1e-4)
     assert float(metrics["ce"]) == float(loss) and float(metrics["aux"]) == 0
     want = t_tf.lm_params_from_jax(jax.tree.map(np.asarray, jgrads),
@@ -221,9 +226,24 @@ def test_train_cli_on_the_cpu(tmp_path):
     assert out[1].returncode == 0, out[1].stderr
     assert "resumed from step 12" in out[1].stdout
     assert "trained 0 steps" in out[1].stdout
-    with pytest.raises(NotImplementedError, match="B9"):
+    dense = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+         "--device", "cpu", "--steps", "12", "--batch", "4", "--seq", "16",
+         "--bwd-impl", "dense"],
+        cwd=root, env=subprocess_env(), capture_output=True, text=True,
+        timeout=120)
+    assert dense.returncode == 0, dense.stderr
+    assert "trained 12 steps" in dense.stdout
+    # the dense backward adds in the CSR kernel's order: the same losses
+
+    def losses(stdout):
+        return [ln.split()[3] for ln in stdout.splitlines()
+                if ln.startswith("step")]
+
+    assert losses(dense.stdout) == losses(out[0].stdout) != []
+    with pytest.raises(SystemExit):     # argparse: not a knob value
         t_train.main(["--arch", ARCH, "--device", "cpu", "--bwd-impl",
-                      "dense"])
+                      "sparse"])
     with pytest.raises(SystemExit):     # argparse: not a knob value
         t_train.main(["--arch", ARCH, "--device", "cpu", "--table-dtype",
                       "int4"])
