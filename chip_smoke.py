@@ -38,18 +38,23 @@ Phases, one line of numbers each:
                 versions at (T = 512, m = 30,208, k = 4), at T = 4,088 and
                 with rows whose hashes repeat a column (loss rtol 1e-6 /
                 atol 1e-5, dz atol 1e-7: expf and the exp-sum order differ
-                from torch's in the last ulp), and the CSR scatter-add
-                bit-identical to its plain version on a CPU copy at
-                (T = 520, k = 4, D = 1024, m = 30,208, bf16), on index sets
-                with every entry in a few rows and at an unaligned D; then
+                from torch's in the last ulp), the card's CSR bins
+                (bloom_csr.bin) equal to bin_csr_plain's and the CSR
+                scatter-add bit-identical to its plain version on a CPU copy
+                and to a second launch at (T = 520, k = 4, D = 1024,
+                m = 30,208, bf16), on index sets with every entry in a few
+                rows, with -1 pads, at D = 8 and at an unaligned D; then
                 each one's device time, back-to-back time, plain and
-                library times and bound;
+                library times and bound, and the binning's and the CSR
+                backward's as called (binning plus kernel), with the
+                latter's device time by kernel from a torch.profiler trace;
   7. train-lm — qwen1.5-0.5b at full width (24 layers, d_model 1024, m =
                 30,208, k = 4, bf16 compute, f32 master, random weights
                 from seed 0, batch 8, seq 64) trained 8 steps through
                 launch/train.run, counts reset just before and read just
-                after: every step must launch bloom_embed, bloom_csr and
-                the bloom_ce forward and backward once each, every loss be
+                after: every step must launch bloom_embed, the binning,
+                bloom_csr and the bloom_ce forward and backward once each,
+                every loss be
                 finite and step 8's below step 1's; then a resume drill (4
                 steps with a checkpoint, then a fresh run that restores it
                 and trains to 8) whose losses 5-8 equal the straight run's
@@ -85,22 +90,27 @@ Phases, one line of numbers each:
                 d = 151,936, m = 30,208, k = 4) and at an edge shape (B = 3,
                 m = 1,001, d = 5,003, k = 3, with values past fp8's range),
                 bit-identical to its plain version (NaN in the same places;
-                int8 as (sum q) * s); the dense decode backward bit-identical
-                to its plain version on a CPU copy, to the CSR decode caller
-                on an H without repeated indices (within 1e-6 on the spec's
-                H) and to a second launch; the dense embedding backward at
+                int8 as (sum q) * s); the card's bins of the spec's H (per
+                call and cached) equal to bin_csr_plain's; the dense decode
+                backward (H binned per call, then the CSR kernel)
+                bit-identical to its plain version on a CPU copy, to the CSR
+                decode caller on the spec's H and on an H without repeated
+                indices, and to a second launch; the dense embedding
+                backward at
                 (T = 520, k = 4, D = 1024, m = 30,208) and edge cases
                 bit-identical to its plain version on a CPU copy, to the CSR
                 kernel and to a second launch; then the times, plain and
-                library times and bounds;
+                library times (device and back to back) and bounds, and
+                the dense decode backward's device time by kernel
+                (torch.profiler);
  11. decode-grad — ops.bloom_decode on the last-position log_softmax of
                 full-width qwen1.5-0.5b (seed 0, 8 prompts of 16 tokens), in
                 f32 and with each table_dtype, differentiated under bwd_impl
                 csr and dense with a seeded cotangent: counts reset before
                 and read after each run (one forward and one backward
-                launch), scores equal to the plain version's, the csr and
-                dense gradients within 1e-6, the quantized gradients
-                straight-through;
+                launch, and under dense one binning), scores equal to the
+                plain version's, the csr and dense gradients bit-identical,
+                the quantized gradients straight-through;
  12. train-lm-dense — 8 full-width training steps through launch/train.run
                 with bwd_impl="dense", twice, in turns with a CSR run: every
                 step launches bloom_embed_bwd (and never bloom_csr), losses
@@ -186,7 +196,9 @@ def phase_kernels(torch, dt, common, bloom, get_retrieval_config):
         lambda: dt.bloom_decode_topk_cuda(logp, H, topk, partial), 50, 5)
     plain_ms = time_ms(lambda: dt.bloom_decode_topk_plain(logp, H, topk), 3)
     Hl = H.long()
-    library_ms = time_ms(lambda: torch.topk(logp[:, Hl].sum(-1), topk), 3)
+    library = lambda: torch.topk(logp[:, Hl].sum(-1), topk)  # noqa: E731
+    library_ms = time_ms(library, 3)
+    library_dev_ms = common.graph_time_ms(library, 3, 2)
     nbytes = dt.min_bytes(B, B, m=m, d=d, k=k, topk=topk)
     ops = d * B * (k - 1)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -197,7 +209,8 @@ def phase_kernels(torch, dt, common, bloom, get_retrieval_config):
     print(f"kernels: bloom_decode_topk web10m B={B} m={m} d={d} k={k} "
           f"topk={topk}: kernel {ms:.6f} ms, rows 0,3,7 {ms_partial:.6f} ms "
           f"(bound {bound_partial_ms * 1e3:.3f} us), "
-          f"plain {plain_ms:.6f} ms, torch.topk {library_ms:.6f} ms, bound "
+          f"plain {plain_ms:.6f} ms, torch.topk {library_dev_ms:.6f} ms on "
+          f"the device / {library_ms:.6f} ms back to back, bound "
           f"{bound_ms * 1e3:.3f} us ({nbytes} bytes), max_abs_err {err}",
           flush=True)
     return {"name": dt.NAME, "route": "cuda",
@@ -207,7 +220,7 @@ def phase_kernels(torch, dt, common, bloom, get_retrieval_config):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                          else "operations"),
-            "library_ms": library_ms}
+            "library_ms": library_dev_ms}
 
 
 def _bound(nbytes: int, ops: int):
@@ -249,14 +262,16 @@ def lm_decode_topk(torch, dt, common, bloom):
             lambda: dt.bloom_decode_topk_cuda(lp, H, topk, act))
         plain_ms = common.time_ms(
             lambda: dt.bloom_decode_topk_plain(lp, H, topk, act), 5)
-        lib_ms = common.time_ms(
-            lambda: torch.topk(lp[:, Hl].sum(-1), topk), 20)
+        lib = lambda: torch.topk(lp[:, Hl].sum(-1), topk)  # noqa: E731
+        lib_ms = common.time_ms(lib, 20)
+        lib_dev_ms = common.graph_time_ms(lib, 10, 3)
         nbytes = dt.min_bytes(n_live, B, m=m, d=d, k=k, topk=topk)
         bound_ms, by = _bound(nbytes, d * n_live * (k - 1))
         print(f"kernels: bloom_decode_topk LM {label} m={m} d={d} k={k} "
               f"topk={topk}: bit-identical, kernel {ms:.6f} ms back to "
               f"back (events), {dev_ms:.6f} ms on the device (graph), plain "
-              f"{plain_ms:.6f} ms, torch.topk {lib_ms:.6f} ms, bound "
+              f"{plain_ms:.6f} ms, torch.topk {lib_dev_ms:.6f} ms on the "
+              f"device / {lib_ms:.6f} ms back to back, bound "
               f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)", flush=True)
 
 
@@ -417,6 +432,34 @@ def _times_kernels(common, kernels, others, iters=20):
     return times
 
 
+def _device_split(torch, fn, calls=20):
+    """{kernel name: device us per call} of ``fn()`` from a torch.profiler
+    trace of ``calls`` calls (names cut to the function's)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.removeprefix("void ").removeprefix(
+                "(anonymous namespace)::")
+            name = name.split("(")[0].split("<")[0].strip()
+            split[name] = split.get(name, 0.0) + us / calls
+    return split
+
+
+def _split_line(split) -> str:
+    return ", ".join(f"{n} {us:.3f} us" for n, us in
+                     sorted(split.items(), key=lambda kv: -kv[1]))
+
+
 def _times_line(times) -> str:
     return ", ".join(f"{n} {d:.6f} / {h:.6f}" for n, (d, h) in times.items())
 
@@ -490,30 +533,43 @@ def phase_ce(torch, ce, common):
 
 
 def phase_csr(torch, csr, common):
-    """The CSR scatter-add bit-identical against its plain version on a CPU
-    copy; returns its JSON row, timed at the training step's shape."""
+    """The card's CSR bins equal to ``bin_csr_plain``'s on a CPU copy, and
+    the CSR scatter-add bit-identical against its plain version on a CPU
+    copy; returns the JSON rows of the scatter kernel and of the binning,
+    timed at the training step's shape."""
     dev = torch.device("cuda")
     T, k, D, m = 520, 4, 1024, 30208
     gen = torch.Generator().manual_seed(4)
     cases = [("main", T, D, None), ("rows 0,5,9", T, D, [0, 5, 5, 9]),
              ("row 7", T, D, [7]), ("D=1020", T, 1020, None),
-             ("D=1000 rows 3,4", 64, 1000, [3, 4])]
+             ("D=1000 rows 3,4", 64, 1000, [3, 4]), ("D=8", T, 8, None),
+             ("D=1024 -1 pads", T, D, "pads")]
     for dtype in (torch.bfloat16, torch.float32):
         for label, Tc, Dc, rows in cases:
             g = torch.randn(Tc, Dc, generator=gen).to(dtype)
-            if rows is None:
+            if rows is None or rows == "pads":
                 idx = torch.randint(0, m, (Tc, k), generator=gen,
                                     dtype=torch.int32)
+                if rows == "pads":
+                    idx[::3, 0] = -1
             else:
                 pick = torch.randint(0, len(rows), (Tc, k), generator=gen)
                 idx = torch.tensor(rows, dtype=torch.int32)[pick]
+            bins = csr.bin_csr(idx.to(dev), m)
             got = csr.csr_scatter_add(g.to(dev), idx.to(dev), m)
+            again = csr.csr_scatter_add(g.to(dev), idx.to(dev), m)
             torch.cuda.synchronize()
+            _check(all(torch.equal(x.cpu(), w) for x, w in
+                       zip(bins, csr.bin_csr_plain(idx, m))),
+                   f"bloom_csr.bin {label}: device bins != bin_csr_plain's")
             _check(torch.equal(got.cpu(), csr.csr_scatter_add(g, idx, m)),
                    f"bloom_csr {dtype} {label}: kernel != plain version")
-        print(f"kernels-train: bloom_csr {dtype}: bit-identical to the plain "
-              f"version on the CPU for {[c[0] for c in cases]} (T={T}, "
-              f"k={k}, m={m})", flush=True)
+            _check(torch.equal(got, again),
+                   f"bloom_csr {dtype} {label}: two launches differ")
+        print(f"kernels-train: bloom_csr {dtype}: device bins equal "
+              f"bin_csr_plain's, and the kernel is bit-identical to the "
+              f"plain version on the CPU and to a second launch, for "
+              f"{[c[0] for c in cases]} (T={T}, k={k}, m={m})", flush=True)
 
     g = torch.randn(T, D, generator=gen).to(torch.bfloat16).to(dev)
     idx = torch.randint(0, m, (T, k), generator=gen,
@@ -523,23 +579,38 @@ def phase_csr(torch, csr, common):
         T, device=dev).repeat_interleave(k)
     times = _times(common, {
         "kernel": lambda: csr.csr_scatter_add_cuda(g, bins, m),
+        "binning": lambda: csr.bin_csr(idx, m),
         "kernel+binning": lambda: csr.csr_scatter_add(g, idx, m),
         "plain": lambda: csr.csr_scatter_add_plain(g, bins, m),
+        "plain binning": lambda: csr.bin_csr_plain(idx, m),
         "library": lambda: torch.zeros(m, D, device=dev).index_add_(
             0, flat, g[rows].float())})
     nbytes = csr.min_bytes(T * k, T, m, D, 2)
     bound_ms, by = _bound(nbytes, T * k * D)
+    bin_bytes = csr.bin_min_bytes(T * k, m)
+    bin_bound_ms, bin_by = _bound_int(bin_bytes, T * k + m)
     print(f"kernels-train: bloom_csr bf16 T={T} k={k} D={D} m={m}: device "
           f"ms (graph) / back-to-back ms (events): {_times_line(times)}, "
-          f"bound {bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)",
+          f"bound {bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes); binning "
+          f"bound {bin_bound_ms * 1e3:.3f} us ({bin_by}, {bin_bytes} bytes)",
           flush=True)
-    return {"name": csr.NAME, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/bloom_csr.cu",
-            "replaces": "src/repro/kernels/bloom_csr.py:204",
-            "launches": None, "max_abs_err": 0.0,
-            "ms": times["kernel"][0], "plain_ms": times["plain"][0],
-            "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": times["library"][0]}
+    print("kernels-train: the CSR backward as called, device time by kernel "
+          "(torch.profiler): " + _split_line(_device_split(
+              torch, lambda: csr.csr_scatter_add(g, idx, m))), flush=True)
+    return [{"name": csr.NAME, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/bloom_csr.cu",
+             "replaces": "src/repro/kernels/bloom_csr.py:204",
+             "launches": None, "max_abs_err": 0.0,
+             "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+             "bound_ms": bound_ms, "bound_by": by,
+             "library_ms": times["library"][0]},
+            {"name": csr.BIN, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/bloom_csr.cu",
+             "replaces": "src/repro/kernels/bloom_csr.py:110",
+             "launches": None, "max_abs_err": 0.0,
+             "ms": times["binning"][0], "plain_ms": times["plain binning"][0],
+             "bound_ms": bin_bound_ms, "bound_by": bin_by,
+             "library_ms": None}]
 
 
 def phase_train_lm(torch, common, names):
@@ -776,13 +847,14 @@ def phase_decode_quant(torch, dt, common, bloom, quant, get_retrieval_config):
                 q, h, topk, None, s, spec_arg)
             times = {"kernel": (common.graph_time_ms(kernel, 10, 3),
                                 common.time_ms(kernel, 10, 2))}
-            for n, f in (("plain", lambda: dt.bloom_decode_topk_plain(
-                              q, h, topk, None, s, spec_arg)),
-                         ("library", lambda: torch.topk(
-                             quant.dequantize_table(q, s)[:, Hl].sum(-1),
-                             topk))):
-                t = common.time_ms(f, 3, 1)
-                times[n] = (t, t)
+            plain = lambda: dt.bloom_decode_topk_plain(  # noqa: E731
+                q, h, topk, None, s, spec_arg)
+            t = common.time_ms(plain, 3, 1)
+            times["plain"] = (t, t)
+            library = lambda: torch.topk(  # noqa: E731
+                quant.dequantize_table(q, s)[:, Hl].sum(-1), topk)
+            times["library"] = (common.graph_time_ms(library, 3, 2),
+                                common.time_ms(library, 3, 1))
             nbytes = dt.min_bytes(B, B, m=spec.m, d=spec.d, k=spec.k,
                                   topk=topk,
                                   logp_itemsize=quant.table_itemsize(td),
@@ -794,8 +866,8 @@ def phase_decode_quant(torch, dt, common, bloom, quant, get_retrieval_config):
                   f"k={spec.k} topk={topk}: bit-identical to plain and to "
                   f"the explicit-H kernel (all rows"
                   f"{', rows 0,3,7' if B == 8 else ''}); device ms (graph) / "
-                  f"back-to-back ms (events; plain and library: events "
-                  f"only): {_times_line(times)}, bound "
+                  f"back-to-back ms (events; plain: events only): "
+                  f"{_times_line(times)}, bound "
                   f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes, "
                   f"{int_ops} int ops)", flush=True)
             if label == "web10m":
@@ -807,7 +879,7 @@ def phase_decode_quant(torch, dt, common, bloom, quant, get_retrieval_config):
                     "launches": None, "max_abs_err": None,
                     "ms": times["kernel"][0], "plain_ms": times["plain"][1],
                     "bound_ms": bound_ms, "bound_by": by,
-                    "library_ms": times["library"][1]}
+                    "library_ms": times["library"][0]}
     for name, row in rows.items():
         row["max_abs_err"] = errs[name]
     return list(rows.values())
@@ -1033,16 +1105,16 @@ def phase_kernels_decode(torch, bd, csr, be, common, bloom, quant):
                    if td is None else
                    (lambda: F.embedding_bag(Hl, wide_t, mode="sum").t()))
         times = _times_kernels(
-            common, {"kernel": lambda: bd.bloom_decode_cuda(q, H, s)},
-            {"plain": lambda: bd.bloom_decode_plain(q, H, s),
-             "library": library})
+            common, {"kernel": lambda: bd.bloom_decode_cuda(q, H, s),
+                     "library": library},
+            {"plain": lambda: bd.bloom_decode_plain(q, H, s)})
         itemsize = quant.table_itemsize(td)
         nbytes = bd.min_bytes(8, m, d, k, itemsize, s is not None)
         bound_ms, by = _bound(nbytes, 8 * d * (k - 1)
                               + (8 * d if s is not None else 0))
         print(f"kernels-decode: {name} B=8 m={m} d={d} k={k}: bit-identical "
               f"to plain on {[c[0] for c in cases]}; device ms (graph) / "
-              f"back-to-back ms (events; plain and library: events only): "
+              f"back-to-back ms (events; plain: events only): "
               f"{_times_line(times)}, bound "
               f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)", flush=True)
         rows.append({"name": name, "route": "cuda",
@@ -1055,58 +1127,70 @@ def phase_kernels_decode(torch, bd, csr, be, common, bloom, quant):
                      "bound_ms": bound_ms, "bound_by": by,
                      "library_ms": times["library"][0]})
 
-    # the decode backwards: dense kernel vs plain (CPU copy), vs the CSR
-    # caller, vs itself
+    # the decode backwards: the card's bins of H equal bin_csr_plain's (per
+    # call and cached); the dense backward against its plain version (CPU
+    # copy), the CSR caller and itself, on the spec's H exactly
     g = torch.randn(8, d, generator=gen).to(dev)
+    want_bins = csr.bin_csr_plain(H.cpu(), m)
+    bins = bloom.cached_decode_bins(spec, dev)
+    for label, got_bins in (("per call", csr.bin_csr(H, m)),
+                            ("cached", bins)):
+        _check(all(torch.equal(x.cpu(), w)
+                   for x, w in zip(got_bins, want_bins)),
+               f"bins of the spec's H ({label}) != bin_csr_plain's")
     Hn, n_rep = _no_repeats(torch, H, m)
     dense = bd.bloom_decode_bwd_cuda(g, Hn, m)
-    again = bd.bloom_decode_bwd_cuda(g, Hn, m)
     via_csr = csr.bloom_decode_bwd_csr(g, Hn, m)
+    dense_r = bd.bloom_decode_bwd_cuda(g, H, m)
+    again = bd.bloom_decode_bwd_cuda(g, H, m)
+    csr_r = csr.bloom_decode_bwd_csr(g, H, m, bins)
     torch.cuda.synchronize()
-    _check(torch.equal(dense, again), "dense decode backward: two launches "
+    _check(torch.equal(dense_r, again), "dense decode backward: two launches "
            "gave other bits")
     _check(torch.equal(dense, via_csr), "dense decode backward != CSR on an "
            "H without repeated indices")
     _check(torch.equal(dense.cpu(), bd.bloom_decode_bwd_plain(
         g.cpu(), Hn.cpu(), m)), "dense decode backward != plain version")
-    dense_r = bd.bloom_decode_bwd_cuda(g, H, m)
-    bins = bloom.cached_decode_bins(spec, dev)
-    csr_r = csr.bloom_decode_bwd_csr(g, H, m, bins)
-    torch.cuda.synchronize()
-    err_dec = float((dense_r - csr_r).abs().max())
-    _check(err_dec <= 1e-6, f"dense vs CSR decode backward on the spec's H: "
-           f"{err_dec}")
+    _check(torch.equal(dense_r, csr_r), "dense decode backward != CSR on the "
+           "spec's H")
     _check(torch.equal(dense_r.cpu(), bd.bloom_decode_bwd_plain(
         g.cpu(), H.cpu(), m)), "dense decode backward != plain (spec H)")
-    print(f"kernels-decode: decode backwards: dense == CSR == plain bit for "
-          f"bit on H without repeats ({n_rep} of {d} spec rows repeat an "
-          f"index and were replaced), dense twice equal; on the spec's H "
-          f"dense vs CSR max abs err {err_dec} (bit-identical: "
-          f"{torch.equal(dense_r, csr_r)})", flush=True)
+    print(f"kernels-decode: decode backwards: the card's bins of the spec's "
+          f"H (per call and cached) equal bin_csr_plain's; dense == CSR == "
+          f"plain bit for bit on the spec's H and on an H without repeats "
+          f"({n_rep} of {d} spec rows repeat an index and were replaced), "
+          f"dense twice equal", flush=True)
     flat, src = H.reshape(-1).long(), torch.arange(
         d, device=dev).repeat_interleave(k)
     nbytes = bd.min_bytes(8, m, d, k)
     bound_ms, by = _bound(nbytes, 8 * d * k)
     dec_times = _times_kernels(common, {
         "dense kernel": lambda: bd.bloom_decode_bwd_cuda(g, H, m),
-        "CSR caller": lambda: csr.bloom_decode_bwd_csr(g, H, m, bins)}, {
-        "plain": lambda: bd.bloom_decode_bwd_plain(g, H, m),
+        "CSR caller": lambda: csr.bloom_decode_bwd_csr(g, H, m, bins),
+        "binning": lambda: csr.bin_csr(H, m),
         "library": lambda: torch.zeros(m, 8, device=dev).index_add_(
-            0, flat, g.t()[src]).t()})
+            0, flat, g.t()[src]).t()}, {
+        "plain": lambda: bd.bloom_decode_bwd_plain(g, H, m),
+        "plain binning": lambda: csr.bin_csr_plain(H, m)})
+    bin_bytes = csr.bin_min_bytes(d * k, m)
+    bin_bound_ms, bin_by = _bound_int(bin_bytes, d * k + m)
     print(f"kernels-decode: decode backward B=8 d={d} m={m} k={k}: device ms "
-          f"(graph) / back-to-back ms (events; plain and library: events "
-          f"only): {_times_line(dec_times)}, "
-          f"bound {bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)",
+          f"(graph) / back-to-back ms (events; plain and plain binning: "
+          f"events only): "
+          f"{_times_line(dec_times)}, "
+          f"bound {bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes); binning "
+          f"bound {bin_bound_ms * 1e3:.3f} us ({bin_by}, {bin_bytes} bytes)",
           flush=True)
-    for name, key, source, line, err in (
-            (bd.BWD, "dense kernel", "bloom_decode.cu", "bloom_decode.py:128",
-             0.0),
-            (csr.DECODE, "CSR caller", "bloom_csr.cu", "bloom_csr.py:282",
-             err_dec)):
+    print("kernels-decode: dense decode backward, device time by kernel "
+          "(torch.profiler): " + _split_line(_device_split(
+              torch, lambda: bd.bloom_decode_bwd_cuda(g, H, m))), flush=True)
+    for name, key in ((bd.BWD, "dense kernel"), (csr.DECODE, "CSR caller")):
         rows.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{source}",
-                     "replaces": f"src/repro/kernels/{line}",
-                     "launches": None, "max_abs_err": err,
+                     "source": "src/repro_torch/kernels/csrc/bloom_csr.cu",
+                     "replaces": ("src/repro/kernels/bloom_decode.py:128"
+                                  if name == bd.BWD else
+                                  "src/repro/kernels/bloom_csr.py:282"),
+                     "launches": None, "max_abs_err": 0.0,
                      "ms": dec_times[key][0],
                      "plain_ms": dec_times["plain"][0],
                      "bound_ms": bound_ms, "bound_by": by,
@@ -1146,15 +1230,15 @@ def phase_kernels_decode(torch, bd, csr, be, common, bloom, quant):
     flat, src = idx.reshape(-1).long(), torch.arange(
         T, device=dev).repeat_interleave(k)
     times = _times_kernels(common, {
-        "kernel": lambda: be.bloom_embed_bwd_cuda(gc, idx, m)}, {
-        "plain": lambda: be.bloom_embed_bwd_plain(gc, idx, m),
+        "kernel": lambda: be.bloom_embed_bwd_cuda(gc, idx, m),
         "library": lambda: torch.zeros(m, D, device=dev).index_add_(
-            0, flat, gc[src].float())})
+            0, flat, gc[src].float())}, {
+        "plain": lambda: be.bloom_embed_bwd_plain(gc, idx, m)})
     nbytes = m * D * 4 + T * D * 2 + T * k * 4
     bound_ms, by = _bound(nbytes, T * k * D)
     print(f"kernels-decode: bloom_embed_bwd bf16 T={T} k={k} D={D} m={m}: "
-          f"device ms (graph) / back-to-back ms (events; plain and library: "
-          f"events only): "
+          f"device ms (graph) / back-to-back ms (events; plain: events "
+          f"only): "
           f"{_times_line(times)}, bound {bound_ms * 1e3:.3f} us ({by}, "
           f"{nbytes} bytes)", flush=True)
     rows.append({"name": be.BWD, "route": "cuda",
@@ -1210,8 +1294,9 @@ def phase_decode_grad(torch, bd, csr, common, bloom, quant):
         counts = dict(common.LAUNCHES)
         q, s = ((logp, None) if td is None
                 else quant.quantize_table(logp, td))
-        want = {bd.variant_name(q.dtype): 1,
-                (csr.DECODE if impl == "csr" else bd.BWD): 1}
+        want = {bd.variant_name(q.dtype): 1}
+        want.update({csr.DECODE: 1} if impl == "csr"
+                    else {csr.BIN: 1, bd.BWD: 1})
         _check(counts == want, f"decode-grad {td} {impl}: launches {counts}")
         for n, c in counts.items():
             totals[n] = totals.get(n, 0) + c
@@ -1227,14 +1312,13 @@ def phase_decode_grad(torch, bd, csr, common, bloom, quant):
               f"(8, {spec.d}) == plain version, forward + backward "
               f"{wall:.3f} ms (host clock, synchronised), launches {counts}",
               flush=True)
-    err = float((grads[(None, "csr")] - grads[(None, "dense")]).abs().max())
-    _check(err <= 1e-6, f"decode-grad: csr vs dense gradient {err}")
+    _check(torch.equal(grads[(None, "csr")], grads[(None, "dense")]),
+           "decode-grad: csr and dense gradients differ")
     _check(torch.equal(grads[("int8", "csr")], grads[(None, "csr")])
            and torch.equal(grads[("int8", "dense")], grads[(None, "dense")]),
            "decode-grad: int8 gradient is not straight-through")
-    print(f"decode-grad: csr vs dense dlogp max abs err {err} (bit-identical:"
-          f" {torch.equal(grads[(None, 'csr')], grads[(None, 'dense')])}); "
-          f"the int8 and fp8 gradients equal the f32 ones (straight-through)",
+    print("decode-grad: the csr and dense dlogp are bit-identical; the int8 "
+          "and fp8 gradients equal the f32 ones (straight-through)",
           flush=True)
     return totals
 
@@ -1354,9 +1438,9 @@ def main() -> int:
     lm = phase_serve_lm(torch, be, dt, common)
     row["launches"] += lm[dt.NAME]
     embed_row["launches"] = lm[be.NAME]
-    train_rows = phase_ce(torch, ce, common) + [phase_csr(torch, csr, common)]
+    train_rows = phase_ce(torch, ce, common) + phase_csr(torch, csr, common)
     trained, csr_losses, csr_ms = phase_train_lm(
-        torch, common, [be.NAME, csr.NAME, ce.FWD, ce.BWD])
+        torch, common, [be.NAME, csr.BIN, csr.NAME, ce.FWD, ce.BWD])
     embed_row["launches"] += trained[be.NAME]
     for r in train_rows:
         r["launches"] = trained[r["name"]]
@@ -1374,11 +1458,12 @@ def main() -> int:
     decode_rows = phase_kernels_decode(torch, bd, csr, be, common, bloom,
                                        quant)
     launched = phase_decode_grad(torch, bd, csr, common, bloom, quant)
-    launched.update(phase_train_lm_dense(
+    dense_counts = phase_train_lm_dense(
         torch, be, common, [be.NAME, be.BWD, ce.FWD, ce.BWD], csr_losses,
-        csr_ms))
-    _check(launched.get(csr.NAME, 0) == 0,
-           "the dense training run launched the CSR kernel")
+        csr_ms)
+    _check(csr.NAME not in dense_counts and csr.BIN not in dense_counts,
+           "the dense training run launched the CSR kernel or its binning")
+    launched.update(dense_counts)
     for r in decode_rows:
         r["launches"] = launched.get(r["name"], 0)
     rows = [row, embed_row, *train_rows, *quant_rows, *decode_rows]

@@ -16,11 +16,15 @@ the reference's ``_fwd_kernel_scaled`` does.  Sums run in f32 in j order.
   it as ``bloom_decode`` (f32 logp) or ``bloom_decode.<storage>``;
   ``bloom_decode_plain`` is the same function in plain PyTorch
   (``ref.bloom_decode_ref``, and its (sum q) * s form for int8).
-* ``bloom_decode_bwd_cuda`` launches the dense backward kernel (same
-  source; replaces ``bloom_decode_bwd_pallas``), counted as
-  ``bloom_decode_bwd``.  It sums each output over i ascending from 0.0
-  with no float atomics, the order of the CSR bins, so it equals the CSR
-  decode backward (``bloom_csr.bloom_decode_bwd_csr``) bit for bit.
+* ``bloom_decode_bwd_cuda`` is the dense backward (replaces
+  ``bloom_decode_bwd_pallas``), counted as ``bloom_decode_bwd``: it bins H
+  on the card on every call (``bloom_csr.bin_csr_cuda``, counted as
+  ``bloom_csr.bin``; never the spec's cached bins, which is what separates
+  it from ``bwd_impl="csr"``), then runs the CSR scatter-add kernel
+  (``csrc/bloom_csr.cu``) on the transposed (d, B) cotangent.  It sums
+  each output over i ascending from 0.0 with no float atomics, the order
+  of the CSR bins, so it equals the CSR decode backward
+  (``bloom_csr.bloom_decode_bwd_csr``) bit for bit.
   ``bloom_decode_bwd_plain`` is ``zeros(m, B).index_add_`` over H's
   entries in (i, j) order, transposed: on the CPU, where ``index_add_``
   adds in index order, the kernel's sum order.
@@ -168,9 +172,9 @@ def bloom_decode_bwd_plain(g: torch.Tensor, H: torch.Tensor,
 
 def bloom_decode_bwd_cuda(g: torch.Tensor, H: torch.Tensor,
                           m: int) -> torch.Tensor:
-    """Launch the dense backward kernel on PyTorch's current stream (no
+    """Bin H and launch the scatter-add on PyTorch's current stream (no
     sync).  g (B, d) float32 and H (d, k) int32, contiguous, on one CUDA
-    device; (B, m) f32."""
+    device; (B, m) f32 (the transpose of the kernel's (m, B) output)."""
     _check_bwd(g, H)
     if not (g.is_cuda and H.device == g.device):
         raise ValueError("g and H must lie on one CUDA device")
@@ -179,19 +183,12 @@ def bloom_decode_bwd_cuda(g: torch.Tensor, H: torch.Tensor,
                         f"{H.dtype}")
     if not (g.is_contiguous() and H.is_contiguous()):
         raise ValueError("g and H must be contiguous")
-    (B, d), k = g.shape, H.shape[1]
-    if d * k >= 2 ** 31 or m >= 2 ** 31 or B >= 8 * 65536:
-        raise ValueError(f"need d*k, m < 2**31 and B < 524288, got "
-                         f"d*k={d * k} m={m} B={B}")
-    out = torch.empty((B, m), dtype=torch.float32, device=g.device)
-    if B and m:
-        lib = _library()
-        err = lib.bloom_decode_bwd_dense(
-            g.data_ptr(), H.data_ptr(), out.data_ptr(), B, d, m, k,
-            torch.cuda.current_stream(g.device).cuda_stream)
-        _raise_on(lib, err)
-        common.count_launch(BWD)
-    return out
+    B = g.shape[0]
+    if not (B and m):
+        return torch.empty((B, m), dtype=torch.float32, device=g.device)
+    bins = bloom_csr.bin_csr_cuda(H, m)
+    return bloom_csr.csr_scatter_add_cuda(g.t().contiguous(), bins, m,
+                                          BWD).t()
 
 
 def bloom_decode_bwd(g: torch.Tensor, H: torch.Tensor, m: int
@@ -242,7 +239,8 @@ def bloom_decode(logp: torch.Tensor, H: torch.Tensor, bwd_impl: str = "csr",
     ``bwd_impl`` picks the backward: "csr" (the CSR scatter-add on the
     transposed cotangent; ``bins_fn``, a zero-argument callable returning
     ``bloom_csr.bin_csr(H, m)``, is called only in the backward, else H is
-    binned there) or "dense" (the m-tile sweep kernel).  ``table_dtype``
+    binned there) or "dense" (H binned on the card per call, then the
+    same scatter-add).  ``table_dtype``
     (core/quant.py) quantizes logp per call for the kernel to read narrow;
     its gradient is straight-through."""
     common.resolve_bwd_impl(bwd_impl)
@@ -273,8 +271,6 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bloom_decode_fwd.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
     lib.bloom_decode_fwd.restype = i
-    lib.bloom_decode_bwd_dense.argtypes = [p, p, p, i, i, i, i, p]
-    lib.bloom_decode_bwd_dense.restype = i
     lib.bloom_decode_error_string.argtypes = [i]
     lib.bloom_decode_error_string.restype = ctypes.c_char_p
     return lib

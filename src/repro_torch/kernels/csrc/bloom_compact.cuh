@@ -1,5 +1,5 @@
 // Ordered compaction of hash entries into shared memory: the building block
-// of the dense Bloom backwards (csrc/bloom_decode.cu, csrc/bloom_embed.cu).
+// of the dense Bloom embedding backward (csrc/bloom_embed.cu).
 //
 // The JAX package's dense backwards build a one-hot count of the entries
 // that fall in one m-tile (kernels/common.py :: onehot_count) and contract

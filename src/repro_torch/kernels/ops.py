@@ -94,7 +94,7 @@ def bloom_decode(logp: torch.Tensor, spec: BloomSpec,
     reads the spec's cached CSR bins (``core.bloom.cached_decode_bins``,
     built at the first backward, never by a forward-only caller); a
     caller-supplied ``hash_matrix`` is binned inside the backward.
-    ``bwd_impl="dense"`` takes the dense m-tile sweep kernel.
+    ``bwd_impl="dense"`` bins H on the card on every call instead.
     ``table_dtype`` quantizes the logp rows per call for the kernel to
     read narrow; the gradient is straight-through."""
     lead = logp.shape[:-1]

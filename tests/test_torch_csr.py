@@ -24,6 +24,8 @@ from repro.kernels import ops as jops
 from repro.kernels.bloom_csr import bloom_embed_bwd_csr_pallas
 from repro_torch.core.bloom import BloomSpec
 from repro_torch.kernels import bloom_csr as csr
+from repro_torch.kernels import bloom_decode as bd
+from repro_torch.kernels import bloom_embed as be
 from repro_torch.kernels import common, ops, ref
 
 from test_torch_embed import _ulp_bf16
@@ -76,11 +78,68 @@ def test_bins_are_the_stable_sort_of_the_entries():
     order = np.argsort(idx.reshape(-1), kind="stable")
     assert bins.src.dtype == bins.row_ptr.dtype == torch.int32
     np.testing.assert_array_equal(bins.src.numpy(), order // k)
-    np.testing.assert_array_equal(bins.rows.numpy(), idx.reshape(-1)[order])
+    row_ptr = bins.row_ptr.numpy()
     np.testing.assert_array_equal(
-        bins.row_ptr.numpy(),
+        np.repeat(np.arange(m), np.diff(row_ptr)), idx.reshape(-1)[order])
+    np.testing.assert_array_equal(
+        row_ptr,
         np.concatenate([[0], np.cumsum(np.bincount(idx.reshape(-1),
                                                    minlength=m))]))
+
+
+def test_out_of_range_entries_bin_outside_every_row_in_entry_order():
+    """Values below 0 sort as -1 and values from m up as m: the row
+    pointers count only [0, m), and the entries before row_ptr[0] and from
+    row_ptr[m] on keep their entry order (the rule the card's binning
+    reproduces)."""
+    m, k = 6, 2
+    idx = torch.tensor([[7, -1], [2, -5], [6, 2], [-2, 9], [0, 2]],
+                       dtype=torch.int32)
+    bins = csr.bin_csr(idx, m)
+    assert bins.row_ptr.tolist() == [3, 4, 4, 7, 7, 7, 7]
+    # -1 (t0), -5 (t1), -2 (t3); row 0 (t4); row 2 (t1, t2, t4); 7, 6, 9
+    assert bins.src.tolist() == [0, 1, 3, 4, 1, 2, 4, 0, 2, 3]
+    g = torch.randn(5, 3)
+    assert torch.equal(csr.csr_scatter_add(g, idx, m),
+                       be.bloom_embed_bwd_plain(g, idx, m))
+
+
+@pytest.mark.parametrize("m,D,vec,rows", [
+    (30208, 1024, True, 8),      # the train step: 8 chunks a thread
+    (30208, 8, True, 128),       # the decode caller: a pair a thread
+    (30208, 37, False, 55), (64, 1024, True, 1),
+    (10, 4, True, 256),          # a pair a thread, past m
+    (10 ** 6, 4, True, 1024),    # halved to 4 blocks an SM
+    (10 ** 7, 4, True, 2048)])   # capped at MAX_ROWS
+def test_rows_per_block(m, D, vec, rows):
+    got = csr.rows_per_block(m, D, vec, n_sm=132)
+    assert got == rows and 1 <= got <= csr.MAX_ROWS
+    cpr = D // 4 if vec else D
+    assert got * cpr <= max(csr.PAIRS_PER_BLOCK, cpr)
+
+
+@pytest.mark.parametrize("n,m,chunk,scratch", [
+    (2080, 30208, 0, 0),                       # the train step: one launch
+    (8192, 70000, 0, 0),
+    (607744, 30208, 2048, 607744 + 473 * 298),        # the decode's H
+    (8193, 10, 2048, 8193 + 1 * 6),
+    (3 * 2 ** 21, 2 ** 17 - 2, 6144, 3 * 2 ** 21 + 2048 * 1025)])
+def test_bin_plan(n, m, chunk, scratch):
+    assert csr.bin_plan(n, m) == (chunk, scratch)
+    if chunk:
+        assert chunk % csr.SUB == 0 and -(-n // chunk) <= csr.MAX_CHUNKS
+
+
+def test_cuda_wrappers_raise_before_a_launch_on_cpu_tensors():
+    idx = torch.zeros((4, 2), dtype=torch.int32)
+    common.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        csr.bin_csr_cuda(idx, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        csr.csr_scatter_add_cuda(torch.zeros(4, 8), csr.bin_csr(idx, 16), 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        bd.bloom_decode_bwd_cuda(torch.zeros(2, 4), idx, 16)
+    assert common.LAUNCHES == {}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

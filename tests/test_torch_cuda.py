@@ -20,7 +20,11 @@ plain version (NaN where the plain version has NaN), the dense decode and
 embedding backwards bit-identical to their plain versions on a CPU copy,
 to the CSR kernel and to themselves on a second launch, ``ops.bloom_decode``
 and its gradient equal to the CPU path under both backwards, and a dense
-train step launching the dense embedding backward.
+train step launching the dense embedding backward; and the card's CSR
+binning equal to ``bin_csr_plain``'s on both of its paths (segments longer
+than a warp and than a block, all entries in one row, empty rows, -1 pads,
+an m past one launch's buckets, the spec's full hash matrix), with the
+dense decode backward equal to the CSR one on that matrix for B = 1, 8, 9.
 
 Marked ``cuda``; every test skips without a GPU.  On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -32,6 +36,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.retrieval import get_retrieval_config
+from repro_torch.core import bloom
 from repro_torch.core.bloom import cached_hash_matrix
 from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels import bloom_ce as ce
@@ -177,7 +182,8 @@ def test_ops_embed_grad_flows_through_the_kernel_pair_on_cuda(cuda):
         (out * cot.to(dev)).sum().backward()
         grads.append(table.grad.cpu())
         if dev.type == "cuda":
-            assert common.LAUNCHES == {be.NAME: 1, csr.NAME: 1}
+            assert common.LAUNCHES == {be.NAME: 1, csr.BIN: 1,
+                                       csr.NAME: 1}
     assert torch.equal(grads[0], grads[1])
     with torch.inference_mode():
         common.reset_launches()
@@ -238,24 +244,77 @@ def test_ce_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ce.bloom_ce(z, h.cpu())
 
 
+def _index_set(T, k, m, rows, g):
+    """(T, k) int32 indices: uniform over [0, m) (rows None), drawn from
+    the listed rows, or uniform with every third token's first index a -1
+    pad and every fifth one's last index m ("pads")."""
+    if rows is None or rows == "pads":
+        idx = torch.randint(0, m, (T, k), generator=g, dtype=torch.int32)
+        if rows == "pads":
+            idx[::3, 0] = -1
+            idx[::5, -1] = m
+        return idx
+    pick = torch.randint(0, len(rows), (T, k), generator=g)
+    return torch.tensor(rows, dtype=torch.int32)[pick]
+
+
+# (T, k, m, rows): the train step's shape; a segment longer than a warp;
+# segments longer than a block; every entry in one row; mostly empty rows;
+# -1 pads and values past m; an m past one launch's buckets, with few and
+# with many entries; more entries than one launch bins, also all in one row
+BIN_CASES = {
+    "train": (520, 4, 30208, None), "warp": (40, 1, 64, [3]),
+    "block": (700, 4, 4096, [0, 5, 5, 9]), "one row": (520, 4, 30208, [7]),
+    "empty rows": (5, 2, 30208, None), "pads": (300, 3, 500, "pads"),
+    "m past smem": (520, 4, 70000, None),
+    "m past smem, many": (6000, 4, 70000, "pads"),
+    "many entries": (5000, 4, 1000, [1, 2, 2, 999]),
+    "one row, many": (20000, 4, 1000, [7])}
+
+
+@pytest.mark.parametrize("case", sorted(BIN_CASES))
+def test_device_bins_equal_bin_csr(cuda, case):
+    T, k, m, rows = BIN_CASES[case]
+    idx = _index_set(T, k, m, rows, torch.Generator().manual_seed(T + m))
+    common.reset_launches()
+    a = csr.bin_csr(idx.to(cuda), m)
+    b = csr.bin_csr(idx.to(cuda), m)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES == {csr.BIN: 2}
+    want = csr.bin_csr_plain(idx, m)
+    for x, y, w in zip(a, b, want):
+        assert x.dtype == torch.int32 and torch.equal(x, y)
+        assert torch.equal(x.cpu(), w)
+
+
+def test_device_bins_of_the_spec_hash_matrix(cuda):
+    spec = io_lib.vocab_spec(configs.get_config("qwen1.5-0.5b"))
+    H = cached_hash_matrix(spec, cuda)
+    got = csr.bin_csr(H, spec.m)
+    want = csr.bin_csr_plain(H.cpu(), spec.m)
+    assert all(torch.equal(x.cpu(), w) for x, w in zip(got, want))
+    assert all(torch.equal(x.cpu(), w) for x, w in
+               zip(bloom.cached_decode_bins(spec, cuda), want))
+
+
 @pytest.mark.parametrize("T,k,D,m,rows", [
     (520, 4, 1024, 30208, None), (14, 4, 1000, 512, None),
     (9, 3, 37, 64, None), (300, 4, 64, 4096, [0, 5, 5, 9]),
-    (40, 2, 1020, 128, [7])])
+    (40, 2, 1020, 128, [7]), (40, 1, 1024, 64, [3]),
+    (700, 4, 8, 4096, [0, 5, 5, 9]), (300, 3, 1000, 500, "pads"),
+    (520, 4, 8, 70000, None), (2000, 4, 8, 30208, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_csr_kernel_bit_identical_to_plain_on_the_cpu(cuda, T, k, D, m,
                                                       rows, dtype):
     g = torch.Generator().manual_seed(T + D)
     cot = torch.randn(T, D, generator=g).to(dtype)
-    if rows is None:
-        idx = torch.randint(0, m, (T, k), generator=g, dtype=torch.int32)
-    else:
-        pick = torch.randint(0, len(rows), (T, k), generator=g)
-        idx = torch.tensor(rows, dtype=torch.int32)[pick]
+    idx = _index_set(T, k, m, rows, g)
     got = csr.csr_scatter_add(cot.to(cuda), idx.to(cuda), m)
+    again = csr.csr_scatter_add(cot.to(cuda), idx.to(cuda), m)
     torch.cuda.synchronize()
     want = csr.csr_scatter_add(cot, idx, m)
     assert got.dtype == torch.float32 and torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
 
 
 def test_csr_kernel_takes_an_unaligned_cotangent(cuda):
@@ -278,6 +337,13 @@ def test_csr_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         csr.csr_scatter_add_cuda(cot, bins, 15)
     with pytest.raises(ValueError, match="one device"):
         csr.csr_scatter_add(cot, torch.zeros((4, 2), dtype=torch.int32), 16)
+    idx = torch.zeros((3000, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        csr.bin_csr_cuda(idx.long(), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        csr.bin_csr_cuda(idx.t(), 16)
+    with pytest.raises(ValueError, match="entries need m"):
+        csr.bin_csr_cuda(idx, csr.GROUP * csr.MAX_GROUPS)
 
 
 def test_train_step_launches_each_training_kernel_once(cuda):
@@ -289,8 +355,8 @@ def test_train_step_launches_each_training_kernel_once(cuda):
     for _ in range(3):
         common.reset_launches()
         state, metrics = step(model, state, {"tokens": tokens})
-        assert common.LAUNCHES == {be.NAME: 1, csr.NAME: 1, ce.FWD: 1,
-                                   ce.BWD: 1}
+        assert common.LAUNCHES == {be.NAME: 1, csr.BIN: 1, csr.NAME: 1,
+                                   ce.FWD: 1, ce.BWD: 1}
         assert bool(torch.isfinite(metrics["loss"]))
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
@@ -419,7 +485,8 @@ def test_quantized_embed_grad_is_straight_through_on_cuda(cuda):
         grads.append(table.grad.cpu())
         outs.append(out.detach().cpu())
         if dev.type == "cuda":
-            assert common.LAUNCHES == {"bloom_embed.int8": 1, csr.NAME: 1}
+            assert common.LAUNCHES == {"bloom_embed.int8": 1, csr.BIN: 1,
+                                       csr.NAME: 1}
     assert torch.equal(grads[0], grads[1]) and torch.equal(outs[0], outs[1])
 
 
@@ -513,8 +580,8 @@ def test_quantized_train_step_launches_the_embed_variant(cuda):
     for _ in range(2):
         common.reset_launches()
         state, metrics = step(model, state, {"tokens": tokens})
-        assert common.LAUNCHES == {"bloom_embed.int8": 1, csr.NAME: 1,
-                                   ce.FWD: 1, ce.BWD: 1}
+        assert common.LAUNCHES == {"bloom_embed.int8": 1, csr.BIN: 1,
+                                   csr.NAME: 1, ce.FWD: 1, ce.BWD: 1}
         assert bool(torch.isfinite(metrics["loss"]))
 
 
@@ -564,7 +631,8 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("B,d,m,k,pads", [
     (8, 151936, 30208, 4, False), (3, 1000, 77, 3, True),
-    (11, 5000, 300, 2, False), (1, 20000, 600, 1, True)])
+    (11, 5000, 300, 2, False), (1, 20000, 600, 1, True),
+    (9, 30000, 70000, 4, True), (8, 3000, 7, 4, False)])
 def test_dense_decode_backward_bit_identical(cuda, B, d, m, k, pads):
     g = torch.Generator().manual_seed(d)
     cot = torch.randn(B, d, generator=g)
@@ -575,12 +643,28 @@ def test_dense_decode_backward_bit_identical(cuda, B, d, m, k, pads):
     got = bd.bloom_decode_bwd_cuda(cot.to(cuda), H.to(cuda), m)
     again = bd.bloom_decode_bwd_cuda(cot.to(cuda), H.to(cuda), m)
     torch.cuda.synchronize()
-    assert common.LAUNCHES == {bd.BWD: 2}
+    assert common.LAUNCHES == {bd.BWD: 2, csr.BIN: 2}
     assert torch.equal(got, again)
     assert torch.equal(got.cpu(), bd.bloom_decode_bwd_plain(cot, H, m))
     via_csr = csr.bloom_decode_bwd_csr(cot.to(cuda), H.to(cuda), m)
     assert common.LAUNCHES[csr.DECODE] == 1
     assert torch.equal(got, via_csr)
+
+
+@pytest.mark.parametrize("B", [1, 8, 9])
+def test_dense_decode_backward_equals_csr_on_the_spec_hash_matrix(cuda, B):
+    """Exact on the full-width spec's H, whose rows repeat an index in 33
+    places: both backwards add in the CSR bins' order."""
+    spec = io_lib.vocab_spec(configs.get_config("qwen1.5-0.5b"))
+    H = cached_hash_matrix(spec, cuda)
+    cot = torch.randn(B, spec.d, generator=torch.Generator().manual_seed(B))
+    dense = bd.bloom_decode_bwd_cuda(cot.to(cuda), H, spec.m)
+    via_csr = csr.bloom_decode_bwd_csr(cot.to(cuda), H, spec.m,
+                                       bloom.cached_decode_bins(spec, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(dense, via_csr)
+    assert torch.equal(dense.cpu(), bd.bloom_decode_bwd_plain(
+        cot, H.cpu(), spec.m))
 
 
 @pytest.mark.parametrize("T,k,D,m,rows", [
@@ -630,6 +714,7 @@ def test_ops_decode_and_its_gradient_equal_the_cpu_path(cuda, bwd_impl, td):
     g = torch.Generator().manual_seed(1)
     base = torch.log_softmax(torch.randn(2, 3, spec.m, generator=g), -1)
     cot = torch.randn(2, 3, spec.d, generator=g)
+    bloom.cached_decode_bins(spec, cuda)    # built once, ahead of the count
     out = []
     for dev in (cuda, torch.device("cpu")):
         logp = base.to(dev).requires_grad_()
@@ -640,8 +725,9 @@ def test_ops_decode_and_its_gradient_equal_the_cpu_path(cuda, bwd_impl, td):
         out.append((scores.detach().cpu(), logp.grad.cpu()))
         if dev.type == "cuda":
             name = bd.variant_name(torch.int8 if td else torch.float32)
-            assert common.LAUNCHES == {
-                name: 1, (csr.DECODE if bwd_impl == "csr" else bd.BWD): 1}
+            assert common.LAUNCHES == ({name: 1, csr.DECODE: 1}
+                                       if bwd_impl == "csr" else
+                                       {name: 1, csr.BIN: 1, bd.BWD: 1})
     assert torch.equal(out[0][0], out[1][0])
     assert torch.equal(out[0][1], out[1][1])
 

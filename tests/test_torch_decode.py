@@ -179,7 +179,9 @@ def test_cached_decode_bins_match_the_reference_entry_order():
     val = np.asarray(jb.val).reshape(-1)
     live = val >= 0
     order = np.argsort(val[live], kind="stable")
-    np.testing.assert_array_equal(bins.rows.numpy(), val[live][order])
+    np.testing.assert_array_equal(
+        np.repeat(np.arange(spec.m), np.diff(bins.row_ptr.numpy())),
+        val[live][order])
     np.testing.assert_array_equal(bins.src.numpy(),
                                   np.asarray(jb.tok)[live][order])
     assert int(bins.row_ptr[-1]) == spec.d * spec.k

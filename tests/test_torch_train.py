@@ -150,6 +150,32 @@ def test_trajectory_matches_the_reference_run(ref, monkeypatch):
     assert thist[-1]["loss"] < thist[0]["loss"]
 
 
+@pytest.mark.parametrize("td", ["int8", "bfloat16", "fp8_e4m3"])
+def test_quantized_table_trajectory_matches_the_reference_pallas_run(
+        ref, monkeypatch, td):
+    """The same 4 steps with the embedding table stored as ``td``, against
+    the reference's ``io_impl="pallas"`` run: its straight-through
+    quantized embedding is the port's (the reference's default XLA path
+    fake-quantizes int8 with a gradient at one element per row)."""
+    _, jhist = j_train.run(ARCH, steps=4, batch=4, seq=16, log_every=1,
+                           io_impl="pallas", table_dtype=td)
+
+    def init_fn_for(cfg):
+        assert cfg.table_dtype == td
+        model = t_tf.TransformerLM(cfg)
+        model.load_state_dict(ref["sd"])
+        return lambda seed: model
+
+    monkeypatch.setattr(t_train.steps_lib, "init_fn_for", init_fn_for)
+    _, thist = t_train.run(ARCH, steps=4, batch=4, seq=16, log_every=1,
+                           table_dtype=td, device="cpu")
+    assert [h["step"] for h in thist] == [h["step"] for h in jhist] \
+        == [1, 2, 3, 4]
+    np.testing.assert_allclose([h["loss"] for h in thist],
+                               [h["loss"] for h in jhist], rtol=1e-5)
+    assert thist[-1]["loss"] < thist[0]["loss"]
+
+
 def test_token_stream_and_batches_are_equal():
     js = j_synthetic.make_token_stream(5000, 512, seed=3)
     ts = t_synthetic.make_token_stream(5000, 512, seed=3)
