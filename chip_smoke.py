@@ -69,7 +69,14 @@ Phases, one line of numbers each:
                 rows 0, 3, 7) and at the LM shapes (B = 1 and 8), and int8
                 with the explicit H; the in-kernel-hash result must equal
                 the explicit-H result on the same logp (the hashes equal
-                cached_hash_matrix).  Then each variant's device and
+                cached_hash_matrix); and at both shapes, for each storage
+                with the hash and with H, the cases the kernel's row tiles
+                and live-row mapping could break: B = 13 (a ragged last
+                tile), one, none and all but one of 8 rows live, at topk 1,
+                8, 10 and 64, each bit-identical to the plain version, to
+                the explicit-H kernel and to a second launch, and a
+                constant logp giving ids 0..topk-1.  Then each variant's
+                device and
                 back-to-back time, its plain version's, a one-call library
                 yardstick, and the bound (bytes over 3.35 TB/s, or the
                 hash's integer operations once per id over the int32 rate);
@@ -191,9 +198,13 @@ def phase_kernels(torch, dt, common, bloom, get_retrieval_config):
            "a full tie must return ids 0..topk-1")
 
     time_ms = common.time_ms
-    ms = time_ms(lambda: dt.bloom_decode_topk_cuda(logp, H, topk), 50, 5)
-    ms_partial = time_ms(
-        lambda: dt.bloom_decode_topk_cuda(logp, H, topk, partial), 50, 5)
+    kernel = lambda: dt.bloom_decode_topk_cuda(logp, H, topk)  # noqa: E731
+    kernel_partial = lambda: dt.bloom_decode_topk_cuda(  # noqa: E731
+        logp, H, topk, partial)
+    ms = time_ms(kernel, 50, 5)
+    ms_partial = time_ms(kernel_partial, 50, 5)
+    dev_ms = common.graph_time_ms(kernel, 20, 5)
+    dev_ms_partial = common.graph_time_ms(kernel_partial, 20, 5)
     plain_ms = time_ms(lambda: dt.bloom_decode_topk_plain(logp, H, topk), 3)
     Hl = H.long()
     library = lambda: torch.topk(logp[:, Hl].sum(-1), topk)  # noqa: E731
@@ -207,7 +218,9 @@ def phase_kernels(torch, dt, common, bloom, get_retrieval_config):
     bound_partial_ms, _ = _bound(dt.min_bytes(3, B, m=m, d=d, k=k,
                                               topk=topk), d * 3 * (k - 1))
     print(f"kernels: bloom_decode_topk web10m B={B} m={m} d={d} k={k} "
-          f"topk={topk}: kernel {ms:.6f} ms, rows 0,3,7 {ms_partial:.6f} ms "
+          f"topk={topk}: kernel {dev_ms:.6f} ms on the device (graph) / "
+          f"{ms:.6f} ms back to back (events), rows 0,3,7 "
+          f"{dev_ms_partial:.6f} / {ms_partial:.6f} ms "
           f"(bound {bound_partial_ms * 1e3:.3f} us), "
           f"plain {plain_ms:.6f} ms, torch.topk {library_dev_ms:.6f} ms on "
           f"the device / {library_ms:.6f} ms back to back, bound "
@@ -882,7 +895,64 @@ def phase_decode_quant(torch, dt, common, bloom, quant, get_retrieval_config):
                     "library_ms": times["library"][0]}
     for name, row in rows.items():
         row["max_abs_err"] = errs[name]
+    decode_topk_edges(torch, dt, quant, bloom, "web10m", rcfg.spec())
+    decode_topk_edges(torch, dt, quant, bloom, "LM", lm_spec)
     return list(rows.values())
+
+
+def decode_topk_edges(torch, dt, quant, bloom, label, spec):
+    """The cases row tiles and live-row mapping can break, at one spec's
+    shape, for each storage with the in-kernel hash and with the explicit
+    H: B = 13 (more rows than a tile holds, a ragged last tile), one live
+    row of 8, none, all but one, at topk 1, 8, 10 and 64, each bit-identical
+    to the plain version, to the explicit-H kernel and to a second launch;
+    and a constant logp (a full tie) returning ids 0..topk-1."""
+    dev = torch.device("cuda")
+    H = bloom.cached_hash_matrix(spec, dev)
+    hs = (spec.d, spec.k, spec.seed)
+    gen = torch.Generator().manual_seed(13)
+    logp = torch.log_softmax(torch.randn(13, spec.m, generator=gen), -1)
+    logp = logp.to(dev)
+    const = torch.full((13, spec.m), -math.log(spec.m), device=dev)
+    masks = {"B=13": None}
+    for name, live in (("one of 8", [3]), ("none of 8", []),
+                       ("all but one of 8", [0, 1, 2, 3, 4, 6, 7])):
+        masks[name] = torch.zeros(8, dtype=torch.bool, device=dev)
+        masks[name][live] = True
+    n = 0
+    for td in quant.TABLE_DTYPES:
+        for what, act in masks.items():
+            B = 13 if act is None else 8
+            q, s = quant.quantize_table(logp[:B].contiguous(), td)
+            for topk in (1, 8, 10, 64):
+                kv, ki = dt.bloom_decode_topk_cuda(q, None, topk, act, s, hs)
+                rv, ri = dt.bloom_decode_topk_cuda(q, None, topk, act, s, hs)
+                ev, ei = dt.bloom_decode_topk_cuda(q, H, topk, act, s)
+                torch.cuda.synchronize()
+                pv, pi = dt.bloom_decode_topk_plain(q, H, topk, act, s)
+                case = f"{label} {td} {what} topk={topk}"
+                _check(torch.equal(ki, pi) and torch.equal(kv, pv),
+                       f"{case}: in-kernel hash != plain version")
+                _check(torch.equal(ei, pi) and torch.equal(ev, pv),
+                       f"{case}: explicit H != plain version")
+                _check(torch.equal(ri, ki) and torch.equal(rv, kv),
+                       f"{case}: a second launch differs")
+                n += 1
+        q, s = quant.quantize_table(const, td)
+        for topk in (8, 64):
+            want = torch.arange(topk, dtype=torch.int32,
+                                device=dev).expand(13, topk)
+            for h, spec_arg in ((None, hs), (H, None)):
+                _, ids = dt.bloom_decode_topk_cuda(q, h, topk, None, s,
+                                                   spec_arg)
+                _check(torch.equal(ids, want),
+                       f"{label} {td} full tie topk={topk}: ids != "
+                       "0..topk-1")
+    print(f"kernels-quant: bloom_decode_topk {label} edge cases: {n} cases "
+          f"(each storage x B=13 / one / none / all but one of 8 live x "
+          f"topk 1, 8, 10, 64) bit-identical to plain, to the explicit-H "
+          f"kernel and to a second launch; full ties give ids 0..topk-1",
+          flush=True)
 
 
 def phase_serve_quant(torch, be, dt, common, bloom, quant, retrieval,

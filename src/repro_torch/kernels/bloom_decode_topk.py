@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,13 +43,32 @@ from repro_torch.kernels import common
 
 NAME = "bloom_decode_topk"
 PLAIN_CHUNK = 65536
-# the kernel stages one logp row in shared memory as f32 (227 KB per block)
+# the kernel stages a tile's logp rows in shared memory, so one f32 row
+# (RP = 1) must fit a block's 227 KB beside its warp lists
 MAX_M = 56 * 1024
-# shared memory of one SM on sm_90a (H100, H200), and what a pass-1 block
-# takes beyond its logp row (its static arrays and the 1 KB the system
-# reserves per block), for counting the blocks that fit on an SM
-SMEM_PER_SM = 228 * 1024
-SMEM_PER_BLOCK_EXTRA = 2048
+# shared memory one block may take on sm_90a (H100, H200), and an upper
+# bound on the kernel's static shared arrays
+SMEM_LIMIT = 232_448
+SMEM_STATIC = 1024
+# the kernel's caps: rows per tile, warps per block
+MAX_ROWS, MAX_WARPS = 8, 16
+# the plan's rows per tile: at most PLAN_ROWS, and no more than a block's
+# share of the catalog repays: a tile's staged bytes (m * itemsize * rows)
+# stay within STAGE_BYTES_PER_ID bytes per id-row a block scores
+# (d * B / blocks).  Measured on the H100 by sweep_decode_topk: at web10m
+# 4 rows beat 8 (int8 with the hash, 0.144893 against 0.148827 ms with 8
+# rows live, 0.088104 against 0.107087 with 3); at the LM shapes one row
+# beat 2 with 3 of 8 rows live (0.015861 against 0.018531 ms) and lost
+# with all 8 (0.022902 against 0.020365), a pool being often part full.
+# One-byte rows staged as f32 (the same rule on 4 bytes a value) spare the
+# gathers their widening (a byte permute, a subtraction, for int8 the scale
+# multiply): at web10m with the in-kernel hash int8 took 0.134434 against
+# 0.144424 ms, where bf16 (a shift to widen) took 0.132959 against
+# 0.132402; with the explicit H, bound by the shared-memory reads, int8
+# took 0.114661 against 0.110013 (one sweep). So the wrapper widens one-byte
+# rows under the hash only
+PLAN_ROWS = 4
+STAGE_BYTES_PER_ID = 4
 # the logp storage dtype codes of csrc/bloom_decode_topk.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
           torch.float8_e4m3fn: 3}
@@ -62,6 +82,97 @@ HASH_OPS_BASE, HASH_OPS_PER_J = 23, 4
 def hash_ops(d: int, k: int) -> int:
     """Integer operations of the in-kernel hash of d ids, once per id."""
     return int(d * (HASH_OPS_BASE + HASH_OPS_PER_J * (k - 1)))
+
+
+class Plan(NamedTuple):
+    """How one call lays out on the card: ``rows`` live rows per tile (the
+    kernel's RP), ``warps`` per block, ``grid`` blocks (one per SM),
+    ``rows_bytes`` of shared memory for the staged rows (which the last
+    block of a tile reuses to merge), ``cw`` entries per warp list,
+    ``smem`` the dynamic shared memory of a block, and ``widen``: narrow
+    logp staged as f32 (widened once, not at every gather)."""
+    rows: int
+    warps: int
+    grid: int
+    rows_bytes: int
+    cw: int
+    smem: int
+    widen: bool
+
+
+def plan(B: int, m: int, itemsize: int, topk: int, n_sm: int,
+         d: int | None = None, max_rows: int = PLAN_ROWS,
+         warps: int | None = None, grid: int | None = None,
+         widen: bool | None = None) -> Plan:
+    """The launch plan of a call on logp (B, m) stored ``itemsize`` bytes
+    an element, over d ids: the most rows per tile, a power of two up to
+    min(``max_rows``, B rounded up) whose staging the catalog repays (see
+    ``STAGE_BYTES_PER_ID``; no such cap without ``d``), whose staged rows
+    ([m][rows] at the stored width) fit with at least 8 warps' lists (a
+    single row with as many as fit), then the most warps up to 16 (or
+    ``warps``); ``grid`` defaults to one block per SM.  Narrow logp is
+    staged as f32 where the same rows fit so, if ``widen``, or by default
+    for one-byte storage when the catalog repays those bytes too.  Every
+    plan fits ``SMEM_LIMIT`` with ``SMEM_STATIC`` to spare."""
+    cw = 32 * -(-(topk + 32) // 32)
+    grid = n_sm if grid is None else grid
+    share = None if d is None else STAGE_BYTES_PER_ID * d * B / grid
+    top = 1
+    while top < min(max_rows, B, MAX_ROWS):
+        top *= 2
+    while share is not None and top > 1 and m * itemsize * top > share:
+        top //= 2
+    rp = top
+    while True:
+        fit = _fit(m * itemsize, rp, topk, cw, grid, warps)
+        if fit is not None:
+            break
+        if rp == 1:
+            raise ValueError(f"m={m} leaves no room for one warp's lists")
+        rp //= 2
+    wide = itemsize < 4 and (widen if widen is not None else
+                             itemsize == 1 and share is not None
+                             and m * 4 * rp <= share)
+    if wide:
+        wide_fit = _fit(m * 4, rp, topk, cw, grid, warps)
+        wide = wide_fit is not None
+        fit = wide_fit if wide else fit
+    rows_bytes, nw = fit
+    return Plan(rp, nw, grid, rows_bytes, cw,
+                rows_bytes + nw * rp * (cw * 8 + 4), wide)
+
+
+def _fit(row_bytes: int, rp: int, topk: int, cw: int, grid: int,
+         warps: int | None):
+    """(rows_bytes, warps) of ``rp`` staged rows of ``row_bytes`` each with
+    the most warps' lists that fit, or None below 8 warps (below 1 for a
+    single row)."""
+    rows_bytes = max(_align16(row_bytes * rp),
+                     _align16(rp * grid * 12 + rp * 2 * topk * 8))
+    room = SMEM_LIMIT - SMEM_STATIC - rows_bytes
+    want = MAX_WARPS if warps is None else warps
+    nw = min(want, max(0, room // (rp * (cw * 8 + 4))))
+    if nw >= min(8, want) or (rp == 1 and nw >= 1):
+        return rows_bytes, nw
+    return None
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def magic_divisor(d: int) -> tuple[int, int]:
+    """Constants (mp, sh) for ``n % d`` over every uint32 n by a multiply
+    and shifts (Granlund & Montgomery 1994, Fig. 4.1, the round-up
+    method): with l = ceil(log2 d), mp = floor(2^32 (2^l - d) / d) + 1,
+    t = umulhi(n, mp), q = (t + ((n - t) >> sh1)) >> sh2 is n // d, where
+    sh1 = min(l, 1), sh2 = max(l - 1, 0); ``sh`` packs sh1 | sh2 << 8 as
+    the kernel's ``fastmod`` reads it."""
+    if not 1 <= d < 2 ** 32:
+        raise ValueError(f"need 1 <= d < 2**32, got {d}")
+    l_ = (d - 1).bit_length()
+    mp = (2 ** 32 * (2 ** l_ - d)) // d + 1
+    return mp, min(l_, 1) | max(l_ - 1, 0) << 8
 
 
 def variant_name(dtype: torch.dtype, hashed: bool) -> str:
@@ -238,42 +349,82 @@ def bloom_decode_topk_cuda(logp: torch.Tensor, H: torch.Tensor | None,
         if active.device != logp.device:
             raise ValueError("active must lie on logp's device")
         act = active.to(torch.int32).contiguous()
-    vals, ids = _launch(lib, logp, H, topk, act,
-                        _groups(logp.device, B, d, m), scales, hash_spec)
+    vals, ids = _launch(lib, logp, H, topk, act, scales, hash_spec)
     common.count_launch(variant_name(logp.dtype, H is None))
     return vals, ids
 
 
 def _launch(lib: ctypes.CDLL, logp: torch.Tensor, H: torch.Tensor | None,
-            topk: int, act: torch.Tensor | None, groups: int,
+            topk: int, act: torch.Tensor | None,
             scales: torch.Tensor | None = None,
-            hash_spec: tuple | None = None):
-    """Both passes at ``groups`` catalog groups into fresh outputs, on the
-    current stream, with inputs the caller has checked; ``act`` is (B,)
-    int32 or None.  Raises on a CUDA error; counts nothing."""
+            hash_spec: tuple | None = None, pl: Plan | None = None):
+    """One launch into fresh outputs, on the current stream, with inputs
+    the caller has checked; ``act`` is (B,) int32 or None; ``pl`` the plan
+    (default: ``_plan_for``).  Raises on a CUDA error; counts nothing."""
     (B, m), dev = logp.shape, logp.device
     if H is not None:
         (d, k), c1, c2 = H.shape, 0, 0
     else:
         d, k, seed = hash_spec
         c1, c2 = hashing.double_hash_salts(seed)
-    part_v = torch.empty((groups, B, topk), dtype=torch.float32, device=dev)
-    part_i = torch.empty((groups, B, topk), dtype=torch.int32, device=dev)
+    if pl is None:
+        # the kernel takes H with k > 4 one row a tile; one-byte rows are
+        # widened while staging only under the in-kernel hash (see
+        # PLAN_ROWS)
+        pl = _plan_for(dev, B, m, logp.element_size(), topk, d,
+                       1 if H is not None and k > 4 else PLAN_ROWS,
+                       None if H is None else False)
+    mp_m, sh_m = magic_divisor(m)
+    mp_m1, sh_m1 = magic_divisor(max(m - 1, 1))
+    tickets, part = _scratch(dev, B, max(pl.grid, B) * pl.rows * topk)
     vals = torch.empty((B, topk), dtype=torch.float32, device=dev)
     ids = torch.empty((B, topk), dtype=torch.int32, device=dev)
     err = lib.bloom_decode_topk(
         logp.data_ptr(), _CODES[logp.dtype],
         None if scales is None else scales.data_ptr(),
-        None if H is None else H.data_ptr(), c1, c2,
-        None if act is None else act.data_ptr(),
-        part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-        ids.data_ptr(), B, m, d, k, topk, groups,
+        None if H is None else H.data_ptr(), c1, c2, mp_m, sh_m, mp_m1,
+        sh_m1, None if act is None else act.data_ptr(), tickets.data_ptr(),
+        part.data_ptr(), vals.data_ptr(), ids.data_ptr(), B, m, d, k, topk,
+        pl.rows, pl.warps, pl.grid, pl.rows_bytes, pl.cw, int(pl.widen),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.bloom_decode_topk_error_string(err).decode()
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error "
                            f"{err} ({msg})")
     return vals, ids
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_for(device: torch.device, B: int, m: int, itemsize: int,
+              topk: int, d: int, max_rows: int,
+              widen: bool | None) -> Plan:
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return plan(B, m, itemsize, topk, n_sm, d, max_rows, widen=widen)
+
+
+# per device: (tickets, part), the kernel's scratch, kept across calls. The
+# kernel leaves the tickets zero, so calls on one device must not overlap:
+# every caller issues them on one stream.
+_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, n_tickets: int, n_part: int):
+    """The device's ticket counters (>= n_tickets int32, zero) and partial
+    lists (>= n_part int64), grown when a call needs more.  Growing is
+    refused while a CUDA graph is being captured: call once first."""
+    key = torch.device(device).index
+    tickets, part = _SCRATCH.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets or part.numel() < n_part:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{NAME}: its scratch must grow, which a "
+                               "CUDA graph capture cannot do; call it once "
+                               "at this shape before capturing")
+        n_tickets = max(n_tickets, 0 if tickets is None else tickets.numel())
+        n_part = max(n_part, 0 if part is None else part.numel())
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+        part = torch.empty(n_part, dtype=torch.int64, device=device)
+        _SCRATCH[key] = (tickets, part)
+    return tickets, part
 
 
 def bloom_decode_topk(logp: torch.Tensor, H: torch.Tensor | None, topk: int,
@@ -287,29 +438,15 @@ def bloom_decode_topk(logp: torch.Tensor, H: torch.Tensor | None, topk: int,
     return bloom_decode_topk_plain(logp, H, topk, active, scales, hash_spec)
 
 
-def _groups(device: torch.device, B: int, d: int, m: int) -> int:
-    """Catalog groups of pass 1: one wave of blocks when every row is
-    live, and no more groups than 256-id tiles.  A pass-1 block takes 63
-    registers a thread (K = 16), so four fit on an SM, and m*4 bytes of
-    shared memory, so fewer when the logp row is long.  Measured on the
-    H100 by ``sweep_decode_topk``: at web10m (four blocks per SM) one
-    wave, G = 66 at B = 8, beat two by 18%; at the LM shapes (m = 30,208:
-    one block per SM) one wave, G = 132 at B = 1 and 16 at B = 8, took
-    0.0195 and 0.0337 ms on the device where four blocks' worth (528, 66)
-    took 0.0534 and 0.0644 ms (slower only with one row of 8 live)."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = max(1, min(4, SMEM_PER_SM // (m * 4 + SMEM_PER_BLOCK_EXTRA)))
-    return max(1, min(-(-d // 256), per_sm * n_sm // B, 65535))
-
-
 @functools.lru_cache(maxsize=None)
 def _library(defines: tuple = ()) -> ctypes.CDLL:
     """The built kernel; ``defines`` (``-D`` flags) select a tuning
     variant, as ``sweep_decode_topk`` does."""
     lib = common.load_library(NAME, defines)
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.bloom_decode_topk.argtypes = [p, i, p, p, u, u, p, p, p, p, p,
-                                      i, i, i, i, i, i, p]
+    lib.bloom_decode_topk.argtypes = [p, i, p, p, u, u, u, u, u, u, p, p,
+                                      p, p, p, i, i, i, i, i, i, i, i, i,
+                                      i, i, p]
     lib.bloom_decode_topk.restype = i
     for fn in (lib.bloom_decode_topk_max_topk,
                lib.bloom_decode_topk_max_hash_k):

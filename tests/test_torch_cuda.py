@@ -24,7 +24,11 @@ train step launching the dense embedding backward; and the card's CSR
 binning equal to ``bin_csr_plain``'s on both of its paths (segments longer
 than a warp and than a block, all entries in one row, empty rows, -1 pads,
 an m past one launch's buckets, the spec's full hash matrix), with the
-dense decode backward equal to the CSR one on that matrix for B = 1, 8, 9.
+dense decode backward equal to the CSR one on that matrix for B = 1, 8, 9;
+and the decode-top-k kernel's row tiles and live-row mapping (B = 13 and
+600, one, none and all but one of 8 rows live, topk 1, 8, 10, 64, each
+storage, with the hash and with H) bit-identical to the plain version, to
+each other and to a second launch, and full ties giving the lowest ids.
 
 Marked ``cuda``; every test skips without a GPU.  On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -523,6 +527,80 @@ def test_quantized_decode_kernel_bit_identical_to_plain(cuda, td, B, m, d,
     pv, pi = dt.bloom_decode_topk_plain(q, None, topk, active, s, hs)
     assert torch.equal(ki, pi) and torch.equal(kv, pv)
     assert torch.equal(ki, ei) and torch.equal(kv, ev)
+
+
+# the row-tile and live-row cases: (B, live rows or None for all)
+TILE_CASES = {"B13": (13, None), "one-of-8": (8, [3]), "none-of-8": (8, []),
+              "all-but-one-of-8": (8, [0, 1, 2, 3, 4, 6, 7])}
+
+
+@pytest.mark.parametrize("shape", [(8192, 200_003, 2), (30208, 151_936, 4),
+                                   (1024, 2_000_003, 2)])
+@pytest.mark.parametrize("topk", [1, 8, 10, 64])
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+@pytest.mark.parametrize("td", QUANT_TDS)
+def test_decode_row_tiles_and_live_rows(cuda, td, case, topk, shape):
+    """More rows than one tile holds (B = 13, a ragged last tile), one live
+    row, none, all but one, at topk 1, 8, 10, 64: the in-kernel hash and
+    the explicit H, each storage, bit-identical to the plain version, to
+    each other and to a second launch.  The last shape's long catalog has
+    the plan stage narrow rows as f32."""
+    from repro_torch.core import hashing, quant
+    m, d, k = shape
+    B, live = TILE_CASES[case]
+    H = hashing.double_hash(torch.arange(d, device=cuda), k, m, 3)
+    g = torch.Generator().manual_seed(B + topk)
+    logp = torch.log_softmax(torch.randn(B, m, generator=g), -1).to(cuda)
+    q, s = quant.quantize_table(logp, td)
+    active = None
+    if live is not None:
+        active = torch.zeros(B, dtype=torch.bool, device=cuda)
+        active[live] = True
+    hs = (d, k, 3)
+    kv, ki = dt.bloom_decode_topk_cuda(q, None, topk, active, s, hs)
+    ev, ei = dt.bloom_decode_topk_cuda(q, H, topk, active, s)
+    rv, ri = dt.bloom_decode_topk_cuda(q, None, topk, active, s, hs)
+    torch.cuda.synchronize()
+    pv, pi = dt.bloom_decode_topk_plain(q, H, topk, active, s)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert torch.equal(ei, pi) and torch.equal(ev, pv)
+    assert torch.equal(ri, ki) and torch.equal(rv, kv)
+
+
+@pytest.mark.parametrize("live", ["all", "every third"])
+def test_decode_more_row_tiles_than_blocks(cuda, live):
+    """B = 600: more live rows than one pass of the block over the mask,
+    and more row tiles than blocks, so blocks take several tiles."""
+    from repro_torch.core import hashing
+    B, m, d, k, topk = 600, 64, 3000, 3, 5
+    H = hashing.double_hash(torch.arange(d, device=cuda), k, m, 2)
+    g = torch.Generator().manual_seed(600)
+    logp = torch.log_softmax(torch.randn(B, m, generator=g), -1).to(cuda)
+    active = None
+    if live != "all":
+        active = torch.zeros(B, dtype=torch.bool, device=cuda)
+        active[::3] = True
+    kv, ki = dt.bloom_decode_topk_cuda(logp, None, topk, active, None,
+                                       (d, k, 2))
+    ev, ei = dt.bloom_decode_topk_cuda(logp, H, topk, active)
+    torch.cuda.synchronize()
+    pv, pi = dt.bloom_decode_topk_plain(logp, H, topk, active)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert torch.equal(ei, pi) and torch.equal(ev, pv)
+
+
+@pytest.mark.parametrize("topk", [1, 8, 10, 64])
+@pytest.mark.parametrize("td", QUANT_TDS)
+def test_decode_full_tie_returns_lowest_ids_per_storage(cuda, td, topk):
+    from repro_torch.core import hashing, quant
+    m, d, k = 8192, 200_003, 2
+    logp = torch.full((13, m), -math.log(m), device=cuda)
+    q, s = quant.quantize_table(logp, td)
+    H = hashing.double_hash(torch.arange(d, device=cuda), k, m, 1)
+    want = torch.arange(topk, dtype=torch.int32).expand(13, topk)
+    for h, hs in ((None, (d, k, 1)), (H, None)):
+        _, ids = dt.bloom_decode_topk_cuda(q, h, topk, None, s, hs)
+        assert torch.equal(ids.cpu(), want)
 
 
 def test_quantized_decode_wrapper_rejects_what_the_kernel_does_not_take(cuda):
