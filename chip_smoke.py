@@ -2,6 +2,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --parent DIR   # also time the parent commit's
+        # csrc/bloom_embed.cu and bloom_decode.cu (copied into DIR with the
+        # headers they include, and its core/hashing.py) beside this
+        # tree's: phase 13
 
 Phases, one line of numbers each:
   1. build    — compile every kernel in src/repro_torch/kernels/csrc/, one
@@ -11,13 +15,33 @@ Phases, one line of numbers each:
                 cases, bit-identical (same f32 sum order):
                 bloom_decode_topk at web10m (B = 8, m = 8192, d = 10M,
                 k = 2, topk = 10) and at the LM shapes (B = 1 and 8,
-                m = 30,208, d = 151,936, k = 4, topk = 8); bloom_embed in
-                f32 and bf16 at T = 1, 8, 14, 4096, D = 1024, k = 4,
-                m = 30,208, at a ragged D and at k = 1 and 3; then each
-                kernel's time, the plain version's, one library call
-                computing the same function, and the least time the card
-                could take (bytes over 3.35 TB/s, or f32 adds over
-                67 TFLOP/s);
+                m = 30,208, d = 151,936, k = 4, topk = 8); bloom_embed's
+                index entry in f32 and bf16 at T = 1, 8, 14, 4096,
+                D = 1024, k = 4, m = 30,208, at a ragged D and at k = 1
+                and 3; then the decode kernel's time, the plain version's,
+                one library call computing the same function, and the
+                least time the card could take (bytes over 3.35 TB/s, or
+                f32 adds over 67 TFLOP/s);
+  2b. kernels-embed — the embed kernel's token entry (token ids in, hashed
+                in the kernel), the main paths' embedding: bit-identical to
+                its plain version, and its (T, k) indices equal to
+                spec.indices_for, at T = 1, 8, 14, 520, 4096 (D = 1024)
+                and D = 1000, 1020, over f32 and bf16 tables read as they
+                are and each table_dtype into f32 and bf16, for the
+                double hash and the precomputed hash matrix at k = 1, 2,
+                3, 4, 8 and the identity spec, int32 and int64 tokens with
+                0, d-1 and -1 among them; ops.bloom_embed launching it
+                once, with one kernel in its torch.profiler trace and no
+                host sync under set_sync_debug_mode("error") (nor
+                ops.bloom_ce or core.bloom.encode); then, at T = 8, 14 and
+                520 per storage (and int8 with the precomputed matrix), in
+                turns, the token kernel, the index kernel, the embedding as
+                the main path called it before (spec.indices_for, then the
+                index kernel) and now (ops.bloom_embed), the plain version
+                and F.embedding_bag: device (graph), back-to-back (events)
+                and L2-cold (profiler, a 96 MB write before each call)
+                times, beside the bound and an empty kernel's time (the
+                launch floor);
   3. serve    — the web10m retrieval drill (8 requests, 8 slots, two
                 replays) through RetrievalEngine on CUDA, with the launch
                 counts reset just before and read just after; every decode
@@ -30,8 +54,9 @@ Phases, one line of numbers each:
                 seed 0) through Engine: 8 slots, 16 mixed-length requests,
                 continuous twice and static once, counts reset just before
                 each run and read just after it; every prefill and decode
-                step must launch bloom_embed once and bloom_decode_topk
-                once, replays and static must serve the same tokens, and a
+                step must launch the embed kernel's token entry
+                (bloom_embed.hash) once and bloom_decode_topk once,
+                replays and static must serve the same tokens, and a
                 served first token must equal the plain versions' on the
                 same prompt;
   6. kernels-train — bloom_ce forward and backward against their plain
@@ -52,7 +77,7 @@ Phases, one line of numbers each:
                 30,208, k = 4, bf16 compute, f32 master, random weights
                 from seed 0, batch 8, seq 64) trained 8 steps through
                 launch/train.run, counts reset just before and read just
-                after: every step must launch bloom_embed, the binning,
+                after: every step must launch bloom_embed.hash, the binning,
                 bloom_csr and the bloom_ce forward and backward once each,
                 every loss be
                 finite and step 8's below step 1's; then a resume drill (4
@@ -61,13 +86,14 @@ Phases, one line of numbers each:
                 within rtol 1e-6;
   8. kernels-quant — the quantized variants (table_dtype) against their
                 plain versions on the same tensors on the card,
-                bit-identical: bloom_embed over f32, bf16, int8 (+ per-row
-                scales) and fp8 storage into bf16 and f32 outputs at T = 1,
-                8, 14, 4096, D = 1024, k = 4, m = 30,208, at a ragged D and
-                at k = 1 and 3; bloom_decode_topk over f32, bf16, int8 and
-                fp8 logp with the in-kernel hash at web10m (all rows, and
-                rows 0, 3, 7) and at the LM shapes (B = 1 and 8), and int8
-                with the explicit H; the in-kernel-hash result must equal
+                bit-identical: bloom_embed's index entry over f32, bf16,
+                int8 (+ per-row scales) and fp8 storage into bf16 and f32
+                outputs at T = 1, 8, 14, 4096, D = 1024, k = 4,
+                m = 30,208, at a ragged D and at k = 1 and 3;
+                bloom_decode_topk over f32, bf16, int8 and fp8 logp with
+                the in-kernel hash at web10m (all rows, and rows 0, 3, 7)
+                and at the LM shapes (B = 1 and 8), and int8 with the
+                explicit H; the in-kernel-hash result must equal
                 the explicit-H result on the same logp (the hashes equal
                 cached_hash_matrix); and at both shapes, for each storage
                 with the hash and with H, the cases the kernel's row tiles
@@ -75,10 +101,9 @@ Phases, one line of numbers each:
                 tile), one, none and all but one of 8 rows live, at topk 1,
                 8, 10 and 64, each bit-identical to the plain version, to
                 the explicit-H kernel and to a second launch, and a
-                constant logp giving ids 0..topk-1.  Then each variant's
-                device and
-                back-to-back time, its plain version's, a one-call library
-                yardstick, and the bound (bytes over 3.35 TB/s, or the
+                constant logp giving ids 0..topk-1.  Then each decode
+                variant's device and back-to-back time, its plain
+                version's, a one-call library yardstick, and the bound (bytes over 3.35 TB/s, or the
                 hash's integer operations once per id over the int32 rate);
   9. serve-quant — the web10m drill through RetrievalEngine with
                 table_dtype int8 (and once each with fp8_e4m3, bfloat16,
@@ -88,43 +113,52 @@ Phases, one line of numbers each:
                 precomputed hash matrix (bloom on_the_fly off); counts
                 reset just before each run and read just after it: every
                 decode step (and LM prefill) must launch that dtype's
-                embed and decode variants once each, the served ids and a
-                served first token must equal the plain versions' on the
-                same inputs; then the median decode step time of the int8
-                path beside the auto path's.
- 10. kernels-decode — the full Eq. 3 decode (bloom_decode) over f32, bf16,
-                int8 and fp8 e4m3 logp at the LM vocabulary (B = 1 and 8,
-                d = 151,936, m = 30,208, k = 4) and at an edge shape (B = 3,
-                m = 1,001, d = 5,003, k = 3, with values past fp8's range),
-                bit-identical to its plain version (NaN in the same places;
-                int8 as (sum q) * s); the card's bins of the spec's H (per
-                call and cached) equal to bin_csr_plain's; the dense decode
-                backward (H binned per call, then the CSR kernel)
-                bit-identical to its plain version on a CPU copy, to the CSR
-                decode caller on the spec's H and on an H without repeated
-                indices, and to a second launch; the dense embedding
-                backward at
-                (T = 520, k = 4, D = 1024, m = 30,208) and edge cases
-                bit-identical to its plain version on a CPU copy, to the CSR
-                kernel and to a second launch; then the times, plain and
-                library times (device and back to back) and bounds, and
-                the dense decode backward's device time by kernel
+                embed (token entry) and decode variants once each, the
+                served ids and a served first token must equal the plain
+                versions' on the same inputs; then the median decode step
+                time of the int8 path beside the auto path's.
+ 10. kernels-decode — the full Eq. 3 decode (bloom_decode) over f32, bf16, int8
+                and fp8 e4m3 logp at the LM vocabulary (B = 1 and 8, d =
+                151,936, m = 30,208, k = 4), at an edge shape (B = 3, m =
+                1,001, d = 5,003, k = 3, with values past fp8's range), at B =
+                1, 3, 8, 13 x k = 1, 3, 4, 8 (m = MAX_M, d = 10,007), with an H
+                and with logp rows off 16 bytes, bit-identical to its plain
+                version (NaN in the same places; int8 as (sum q) * s), timed at
+                B = 8 (reading the spec's H packed to 16 bits, as
+                ops.bloom_decode passes it) in turns beside the f32 kernel on
+                the narrow rows widened ahead (device, back to back, L2-cold);
+                the card's bins of the spec's H (per call and cached) equal to
+                bin_csr_plain's; the dense decode backward (H binned per call,
+                then the CSR kernel) bit-identical to its plain version on a
+                CPU copy, to the CSR decode caller on the spec's H and on an H
+                without repeated indices, and to a second launch; the dense
+                embedding backward at (T = 520, k = 4, D = 1024, m = 30,208)
+                and edge cases bit-identical to its plain version on a CPU
+                copy, to the CSR kernel and to a second launch; then the times,
+                plain and library times (device and back to back) and bounds,
+                and the dense decode backward's device time by kernel
                 (torch.profiler);
  11. decode-grad — ops.bloom_decode on the last-position log_softmax of
                 full-width qwen1.5-0.5b (seed 0, 8 prompts of 16 tokens), in
                 f32 and with each table_dtype, differentiated under bwd_impl
-                csr and dense with a seeded cotangent: counts reset before
-                and read after each run (one forward and one backward
-                launch, and under dense one binning), scores equal to the
-                plain version's, the csr and dense gradients bit-identical,
-                the quantized gradients straight-through;
- 12. train-lm-dense — 8 full-width training steps through launch/train.run
-                with bwd_impl="dense", twice, in turns with a CSR run: every
-                step launches bloom_embed_bwd (and never bloom_csr), losses
-                finite and falling, the first loss equal to the CSR run's,
-                the first step's embedding gradient bit-identical to the CSR
-                backward's off the rows of tokens that repeat a row (within
-                1e-6 there), and the median step walls side by side.
+                csr and dense with a seeded cotangent: counts reset before and
+                read after each run (one forward and one backward launch, and
+                under dense one binning), scores equal to the plain version's,
+                the csr and dense gradients bit-identical, the quantized
+                gradients straight-through;
+ 12. train-lm-dense — 8 full-width training steps through launch/train.run with
+                bwd_impl="dense", twice, in turns with a CSR run: every step
+                launches bloom_embed_bwd (and never bloom_csr), losses finite
+                and falling, the first loss equal to the CSR run's, the first
+                step's embedding gradient bit-identical to the CSR backward's
+                off the rows of tokens that repeat a row (within 1e-6 there),
+                and the median step walls side by side.
+ 13. parent (only with --parent DIR) — the parent commit's embed and decode
+                kernels built from DIR beside this tree's, bit-identical,
+                timed in turns (parent, change, change, parent): embed at
+                T = 8, 14, 520 per storage (the kernels, and as called:
+                the parent's double_hash, which synchronises the host,
+                then its kernel), decode per storage at B = 1 and 8.
 Then the card's name and power limit, one JSON line of kernel numbers, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code
 is not 0 and the last line is not printed.  Without a CUDA device, or
@@ -288,17 +322,14 @@ def lm_decode_topk(torch, dt, common, bloom):
               f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)", flush=True)
 
 
-def phase_embed(torch, be, common):
-    """bloom_embed against its plain version; returns its JSON row, timed
-    at T = 8 (one decode step of 8 slots) in bf16, on the device alone
-    (CUDA graph replays: one call is shorter than the host's launch
-    cost)."""
-    import torch.nn.functional as F
+def phase_embed(torch, be):
+    """bloom_embed's index entry (the (T, k) indices a caller hashed: the
+    tests' and the dense backward checks' entry) against its plain
+    version (timed beside the token entry in phase_embed_tokens)."""
     dev = torch.device("cuda")
     m, D, k = 30208, 1024, 4
     gen = torch.Generator().manual_seed(2)
     base = torch.randn(m, D, generator=gen)
-    err = 0.0
     cases = [(T, D, k) for T in (1, 8, 14, 4096)]
     cases += [(14, 1000, 4), (14, 1020, 4), (8, 1024, 1), (8, 1024, 3)]
     for dtype in (torch.float32, torch.bfloat16):
@@ -312,42 +343,250 @@ def phase_embed(torch, be, common):
             _check(got.dtype == dtype and torch.equal(got, want),
                    f"bloom_embed {dtype} T={T} D={Dc} k={kc}: kernel != "
                    "plain version")
-            err = max(err, _max_abs_err(got.float(), want.float()))
         print(f"kernels: bloom_embed {dtype}: bit-identical on "
               f"{len(cases)} cases (T, D, k) = {cases}", flush=True)
 
-    table = base.to(torch.bfloat16).to(dev)
-    row = None
-    for T in (8, 14):
-        idx = torch.randint(0, m, (T, k), generator=gen,
-                            dtype=torch.int32).to(dev)
-        idx64 = idx.long()
-        fns = {"kernel": lambda: be.bloom_embed_cuda(table, idx),
-               "plain": lambda: be.bloom_embed_plain(table, idx),
-               "embedding_bag": lambda: F.embedding_bag(idx64, table,
-                                                        mode="sum")}
-        # back to back with CUDA events, the host's launch cost included;
-        # and on the device alone, from CUDA graph replays
-        host = {n: common.time_ms(f, 200, 5) for n, f in fns.items()}
-        device = {n: common.graph_time_ms(f) for n, f in fns.items()}
-        n_rows = int(torch.unique(idx).numel())
-        nbytes = be.min_bytes(n_rows, T, k, D, 2)
-        bound_ms, by = _bound(nbytes, T * (k - 1) * D)
-        print(f"kernels: bloom_embed bf16 T={T} m={m} D={D} k={k}: "
-              "device ms (graph) / back-to-back ms (events): "
-              + ", ".join(f"{n} {device[n]:.6f} / {host[n]:.6f}"
-                          for n in fns)
-              + f", bound {bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)",
-              flush=True)
-        if row is None:
-            row = {"name": be.NAME, "route": "cuda",
-                   "source": "src/repro_torch/kernels/csrc/bloom_embed.cu",
-                   "replaces": "src/repro/kernels/bloom_embed.py:294",
-                   "launches": None, "max_abs_err": err,
-                   "ms": device["kernel"], "plain_ms": device["plain"],
-                   "bound_ms": bound_ms, "bound_by": by,
-                   "library_ms": device["embedding_bag"]}
-    return row
+
+def _cold_ms(torch, fn, calls=20):
+    """Device ms of one ``fn()`` with the L2 cache cold: a 96 MB buffer
+    (twice the 50 MB L2) is written before each call, and the call's own
+    kernels are summed from a torch.profiler trace (the flush's kernel,
+    a random fill, left out by name)."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(24 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.uniform_()
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if (t > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and "distribution" not in e.key):
+            us += t
+    del flush
+    return us / calls / 1e3
+
+
+def _turns(torch, common, fns, cold=True, no_graph=()):
+    """{name: (device ms (graph), back-to-back ms (events), L2-cold device
+    ms (profiler) or None)} of each call, every call measured twice in
+    turns (a, b, ..., b, a) and the two runs averaged, so that a drift of
+    the card falls on every call alike.  The calls in ``no_graph`` (which
+    synchronise the host, so no CUDA graph can hold them) get no device
+    time (None)."""
+    order = list(fns) + list(fns)[::-1]
+    runs = {n: [] for n in fns}
+    for n in order:
+        f = fns[n]
+        runs[n].append((None if n in no_graph else
+                        common.graph_time_ms(f, 20, 5),
+                        common.time_ms(f, 50, 3),
+                        _cold_ms(torch, f) if cold else None))
+    return {n: tuple(None if r[0][i] is None else (r[0][i] + r[1][i]) / 2
+                     for i in range(3)) for n, r in runs.items()}
+
+
+def _turns_line(times) -> str:
+    def ms(x):
+        return "-" if x is None else f"{x:.6f}"
+    return ", ".join(f"{n} {ms(d)} / {ms(h)}" + ("" if c is None else
+                                                  f" / {ms(c)}")
+                     for n, (d, h, c) in times.items())
+
+
+def _embed_specs(bloom, io_lib, configs):
+    """The token entry's specs: the LM's (d = 151,936, m = 30,208, k = 4,
+    on the fly), the same with k = 1, 2, 3, 8, each also with the
+    precomputed hash matrix, and the identity spec over m ids."""
+    import dataclasses
+    lm = io_lib.vocab_spec(configs.get_config("qwen1.5-0.5b"))
+    specs = {}
+    for k in (1, 2, 3, 4, 8):
+        for fly in (True, False):
+            spec = dataclasses.replace(lm, k=k, on_the_fly=fly)
+            specs[f"{'hash' if fly else 'H'} k={k}"] = spec
+    specs["identity"] = bloom.identity_spec(lm.m)
+    return lm, specs
+
+
+def phase_embed_tokens(torch, be, common, quant):
+    """The embed kernel's token entry (the main path's: tokens in,
+    hashed in the kernel) against its plain version, bit for bit, with its
+    (T, k) indices equal to spec.indices_for; ops.bloom_embed as one launch
+    without a host sync; then its times beside the index entry's as the
+    main path called it before (spec.indices_for, then the kernel), the
+    plain version, F.embedding_bag, the bound and an empty kernel.
+    Returns one JSON row per variant the main paths launch."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.core import bloom
+    from repro_torch.kernels import ops
+    from repro_torch.models import io as io_lib
+    dev = torch.device("cuda")
+    lm, specs = _embed_specs(bloom, io_lib, configs)
+    m, D = lm.m, 1024
+    gen = torch.Generator().manual_seed(9)
+    base = torch.randn(m, D, generator=gen).to(dev)
+    shapes = [(T, D) for T in (1, 8, 14, 520, 4096)] + [(14, 1000),
+                                                        (14, 1020)]
+    # (label, table_dtype or None for a table read as it is, out dtypes)
+    storages = [("f32", None, torch.float32), ("bf16", None, torch.bfloat16)]
+    storages += [(td, td, None) for td in quant.TABLE_DTYPES]
+    n, errs = 0, {}    # the token entry's max |kernel - plain| by variant
+    for T, Dc in shapes:
+        for label, td, raw in storages:
+            if td is None:
+                tables = [(base[:, :Dc].to(raw).contiguous(), None, raw)]
+            else:
+                q, sc = quant.quantize_table(base[:, :Dc].contiguous(), td)
+                tables = [(q, sc, od) for od in be.DTYPES]
+            for q, sc, od in tables:
+                for name, spec in specs.items():
+                    tok = torch.randint(0, spec.d, (T,), generator=gen)
+                    tok[:3] = torch.tensor([spec.d - 1, -1, 0])[:T]
+                    tok = tok.to(dev).to(torch.int32 if n % 3 == 0
+                                         else torch.int64)
+                    if td is None:
+                        got, idx = be.bloom_embed_tokens_cuda(
+                            q, tok, spec, want_idx=True)
+                    else:
+                        got, idx = be.bloom_embed_tokens_quantized_cuda(
+                            q, sc, tok, spec, od, want_idx=True)
+                    torch.cuda.synchronize()
+                    want, widx = be.bloom_embed_tokens_plain(q, sc, tok,
+                                                             spec, od)
+                    what = f"token entry {label}->{od} T={T} D={Dc} {name}"
+                    _check(got.dtype == od and torch.equal(got, want),
+                           f"{what}: kernel != plain version")
+                    _check(torch.equal(idx, widx),
+                           f"{what}: indices != spec.indices_for")
+                    vname = be.token_variant_name(
+                        spec, None if td is None else q.dtype)
+                    errs[vname] = max(errs.get(vname, 0.0),
+                                      _max_abs_err(got.float(),
+                                                   want.float()))
+                    n += 1
+    print(f"kernels-embed: token entry bit-identical to the plain version "
+          f"and its indices equal to spec.indices_for on {n} cases: "
+          f"(T, D) = {shapes} x {len(storages)} storages (f32, bf16 read as "
+          f"they are; {', '.join(quant.TABLE_DTYPES)} into f32 and bf16) x "
+          f"specs {sorted(specs)}, tokens 0, d-1, -1 among random ones",
+          flush=True)
+
+    # ops.bloom_embed on the card: one launch, no double_hash op, no sync
+    table = base.to(torch.bfloat16)
+    tok = torch.randint(0, lm.d, (8, 1), generator=gen).to(dev)
+    common.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            out = ops.bloom_embed(table, tok, lm)
+            ops.bloom_ce(torch.randn(16, m, device=dev),
+                         torch.randint(0, lm.d, (16,), device=dev), lm)
+            bloom.encode(lm, torch.randint(-1, lm.d, (4, 8), device=dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = dict(common.LAUNCHES)
+    name = be.token_variant_name(lm)
+    _check(counts.get(name) == 1 and be.NAME not in counts,
+           f"ops.bloom_embed launched {counts}")
+    split = _device_split(torch, lambda: ops.bloom_embed(table, tok, lm))
+    _check(len(split) == 1 and "embed_fwd" in next(iter(split)),
+           f"ops.bloom_embed ran kernels {split}")
+    _check(torch.equal(out, ops.bloom_embed(table.cpu(), tok.cpu(),
+                                            lm).to(dev)),
+           "ops.bloom_embed on the card != on the CPU")
+    print(f"kernels-embed: ops.bloom_embed: one launch ({counts}), one "
+          f"kernel in its trace ({_split_line(split)}), no host sync under "
+          f"set_sync_debug_mode('error') (nor ops.bloom_ce, bloom.encode), "
+          f"equal to the CPU path", flush=True)
+
+    # times: the token entry, the index entry as the main path called it
+    # before, the plain version, F.embedding_bag; the bound and an empty
+    # kernel, the launch floor
+    lib = be._library()
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    floor = common.graph_time_ms(lambda: lib.bloom_embed_launch_floor(
+        stream()), 50, 20)
+    floor_host = common.time_ms(lambda: lib.bloom_embed_launch_floor(
+        stream()), 200, 5)
+    print(f"kernels-embed: an empty kernel: {floor:.6f} ms on the device "
+          f"(graph) / {floor_host:.6f} ms back to back (events): the launch "
+          f"floor", flush=True)
+    rows = {}
+    timed = [(td, lm) for td in (None, *quant.TABLE_DTYPES)]
+    timed.append(("int8", specs["H k=4"]))
+    for td, spec in timed:
+        for T in (8, 14, 520):
+            if td is None:
+                q, sc, od = table, None, torch.bfloat16
+            else:
+                q, sc = quant.quantize_table(base, td)
+                od = torch.bfloat16
+            tok = torch.randint(0, spec.d, (T,), generator=gen).to(dev)
+            idx = spec.indices_for(tok).contiguous()
+            idx64 = idx.long()
+            wide = q.to(torch.bfloat16) if td != "int8" else q.float()
+            psw = None if sc is None else sc[idx64]
+            if td is None:
+                fns = {
+                    "token kernel": lambda: be.bloom_embed_tokens_cuda(
+                        q, tok, spec),
+                    "index kernel": lambda: be.bloom_embed_cuda(q, idx),
+                    "as called, before": lambda: be.bloom_embed_cuda(
+                        q, spec.indices_for(tok).contiguous()),
+                    "as called": lambda: ops.bloom_embed(
+                        q, tok[:, None], spec)}
+            else:
+                fns = {
+                    "token kernel":
+                        lambda: be.bloom_embed_tokens_quantized_cuda(
+                            q, sc, tok, spec, od),
+                    "index kernel": lambda: be.bloom_embed_quantized_cuda(
+                        q, sc, idx, od),
+                    "as called, before":
+                        lambda: be.bloom_embed_quantized_cuda(
+                            q, sc, spec.indices_for(tok).contiguous(), od),
+                    "as called": lambda: be.bloom_embed_tokens_fwd_quantized(
+                        q, sc, tok, spec, od)}
+            fns["plain"] = lambda: be.bloom_embed_tokens_plain(
+                q, sc, tok, spec, od)
+            fns["embedding_bag"] = lambda: F.embedding_bag(
+                idx64, wide, mode="sum", per_sample_weights=psw)
+            with torch.no_grad():
+                times = _turns(torch, common, fns)
+            n_rows = int(torch.unique(idx).numel())
+            nbytes = be.min_bytes(n_rows, T, spec.k, D, q.element_size(),
+                                  out_itemsize=2, row_scales=sc is not None,
+                                  token_itemsize=8)
+            bound_ms, by = _bound(nbytes, T * (spec.k - 1) * D
+                                  + (T * spec.k * D if sc is not None else 0))
+            vname = be.token_variant_name(
+                spec, None if td is None else q.dtype)
+            print(f"kernels-embed: {vname} -> bf16 T={T} m={m} D={D} "
+                  f"k={spec.k}: device ms (graph) / back-to-back ms (events)"
+                  f" / L2-cold device ms (profiler): {_turns_line(times)}; "
+                  f"bound {bound_ms * 1e3:.4f} us ({by}, {nbytes} bytes), "
+                  f"launch floor {floor * 1e3:.4f} us", flush=True)
+            if T == 8:
+                rows[vname] = {
+                    "name": vname, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/bloom_embed.cu",
+                    "replaces": ("src/repro/kernels/bloom_embed.py:71"
+                                 if td == "int8" else
+                                 "src/repro/kernels/bloom_embed.py:294"),
+                    "launches": None, "max_abs_err": errs[vname],
+                    "ms": times["token kernel"][0],
+                    "plain_ms": times["plain"][0], "bound_ms": bound_ms,
+                    "bound_by": by,
+                    "library_ms": times["embedding_bag"][0]}
+    return list(rows.values())
 
 
 def phase_serve_lm(torch, be, dt, common):
@@ -355,6 +594,7 @@ def phase_serve_lm(torch, be, dt, common):
     launches of each kernel summed over the three runs."""
     from repro_torch import configs
     from repro_torch.core import bloom
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve, steps as steps_lib
     from repro_torch.models import io as io_lib
     from repro_torch.serving.engine import Engine
@@ -373,7 +613,8 @@ def phase_serve_lm(torch, be, dt, common):
           f"vocab {cfg.vocab} m {cfg.m_vocab} k {cfg.bloom.k} "
           f"{cfg.param_count():,} params bf16, set-up "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    totals, tokens = {be.NAME: 0, dt.NAME: 0}, []
+    embed_name = be.token_variant_name(io_lib.vocab_spec(cfg))
+    totals, tokens = {embed_name: 0, dt.NAME: 0}, []
     for label, run in (("continuous", engine.run),
                        ("continuous replay", engine.run),
                        ("static", engine.run_static)):
@@ -386,7 +627,7 @@ def phase_serve_lm(torch, be, dt, common):
         _check(all(r.done and not r.rejected for r in res.values()),
                f"{label}: a request was not served")
         want = st.prefills + st.decode_steps
-        for name in (be.NAME, dt.NAME):
+        for name in (embed_name, dt.NAME):
             _check(counts.get(name, 0) == want,
                    f"{label}: {counts.get(name, 0)} {name} launches for "
                    f"{st.prefills} prefills + {st.decode_steps} decode steps")
@@ -412,6 +653,9 @@ def phase_serve_lm(torch, be, dt, common):
         _check(torch.equal(be.bloom_embed_cuda(model.embed, idx),
                            be.bloom_embed_plain(model.embed, idx)),
                "prompt embedding: kernel != plain version")
+        _check(torch.equal(ops.bloom_embed(model.embed, prompt, spec)[0],
+                           be.bloom_embed_plain(model.embed, idx)),
+               "prompt embedding as served: token kernel != plain version")
         last = steps_lib.make_prefill_step(cfg)(model, prompt)["last_logits"]
         _check(tuple(last.shape) == (1, cfg.m_vocab)
                and bool(torch.isfinite(last).all()), "prefill logits")
@@ -744,20 +988,16 @@ def _bound_int(nbytes: int, int_ops: int):
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
-def phase_embed_quant(torch, be, common, quant):
-    """The quantized bloom_embed variants against their plain version;
-    returns one JSON row per storage dtype, timed at T = 8 (one decode
-    step of 8 slots) into bf16 (the LM's compute dtype)."""
-    import torch.nn.functional as F
+def phase_embed_quant(torch, be, quant):
+    """The quantized variants of bloom_embed's index entry against their
+    plain version (timed beside the token entry in phase_embed_tokens)."""
     dev = torch.device("cuda")
     m, D, k = 30208, 1024, 4
     gen = torch.Generator().manual_seed(5)
     base = torch.randn(m, D, generator=gen).to(dev)
     cases = [(T, D, k) for T in (1, 8, 14, 4096)]
     cases += [(14, 1000, 4), (14, 1020, 4), (8, 1024, 1), (8, 1024, 3)]
-    rows = []
     for td in quant.TABLE_DTYPES:
-        err = 0.0
         for out_dtype in (torch.bfloat16, torch.float32):
             for T, Dc, kc in cases:
                 q, s = quant.quantize_table(base[:, :Dc].contiguous(), td)
@@ -769,47 +1009,9 @@ def phase_embed_quant(torch, be, common, quant):
                 _check(got.dtype == out_dtype and torch.equal(got, want),
                        f"bloom_embed {td} -> {out_dtype} T={T} D={Dc} "
                        f"k={kc}: kernel != plain version")
-                err = max(err, _max_abs_err(got.float(), want.float()))
         print(f"kernels-quant: bloom_embed {td} into bf16 and f32: "
               f"bit-identical on {len(cases)} cases (T, D, k) = {cases}",
               flush=True)
-
-        T = 8
-        q, s = quant.quantize_table(base, td)
-        idx = torch.randint(0, m, (T, k), generator=gen,
-                            dtype=torch.int32).to(dev)
-        idx64 = idx.long()
-        # the library yardstick reads the stored values widened to the
-        # output dtype ahead of the call, with the int8 scales as
-        # per-sample weights
-        wide = q.to(torch.bfloat16) if td != "int8" else q.float()
-        psw = None if s is None else s[idx64]
-        times = _times(common, {
-            "kernel": lambda: be.bloom_embed_quantized_cuda(
-                q, s, idx, torch.bfloat16),
-            "plain": lambda: be.bloom_embed_quantized_plain(
-                q, s, idx, torch.bfloat16),
-            "embedding_bag": lambda: F.embedding_bag(
-                idx64, wide, mode="sum", per_sample_weights=psw)})
-        n_rows = int(torch.unique(idx).numel())
-        nbytes = be.min_bytes(n_rows, T, k, D, quant.table_itemsize(td),
-                              out_itemsize=2, row_scales=s is not None)
-        bound_ms, by = _bound(nbytes, T * (k - 1) * D
-                              + (T * k * D if s is not None else 0))
-        print(f"kernels-quant: bloom_embed {td} -> bf16 T={T} m={m} D={D} "
-              f"k={k}: device ms (graph) / back-to-back ms (events): "
-              f"{_times_line(times)}, bound {bound_ms * 1e3:.3f} us ({by}, "
-              f"{nbytes} bytes)", flush=True)
-        rows.append({"name": be.variant_name(q.dtype), "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/bloom_embed.cu",
-                     "replaces": ("src/repro/kernels/bloom_embed.py:71"
-                                  if td == "int8" else
-                                  "src/repro/kernels/bloom_embed.py:294"),
-                     "launches": None, "max_abs_err": err,
-                     "ms": times["kernel"][0], "plain_ms": times["plain"][0],
-                     "bound_ms": bound_ms, "bound_by": by,
-                     "library_ms": times["embedding_bag"][0]})
-    return rows
 
 
 def phase_decode_quant(torch, dt, common, bloom, quant, get_retrieval_config):
@@ -1037,7 +1239,8 @@ def phase_serve_quant(torch, be, dt, common, bloom, quant, retrieval,
         _check(all(r.done and not r.rejected for r in res.values()),
                f"LM {td}: a request was not served")
         sd = quant.storage_dtype(td)
-        want = {be.variant_name(sd): st.prefills + st.decode_steps,
+        want = {be.token_variant_name(io_lib.vocab_spec(qcfg), sd):
+                st.prefills + st.decode_steps,
                 dt.variant_name(sd, fly): st.prefills + st.decode_steps}
         _check(counts == want, f"LM {td} on_the_fly={fly}: launches "
                f"{counts}, want {want}")
@@ -1055,7 +1258,8 @@ def phase_serve_quant(torch, be, dt, common, bloom, quant, retrieval,
             idx = spec.indices_for(prompt.reshape(-1)).contiguous()
             qt, st_ = bloom.cached_quantized_table(spec, model.embed, td)
             _check(torch.equal(
-                be.bloom_embed_quantized_cuda(qt, st_, idx, torch.bfloat16),
+                be.bloom_embed_tokens_quantized_cuda(
+                    qt, st_, prompt.reshape(-1), spec, torch.bfloat16)[0],
                 be.bloom_embed_quantized_plain(qt, st_, idx,
                                                torch.bfloat16)),
                 f"LM {td}: prompt embedding kernel != plain version")
@@ -1136,6 +1340,7 @@ def phase_kernels_decode(torch, bd, csr, be, common, bloom, quant):
     dev = torch.device("cuda")
     spec = io_lib.vocab_spec(configs.get_config("qwen1.5-0.5b"))
     H = bloom.cached_hash_matrix(spec, dev)
+    H16 = bloom.cached_packed_hash_matrix(spec, dev)
     (d, k), m = H.shape, spec.m
     gen = torch.Generator().manual_seed(7)
     logp8 = torch.log_softmax(3 * torch.randn(8, m, generator=gen), -1)
@@ -1146,10 +1351,29 @@ def phase_kernels_decode(torch, bd, csr, be, common, bloom, quant):
     edge_H[:4, 0] = torch.arange(4, dtype=torch.int32)
     cases = [("LM B=1", logp8[:1], H), ("LM B=8", logp8, H),
              ("edge B=3 m=1001 d=5003 k=3", edge_lp, edge_H.to(dev))]
+    # the row tiles' cases: B = 1, 3, 8, 13 (a ragged last tile),
+    # k = 1, 3, 4, 8, m = MAX_M (the largest tile), d = 10,007 (not a
+    # multiple of 4: the last ids scalar); an H and logp rows off 16 bytes
+    mc = bd.MAX_M
+    for B in (1, 3, 8, 13):
+        for kc in (1, 3, 4, 8):
+            cases.append((f"B={B} k={kc} m={mc} d=10007",
+                          torch.log_softmax(3 * torch.randn(
+                              B, mc, generator=gen), -1),
+                          torch.randint(0, mc, (10_007, kc), generator=gen,
+                                        dtype=torch.int32).to(dev)))
+    flat_H = torch.randint(0, m, (4 * 5003 + 1,), generator=gen,
+                           dtype=torch.int32).to(dev)
+    cases.append(("H off 16 bytes", logp8[:3], flat_H[1:].view(5003, 4)))
     rows, Hl = [], H.long()
     for td in (None, "bfloat16", "int8", "fp8_e4m3"):
         err = 0.0
-        for label, lp, h in cases:
+        for label, lp, h in cases + [("rows off 16 bytes", None, H)]:
+            if lp is None:   # logp rows of m + 1 elements from offset 1
+                lp = torch.empty(3 * (m + 1) + 1, device=dev)[1:].view(
+                    3, m + 1)
+                lp.copy_(torch.log_softmax(torch.randn(
+                    3, m + 1, generator=gen), -1))
             lp = lp.to(dev).contiguous()
             q, s = (lp, None) if td is None else quant.quantize_table(lp, td)
             got = bd.bloom_decode_cuda(q, h, s)
@@ -1174,19 +1398,32 @@ def phase_kernels_decode(torch, bd, csr, be, common, bloom, quant):
                                             mode="sum").t())
                    if td is None else
                    (lambda: F.embedding_bag(Hl, wide_t, mode="sum").t()))
-        times = _times_kernels(
-            common, {"kernel": lambda: bd.bloom_decode_cuda(q, H, s),
-                     "library": library},
-            {"plain": lambda: bd.bloom_decode_plain(q, H, s)})
+        # the kernel reads the spec's H packed to 16 bits, as
+        # ops.bloom_decode passes it
+        fns = {"kernel": lambda: bd.bloom_decode_cuda(q, H, s, H16)}
+        if td is not None:
+            # the narrow rows widened ahead to f32: the f32 kernel's one row
+            # a block against this storage's tile of 4 / itemsize rows
+            wide_rows = q.float().contiguous()
+            fns["kernel on rows widened to f32"] = (
+                lambda: bd.bloom_decode_cuda(wide_rows, H, None, H16))
+        fns["library"] = library
+        times = _turns(torch, common, fns)
+        plain_ms = common.time_ms(lambda: bd.bloom_decode_plain(q, H, s),
+                                  20, 3)
         itemsize = quant.table_itemsize(td)
-        nbytes = bd.min_bytes(8, m, d, k, itemsize, s is not None)
+        nbytes = bd.min_bytes(8, m, d, k, itemsize, s is not None,
+                              index_bytes=2)
         bound_ms, by = _bound(nbytes, 8 * d * (k - 1)
                               + (8 * d if s is not None else 0))
+        pl = bd.plan(8, m, d, k, itemsize, common.sm_count(dev))
         print(f"kernels-decode: {name} B=8 m={m} d={d} k={k}: bit-identical "
-              f"to plain on {[c[0] for c in cases]}; device ms (graph) / "
-              f"back-to-back ms (events; plain: events only): "
-              f"{_times_line(times)}, bound "
+              f"to plain on {[c[0] for c in cases]} and rows off 16 bytes; "
+              f"{pl}; device ms (graph) / back-to-back ms (events) / L2-cold "
+              f"device ms (profiler): {_turns_line(times)}; plain "
+              f"{plain_ms:.6f} ms (events); bound "
               f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)", flush=True)
+        times["plain"] = (plain_ms, plain_ms, None)
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/bloom_decode.cu",
                      "replaces": ("src/repro/kernels/bloom_decode.py:58"
@@ -1468,6 +1705,154 @@ def phase_train_lm_dense(torch, be, common, names, csr_losses, csr_ms):
     return counts
 
 
+PARENT_KERNELS = ("bloom_embed", "bloom_decode")
+
+
+def start_parent_build(common, parent: Path):
+    """nvcc on the parent commit's csrc/bloom_embed.cu and bloom_decode.cu
+    (copied with the headers they include into ``parent``), started now,
+    into parent/<name>.so; returns {name: (process, library path)}."""
+    procs = {}
+    for name in PARENT_KERNELS:
+        lib = parent / f"{name}.so"
+        cmd = [common._nvcc(), *common.NVCC_FLAGS, "-o", str(lib),
+               str(parent / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       lib)
+    return procs
+
+
+def phase_parent(torch, be, bd, common, quant, procs, parent):
+    """The parent commit's embed and decode kernels against this tree's, in
+    one process, each timed in turns (parent, change, change, parent):
+    device (graph), back to back (events) and L2-cold (profiler); their
+    outputs bit-identical.  The embedding as the parent called it hashes
+    with the parent's core/hashing.py (``parent``/hashing.py), whose
+    host-to-device copy synchronises the host (probed here under
+    set_sync_debug_mode("error")), so that call has no graph time."""
+    import ctypes
+    import importlib.util
+    from repro_torch import configs
+    from repro_torch.core import bloom
+    from repro_torch.kernels import ops
+    from repro_torch.models import io as io_lib
+    libs = {}
+    for name, (proc, path) in procs.items():
+        log, _ = proc.communicate()
+        _check(proc.returncode == 0, f"parent {name} build failed:\n{log}")
+        libs[name] = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    libs["bloom_embed"].bloom_embed_fwd.argtypes = [p, p, p, p, i, i, i, i,
+                                                    i, p]
+    libs["bloom_decode"].bloom_decode_fwd.argtypes = [p, i, p, p, p, i, i,
+                                                      i, i, i, p]
+    dev = torch.device("cuda")
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+             torch.float8_e4m3fn: 3}
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def parent_embed(q, sc, idx, od):
+        out = torch.empty((idx.shape[0], q.shape[1]), dtype=od, device=dev)
+        libs["bloom_embed"].bloom_embed_fwd(
+            q.data_ptr(), None if sc is None else sc.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), idx.shape[0], q.shape[1],
+            idx.shape[1], codes[q.dtype], codes[od], stream())
+        return out
+
+    def parent_decode(q, H, sc):
+        (B, m), (d, k) = q.shape, H.shape
+        # the parent wrapper's blocks per row (bloom_decode._groups)
+        per_sm = max(1, min(4, 228 * 1024 // (m * 4 + 2048)))
+        groups = max(1, min(-(-d // 256),
+                            per_sm * common.sm_count(dev) // B, 65535))
+        out = torch.empty((B, d), dtype=torch.float32, device=dev)
+        libs["bloom_decode"].bloom_decode_fwd(
+            q.data_ptr(), codes[q.dtype],
+            None if sc is None else sc.data_ptr(), H.data_ptr(),
+            out.data_ptr(), B, m, d, k, groups, stream())
+        return out
+
+    spec = io_lib.vocab_spec(configs.get_config("qwen1.5-0.5b"))
+    m, D = spec.m, 1024
+    gen = torch.Generator().manual_seed(21)
+    base = torch.randn(m, D, generator=gen).to(dev)
+    found = importlib.util.spec_from_file_location("parent_hashing",
+                                                   parent / "hashing.py")
+    old_hash = importlib.util.module_from_spec(found)
+    found.loader.exec_module(old_hash)
+    probe = torch.arange(8, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        old_hash.double_hash(probe, spec.k, m, spec.seed)
+        synced = False
+    except RuntimeError:
+        synced = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"parent: the parent's double_hash on CUDA ids under "
+          f"set_sync_debug_mode('error'): "
+          f"{'raised (it synchronises the host)' if synced else 'ran'}",
+          flush=True)
+    for td in (None, *quant.TABLE_DTYPES):
+        if td is None:
+            q, sc = base.to(torch.bfloat16), None
+        else:
+            q, sc = quant.quantize_table(base, td)
+        for T in (8, 14, 520):
+            tok = torch.randint(0, spec.d, (T,), generator=gen).to(dev)
+            idx = spec.indices_for(tok).contiguous()
+            od = torch.bfloat16
+            if td is None:
+                new_idx = lambda: be.bloom_embed_cuda(q, idx)  # noqa: E731
+                new_tok = lambda: be.bloom_embed_tokens_cuda(  # noqa: E731
+                    q, tok, spec)[0]
+                called = lambda: ops.bloom_embed(  # noqa: E731
+                    q, tok[:, None], spec)
+            else:
+                new_idx = lambda: be.bloom_embed_quantized_cuda(  # noqa: E731
+                    q, sc, idx, od)
+                new_tok = lambda: be.bloom_embed_tokens_quantized_cuda(  # noqa
+                    q, sc, tok, spec, od)[0]
+                called = lambda: be.bloom_embed_tokens_fwd_quantized(  # noqa
+                    q, sc, tok, spec, od)
+            old_called = lambda: parent_embed(  # noqa: E731
+                q, sc, old_hash.double_hash(tok, spec.k, m,
+                                            spec.seed).contiguous(), od)
+            want = parent_embed(q, sc, idx, od)
+            _check(torch.equal(new_idx(), want) and torch.equal(new_tok(),
+                                                                want),
+                   f"parent embed {td} T={T}: the kernels differ")
+            with torch.no_grad():
+                times = _turns(torch, common, {
+                    "parent kernel": lambda: parent_embed(q, sc, idx, od),
+                    "index kernel": new_idx, "token kernel": new_tok,
+                    "parent as called": old_called, "as called": called},
+                    no_graph=("parent as called",))
+            print(f"parent: bloom_embed {td or 'bf16 as is'} -> bf16 T={T} "
+                  f"D={D} k={spec.k}, bit-identical; device ms (graph) / "
+                  f"back-to-back ms (events) / L2-cold device ms "
+                  f"(profiler), in turns: {_turns_line(times)}", flush=True)
+    H = bloom.cached_hash_matrix(spec, dev)
+    H16 = bloom.cached_packed_hash_matrix(spec, dev)
+    logp = torch.log_softmax(3 * torch.randn(8, m, generator=gen), -1)
+    logp = logp.to(dev)
+    for td in (None, *quant.TABLE_DTYPES):
+        for B in (1, 8):
+            q, sc = ((logp[:B], None) if td is None
+                     else quant.quantize_table(logp[:B].contiguous(), td))
+            _check(_equal_nan(torch, parent_decode(q, H, sc),
+                              bd.bloom_decode_cuda(q, H, sc)),
+                   f"parent decode {td} B={B}: the kernels differ")
+            times = _turns(torch, common, {
+                "parent kernel": lambda: parent_decode(q, H, sc),
+                "kernel": lambda: bd.bloom_decode_cuda(q, H, sc, H16)})
+            print(f"parent: bloom_decode {td or 'f32'} B={B} m={m} "
+                  f"d={spec.d} k={spec.k}, bit-identical; device ms (graph) "
+                  f"/ back-to-back ms (events) / L2-cold device ms "
+                  f"(profiler), in turns: {_turns_line(times)}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1475,6 +1860,15 @@ def main() -> int:
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: the port is not at {SRC}", file=sys.stderr)
+        return 2
+    parent = None
+    if sys.argv[1:2] == ["--parent"]:
+        # a directory holding the parent commit's csrc/bloom_embed.cu and
+        # bloom_decode.cu with the headers they include, to time them
+        # beside this tree's (phase "parent")
+        parent = Path(sys.argv[2]).resolve()
+    elif sys.argv[1:]:
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1491,6 +1885,7 @@ def main() -> int:
     from repro_torch.serving import retrieval
 
     t0 = time.perf_counter()
+    procs = None if parent is None else start_parent_build(common, parent)
     built = common.build()
     print("build: " + ", ".join(f"{n} {s:.3f} s" for n, s in built.items())
           + f" (wall {time.perf_counter() - t0:.3f} s)", flush=True)
@@ -1499,7 +1894,10 @@ def main() -> int:
 
     row = phase_kernels(torch, dt, common, bloom, get_retrieval_config)
     lm_decode_topk(torch, dt, common, bloom)
-    embed_row = phase_embed(torch, be, common)
+    phase_embed(torch, be)
+    from repro_torch.core import quant
+    embed_rows = phase_embed_tokens(torch, be, common, quant)
+    embed_row = embed_rows[0]       # bloom_embed.hash: the bf16 LM table
     row["launches"] = phase_serve(torch, dt, common, bloom, retrieval,
                                   get_retrieval_config)
     ev = retrieval._smoke_eval(torch.device("cuda"), 0)
@@ -1507,17 +1905,17 @@ def main() -> int:
           f"n={ev['n_evaluated']}", flush=True)
     lm = phase_serve_lm(torch, be, dt, common)
     row["launches"] += lm[dt.NAME]
-    embed_row["launches"] = lm[be.NAME]
+    embed_row["launches"] = lm[embed_row["name"]]
     train_rows = phase_ce(torch, ce, common) + phase_csr(torch, csr, common)
     trained, csr_losses, csr_ms = phase_train_lm(
-        torch, common, [be.NAME, csr.BIN, csr.NAME, ce.FWD, ce.BWD])
-    embed_row["launches"] += trained[be.NAME]
+        torch, common, [embed_row["name"], csr.BIN, csr.NAME, ce.FWD,
+                        ce.BWD])
+    embed_row["launches"] += trained[embed_row["name"]]
     for r in train_rows:
         r["launches"] = trained[r["name"]]
-    from repro_torch.core import quant
-    quant_rows = (phase_embed_quant(torch, be, common, quant)
-                  + phase_decode_quant(torch, dt, common, bloom, quant,
-                                       get_retrieval_config))
+    phase_embed_quant(torch, be, quant)
+    quant_rows = embed_rows[1:] + phase_decode_quant(
+        torch, dt, common, bloom, quant, get_retrieval_config)
     served = phase_serve_quant(torch, be, dt, common, bloom, quant,
                                retrieval, get_retrieval_config)
     _check(set(served) == {r["name"] for r in quant_rows},
@@ -1529,8 +1927,8 @@ def main() -> int:
                                        quant)
     launched = phase_decode_grad(torch, bd, csr, common, bloom, quant)
     dense_counts = phase_train_lm_dense(
-        torch, be, common, [be.NAME, be.BWD, ce.FWD, ce.BWD], csr_losses,
-        csr_ms)
+        torch, be, common, [embed_row["name"], be.BWD, ce.FWD, ce.BWD],
+        csr_losses, csr_ms)
     _check(csr.NAME not in dense_counts and csr.BIN not in dense_counts,
            "the dense training run launched the CSR kernel or its binning")
     launched.update(dense_counts)
@@ -1539,6 +1937,8 @@ def main() -> int:
     rows = [row, embed_row, *train_rows, *quant_rows, *decode_rows]
     _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")
+    if procs is not None:
+        phase_parent(torch, be, bd, common, quant, procs, parent)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

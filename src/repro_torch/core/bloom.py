@@ -51,12 +51,14 @@ class BloomSpec:
     def indices_for(self, ids: torch.Tensor,
                     hash_matrix: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-        """ids (...,) -> (..., k) hash indices in [0, m)."""
+        """ids (...,) -> (..., k) hash indices in [0, m).  A spec that is
+        not on the fly reads its (d, k) hash matrix from
+        ``cached_hash_matrix`` (built once per spec and device)."""
         if self.m == self.d and self.k == 1 and hash_matrix is None:
             # no-compression spec: the identity map (the paper's Baseline)
             return ids[..., None].to(torch.int32)
         if hash_matrix is None and not self.on_the_fly:
-            hash_matrix = self.hash_matrix(ids.device)
+            hash_matrix = cached_hash_matrix(self, ids.device)
         return hashing.hash_indices(ids, k=self.k, m=self.m, seed=self.seed,
                                     hash_matrix=hash_matrix)
 
@@ -83,6 +85,8 @@ def _device_key(device) -> str:
 
 @functools.lru_cache(maxsize=8)
 def _cached_hash_matrix(spec: BloomSpec, device: str) -> torch.Tensor:
+    if not spec.on_the_fly and not (spec.m == spec.d and spec.k == 1):
+        return spec.hash_matrix(device).contiguous()
     ids = torch.arange(spec.d, dtype=torch.int64, device=device)
     return spec.indices_for(ids).contiguous()
 
@@ -103,6 +107,19 @@ def cached_decode_bins(spec: BloomSpec, device):
 def _cached_decode_bins(spec: BloomSpec, device: str):
     from repro_torch.kernels.bloom_csr import bin_csr   # core -> kernels
     return bin_csr(_cached_hash_matrix(spec, device), spec.m)
+
+
+def cached_packed_hash_matrix(spec: BloomSpec, device) -> torch.Tensor:
+    """``kernels.bloom_decode.pack_h`` of the cached hash matrix: its
+    indices as 16-bit words, which the Eq. 3 decode kernel reads (half
+    the bytes), built once per (spec, device) beside the matrix."""
+    return _cached_packed_hash_matrix(spec, _device_key(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _cached_packed_hash_matrix(spec: BloomSpec, device: str):
+    from repro_torch.kernels.bloom_decode import pack_h   # core -> kernels
+    return pack_h(_cached_hash_matrix(spec, device))
 
 
 _QUANT_CACHE: dict = {}

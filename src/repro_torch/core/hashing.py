@@ -75,8 +75,9 @@ def double_hash(ids: torch.Tensor, k: int, m: int,
     h1 = _salted(ids, 2 * seed) % m
     h2 = _salted(ids, 2 * seed + 1) % max(m - 1, 1) + 1
     j = torch.arange(k, dtype=torch.int64, device=ids.device)
-    tri = torch.tensor([(v ** 3 - v) // 6 % m for v in range(k)],
-                       dtype=torch.int64, device=ids.device)
+    # (j^3 - j)/6 % m from j on the device: no host-to-device copy, which
+    # would synchronise the host with the device on every call
+    tri = (j * j * j - j) // 6 % m
     h = (h1[..., None] + ((j * h2[..., None]) & MASK)) & MASK
     h = ((h + tri) & MASK) % m
     return h.to(torch.int32)

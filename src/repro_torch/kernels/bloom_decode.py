@@ -13,7 +13,9 @@ the reference's ``_fwd_kernel_scaled`` does.  Sums run in f32 in j order.
 * ``bloom_decode_cuda`` launches the hand-written Hopper kernel
   (``csrc/bloom_decode.cu``, which replaces the JAX package's Pallas
   ``bloom_decode_pallas`` and its int8 ``_fwd_kernel_scaled``) and counts
-  it as ``bloom_decode`` (f32 logp) or ``bloom_decode.<storage>``;
+  it as ``bloom_decode`` (f32 logp) or ``bloom_decode.<storage>``; its
+  grid comes from ``plan`` (row tiles of 4 / itemsize rows, one wave of
+  id ranges), which the CPU tests reach;
   ``bloom_decode_plain`` is the same function in plain PyTorch
   (``ref.bloom_decode_ref``, and its (sum q) * s form for int8).
 * ``bloom_decode_bwd_cuda`` is the dense backward (replaces
@@ -39,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -48,14 +50,57 @@ from repro_torch.kernels import bloom_csr, common, ref
 
 NAME = "bloom_decode"
 BWD = "bloom_decode_bwd"
-# the kernel stages one logp row in shared memory as f32 (227 KB per block)
+# the kernel stages a row tile in shared memory at one 32-bit word an index
+# (227 KB a block)
 MAX_M = 56 * 1024
-# shared memory of one SM on sm_90a and what a block takes beyond its row
-SMEM_PER_SM = 228 * 1024
-SMEM_PER_BLOCK_EXTRA = 2048
+# shared memory one block may take on sm_90a (H100, H200), and the
+# kernel's static shared memory (none)
+SMEM_LIMIT = 232_448
+SMEM_STATIC = 0
+# ids a thread scores a step, and threads a block (csrc/bloom_decode.cu)
+IDS_PER_THREAD, THREADS = 4, 512
+# the plan gives a block at least MIN_IDS ids (half a step of the block),
+# so that staging a row tile (121 KB at m = 30,208) is spread over enough
+# gathers; below that it fills one wave of the card.  kernels/sweep_decode
+# times 1,024 to 16,384 (PERF.md)
+MIN_IDS = IDS_PER_THREAD * THREADS // 2
 # the logp storage dtype codes of csrc/bloom_decode.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
           torch.float8_e4m3fn: 3}
+
+
+class Plan(NamedTuple):
+    """How one forward lays out on the card: ``rows`` logp rows a tile
+    (4 / itemsize: 1 f32, 2 bf16, 4 int8 or fp8), ``tiles`` row tiles,
+    ``groups`` id ranges a tile of ``chunk`` ids each (a multiple of 4),
+    ``grid`` = tiles * groups blocks of ``THREADS``, each with ``smem``
+    bytes of dynamic shared memory (the tile, m words)."""
+    rows: int
+    tiles: int
+    groups: int
+    chunk: int
+    grid: int
+    smem: int
+
+
+def plan(B: int, m: int, d: int, k: int, itemsize: int, n_sm: int,
+         min_ids: int = MIN_IDS) -> Plan:
+    """The launch plan of a forward on (B, m) logp stored ``itemsize``
+    bytes an element, over d ids of k indices each: row tiles of
+    4 / itemsize rows, and per tile as many id ranges as one wave of
+    ``n_sm`` blocks (one a SM: the tile takes ~121 KB) allows, none
+    smaller than ``min_ids`` ids (``kernels/sweep_decode.py`` sweeps it).
+    (k does not change the layout.)"""
+    if itemsize not in (1, 2, 4) or not (1 <= m <= MAX_M) or B < 1 \
+            or d < 1 or k < 1:
+        raise ValueError(f"no plan for B={B} m={m} d={d} k={k} "
+                         f"itemsize={itemsize}")
+    rows = 4 // itemsize
+    tiles = -(-B // rows)
+    groups = max(1, min(n_sm // tiles, -(-d // min_ids)))
+    chunk = IDS_PER_THREAD * -(-d // (groups * IDS_PER_THREAD))
+    groups = -(-d // chunk)
+    return Plan(rows, tiles, groups, chunk, tiles * groups, m * 4)
 
 
 def variant_name(dtype: torch.dtype) -> str:
@@ -66,12 +111,15 @@ def variant_name(dtype: torch.dtype) -> str:
 
 
 def min_bytes(B: int, m: int, d: int, k: int, logp_itemsize: int = 4,
-              row_scales: bool = False) -> int:
-    """The least device-memory traffic of one forward: H once, each logp
-    row once (and its f32 scale for int8), the (B, d) f32 scores once.
-    The dense backward moves the same bytes at ``logp_itemsize=4``: the
-    (B, d) cotangent and H in, the (B, m) f32 gradient out."""
-    return int(d * k * 4 + B * (m * logp_itemsize + (4 if row_scales else 0))
+              row_scales: bool = False, index_bytes: int = 4) -> int:
+    """The least device-memory traffic of one forward: H once at
+    ``index_bytes`` an index (2 for the packed copy the forward kernel
+    reads, see ``pack_h``), each logp row once (and its f32 scale for
+    int8), the (B, d) f32 scores once. The dense backward moves the same
+    bytes at ``logp_itemsize=4`` and ``index_bytes=4``: the (B, d)
+    cotangent and the int32 H in, the (B, m) f32 gradient out."""
+    return int(d * k * index_bytes
+               + B * (m * logp_itemsize + (4 if row_scales else 0))
                + B * d * 4)
 
 
@@ -102,15 +150,25 @@ def bloom_decode_plain(logp: torch.Tensor, H: torch.Tensor,
     return ref.bloom_decode_ref(logp.float(), H)
 
 
+def pack_h(H: torch.Tensor) -> torch.Tensor:
+    """H (d, k) int32 in [0, m) as the kernel reads it: each index as a
+    16-bit word (int16 holding the uint16 value; m <= MAX_M < 2**16)."""
+    return torch.where(H >= 2 ** 15, H - 2 ** 16, H).to(torch.int16)
+
+
 def bloom_decode_cuda(logp: torch.Tensor, H: torch.Tensor,
-                      scales: Optional[torch.Tensor] = None
+                      scales: Optional[torch.Tensor] = None,
+                      packed: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Launch the forward kernel on PyTorch's current stream (no sync).
 
     logp (B, m) float32, bfloat16, int8 (with (B,) f32 ``scales``) or
     float8_e4m3fn; H (d, k) int32 in [0, m); contiguous, on one CUDA
-    device.  Raises on anything the kernel does not take, and when a logp
-    row does not fit in shared memory (m > MAX_M)."""
+    device.  The kernel reads H as ``pack_h(H)``: pass it as ``packed``
+    (the spec's cached one, ``core.bloom.cached_packed_hash_matrix``), or
+    it is packed here (one more launch).  Raises on anything the kernel
+    does not take, and when a logp row does not fit in shared memory
+    (m > MAX_M)."""
     _check(logp, H, scales)
     tensors = [t for t in (logp, H, scales) if t is not None]
     if not all(t.is_cuda and t.device == logp.device for t in tensors):
@@ -122,17 +180,25 @@ def bloom_decode_cuda(logp: torch.Tensor, H: torch.Tensor,
     (B, m), (d, k) = logp.shape, H.shape
     if m > MAX_M:
         raise ValueError(f"m={m} exceeds the kernel's shared-memory row "
-                         f"({MAX_M} floats)")
-    if B >= 65536 or d * k >= 2 ** 31:
-        raise ValueError(f"need B < 65536 and d*k < 2**31, got B={B} "
-                         f"d*k={d * k}")
+                         f"tile ({MAX_M} words)")
+    if d * k >= 2 ** 31:
+        raise ValueError(f"need d*k < 2**31, got d*k={d * k}")
+    if B * d >= 2 ** 31:
+        raise ValueError(f"need B*d < 2**31, got B={B} d={d}")
+    if packed is not None and (packed.dtype != torch.int16
+                               or packed.shape != H.shape
+                               or packed.device != H.device
+                               or not packed.is_contiguous()):
+        raise ValueError("packed must be pack_h(H)")
     out = torch.empty((B, d), dtype=torch.float32, device=logp.device)
     if B and d:
         lib = _library()
+        pl = _plan_for(logp.device, B, m, d, k, logp.element_size())
+        H16 = pack_h(H) if packed is None else packed
         err = lib.bloom_decode_fwd(
             logp.data_ptr(), _CODES[logp.dtype],
-            None if scales is None else scales.data_ptr(), H.data_ptr(),
-            out.data_ptr(), B, m, d, k, _groups(logp.device, B, d, m),
+            None if scales is None else scales.data_ptr(), H16.data_ptr(),
+            out.data_ptr(), B, m, d, k, pl.tiles, pl.chunk, pl.grid,
             torch.cuda.current_stream(logp.device).cuda_stream)
         _raise_on(lib, err)
         common.count_launch(variant_name(logp.dtype))
@@ -140,11 +206,12 @@ def bloom_decode_cuda(logp: torch.Tensor, H: torch.Tensor,
 
 
 def bloom_decode_fwd(logp: torch.Tensor, H: torch.Tensor,
-                     scales: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The forward kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+                     scales: Optional[torch.Tensor] = None,
+                     packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward kernel for CUDA tensors (reading ``packed``, or H packed
+    per call), the plain version for CPU tensors."""
     if common.resolve_impl(logp, H, scales) == "kernel":
-        return bloom_decode_cuda(logp, H, scales)
+        return bloom_decode_cuda(logp, H, scales, packed)
     return bloom_decode_plain(logp, H, scales)
 
 
@@ -205,7 +272,7 @@ class _BloomDecode(torch.autograd.Function):
     dtype (straight-through when the forward was quantized)."""
 
     @staticmethod
-    def forward(ctx, logp, H, bwd_impl, table_dtype, bins_fn):
+    def forward(ctx, logp, H, bwd_impl, table_dtype, bins_fn, packed):
         if table_dtype is None:
             x, scales = (logp if logp.dtype in (torch.float32,
                                                 torch.bfloat16)
@@ -215,7 +282,7 @@ class _BloomDecode(torch.autograd.Function):
         ctx.save_for_backward(H)
         ctx.m, ctx.dtype = logp.shape[1], logp.dtype
         ctx.bwd_impl, ctx.bins_fn = bwd_impl, bins_fn
-        return bloom_decode_fwd(x.contiguous(), H, scales)
+        return bloom_decode_fwd(x.contiguous(), H, scales, packed)
 
     @staticmethod
     def backward(ctx, g):
@@ -226,12 +293,13 @@ class _BloomDecode(torch.autograd.Function):
             dlogp = bloom_csr.bloom_decode_bwd_csr(g, H, ctx.m, bins)
         else:
             dlogp = bloom_decode_bwd(g, H, ctx.m)
-        return dlogp.to(ctx.dtype), None, None, None, None
+        return dlogp.to(ctx.dtype), None, None, None, None, None
 
 
 def bloom_decode(logp: torch.Tensor, H: torch.Tensor, bwd_impl: str = "csr",
                  table_dtype: Optional[str] = None,
-                 bins_fn: Optional[Callable] = None) -> torch.Tensor:
+                 bins_fn: Optional[Callable] = None,
+                 packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logp (B, m) float; H (d, k) int32 -> scores (B, d) float32: the
     kernel for CUDA tensors, the plain version for CPU tensors;
     differentiable in ``logp``.
@@ -242,11 +310,12 @@ def bloom_decode(logp: torch.Tensor, H: torch.Tensor, bwd_impl: str = "csr",
     binned there) or "dense" (H binned on the card per call, then the
     same scatter-add).  ``table_dtype``
     (core/quant.py) quantizes logp per call for the kernel to read narrow;
-    its gradient is straight-through."""
+    its gradient is straight-through.  ``packed`` is ``pack_h(H)``, which
+    the kernel reads (packed per call when None)."""
     common.resolve_bwd_impl(bwd_impl)
     return _BloomDecode.apply(logp, H, bwd_impl,
                               quant.resolve_table_dtype(table_dtype),
-                              bins_fn)
+                              bins_fn, packed)
 
 
 def _raise_on(lib: ctypes.CDLL, err: int) -> None:
@@ -256,20 +325,17 @@ def _raise_on(lib: ctypes.CDLL, err: int) -> None:
                            f"({msg})")
 
 
-def _groups(device: torch.device, B: int, d: int, m: int) -> int:
-    """Blocks per row of the forward: one wave when every row's blocks fit
-    (as many as share an SM by the row's shared memory), no more than
-    256-id tiles."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = max(1, min(4, SMEM_PER_SM // (m * 4 + SMEM_PER_BLOCK_EXTRA)))
-    return max(1, min(-(-d // 256), per_sm * n_sm // B, 65535))
+@functools.lru_cache(maxsize=None)
+def _plan_for(device: torch.device, B: int, m: int, d: int, k: int,
+              itemsize: int) -> Plan:
+    return plan(B, m, d, k, itemsize, common.sm_count(device))
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = common.load_library(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bloom_decode_fwd.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
+    lib.bloom_decode_fwd.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, p]
     lib.bloom_decode_fwd.restype = i
     lib.bloom_decode_error_string.argtypes = [i]
     lib.bloom_decode_error_string.restype = ctypes.c_char_p

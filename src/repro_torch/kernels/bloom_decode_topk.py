@@ -40,6 +40,8 @@ import torch
 
 from repro_torch.core import hashing, quant
 from repro_torch.kernels import common
+from repro_torch.kernels.common import (  # noqa: F401
+    hash_constants, magic_divisor)
 
 NAME = "bloom_decode_topk"
 PLAIN_CHUNK = 65536
@@ -159,20 +161,6 @@ def _fit(row_bytes: int, rp: int, topk: int, cw: int, grid: int,
 
 def _align16(n: int) -> int:
     return -(-n // 16) * 16
-
-
-def magic_divisor(d: int) -> tuple[int, int]:
-    """Constants (mp, sh) for ``n % d`` over every uint32 n by a multiply
-    and shifts (Granlund & Montgomery 1994, Fig. 4.1, the round-up
-    method): with l = ceil(log2 d), mp = floor(2^32 (2^l - d) / d) + 1,
-    t = umulhi(n, mp), q = (t + ((n - t) >> sh1)) >> sh2 is n // d, where
-    sh1 = min(l, 1), sh2 = max(l - 1, 0); ``sh`` packs sh1 | sh2 << 8 as
-    the kernel's ``fastmod`` reads it."""
-    if not 1 <= d < 2 ** 32:
-        raise ValueError(f"need 1 <= d < 2**32, got {d}")
-    l_ = (d - 1).bit_length()
-    mp = (2 ** 32 * (2 ** l_ - d)) // d + 1
-    return mp, min(l_, 1) | max(l_ - 1, 0) << 8
 
 
 def variant_name(dtype: torch.dtype, hashed: bool) -> str:
@@ -363,10 +351,9 @@ def _launch(lib: ctypes.CDLL, logp: torch.Tensor, H: torch.Tensor | None,
     (default: ``_plan_for``).  Raises on a CUDA error; counts nothing."""
     (B, m), dev = logp.shape, logp.device
     if H is not None:
-        (d, k), c1, c2 = H.shape, 0, 0
+        (d, k), seed = H.shape, 0
     else:
         d, k, seed = hash_spec
-        c1, c2 = hashing.double_hash_salts(seed)
     if pl is None:
         # the kernel takes H with k > 4 one row a tile; one-byte rows are
         # widened while staging only under the in-kernel hash (see
@@ -374,8 +361,7 @@ def _launch(lib: ctypes.CDLL, logp: torch.Tensor, H: torch.Tensor | None,
         pl = _plan_for(dev, B, m, logp.element_size(), topk, d,
                        1 if H is not None and k > 4 else PLAN_ROWS,
                        None if H is None else False)
-    mp_m, sh_m = magic_divisor(m)
-    mp_m1, sh_m1 = magic_divisor(max(m - 1, 1))
+    c1, c2, mp_m, sh_m, mp_m1, sh_m1 = hash_constants(m, seed)
     tickets, part = _scratch(dev, B, max(pl.grid, B) * pl.rows * topk)
     vals = torch.empty((B, topk), dtype=torch.float32, device=dev)
     ids = torch.empty((B, topk), dtype=torch.int32, device=dev)

@@ -11,6 +11,10 @@
   plain C interface, named by a hash of the sources and flags, under
   ``build/kernels/`` at the repository root, at first use; ``load_library``
   opens it with ``ctypes``.  Nothing is built or loaded at import time.
+* Host arithmetic shared by the kernels that hash on the card
+  (csrc/bloom_hash.cuh): ``magic_divisor`` (remainders by multiply-shift)
+  and ``hash_constants`` (a spec's salts and remainder constants); and
+  ``sm_count``, the card's SM count for the launch plans.
 * Launch counts: each kernel wrapper adds one to ``LAUNCHES[name]`` where it
   launches its kernel, and nowhere else, so a run can show which kernels
   its main path went through.
@@ -32,6 +36,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
+
+from repro_torch.core.hashing import double_hash_salts
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -63,6 +69,12 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def resolve_impl(*tensors: torch.Tensor) -> str:
     """``"kernel"`` when every tensor lies on one CUDA device, ``"plain"``
     when every tensor lies on the CPU; anything else raises."""
@@ -90,6 +102,29 @@ def onehot_count(ids: torch.Tensor, n: int, base: int = 0) -> torch.Tensor:
     Out-of-range ids (the -1 pad) never match."""
     cols = torch.arange(base, base + n, device=ids.device)
     return (ids.long()[:, :, None] == cols).sum(1).to(torch.float32)
+
+
+def magic_divisor(d: int) -> tuple[int, int]:
+    """Constants (mp, sh) for ``n % d`` over every uint32 n by a multiply
+    and shifts (Granlund & Montgomery 1994, Fig. 4.1, the round-up
+    method): with l = ceil(log2 d), mp = floor(2^32 (2^l - d) / d) + 1,
+    t = umulhi(n, mp), q = (t + ((n - t) >> sh1)) >> sh2 is n // d, where
+    sh1 = min(l, 1), sh2 = max(l - 1, 0); ``sh`` packs sh1 | sh2 << 8 as
+    ``fastmod`` of csrc/bloom_hash.cuh reads it."""
+    if not 1 <= d < 2 ** 32:
+        raise ValueError(f"need 1 <= d < 2**32, got {d}")
+    l_ = (d - 1).bit_length()
+    mp = (2 ** 32 * (2 ** l_ - d)) // d + 1
+    return mp, min(l_, 1) | max(l_ - 1, 0) << 8
+
+
+@functools.lru_cache(maxsize=64)
+def hash_constants(m: int, seed: int) -> tuple:
+    """(c1, c2, mp_m, sh_m, mp_m1, sh_m1): what csrc/bloom_hash.cuh needs to
+    hash like ``core.hashing.double_hash(ids, k, m, seed)``: the salts, and
+    the remainder constants of m and of max(m - 1, 1)."""
+    return (*double_hash_salts(seed), *magic_divisor(m),
+            *magic_divisor(max(m - 1, 1)))
 
 
 # --------------------------------------------------------------------------

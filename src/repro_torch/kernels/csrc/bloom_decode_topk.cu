@@ -84,6 +84,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "bloom_hash.cuh"
+
 namespace {
 
 constexpr int kMaxWarps = 16;
@@ -165,21 +167,8 @@ struct Params {
                  // widened while staging
 };
 
-__device__ __forceinline__ unsigned splitmix32(unsigned z) {
-  z += 0x9E3779B9u;
-  z = (z ^ (z >> 16)) * 0x85EBCA6Bu;
-  z = (z ^ (z >> 13)) * 0xC2B2AE35u;
-  return z ^ (z >> 16);
-}
-
-// n % d for every uint32 n, from (mp, sh = sh1 | sh2 << 8) of
-// kernels/bloom_decode_topk.py magic_divisor
-__device__ __forceinline__ unsigned fastmod(unsigned n, unsigned d,
-                                            unsigned mp, unsigned sh) {
-  const unsigned t = __umulhi(n, mp);
-  const unsigned q = (t + ((n - t) >> (sh & 0xffu))) >> (sh >> 8);
-  return n - q * d;
-}
+using bloom_hash::fastmod;
+using bloom_hash::splitmix32;
 
 __device__ __forceinline__ bool better(float v, unsigned i, float ov,
                                        unsigned oi) {

@@ -19,7 +19,9 @@ on-the-fly spec and hashes in the kernel, and a frozen embedding table is
 quantized once (``core.bloom.cached_quantized_table``).  The CSR bins of
 that matrix, which the decode's ``bwd_impl="csr"`` backward reads, are
 built once per (spec, device) too (``core.bloom.cached_decode_bins``), and
-only when the decode is differentiated.
+only when the decode is differentiated; so is the 16-bit copy of the
+matrix that the Eq. 3 decode kernel reads
+(``core.bloom.cached_packed_hash_matrix``).
 """
 from __future__ import annotations
 
@@ -31,13 +33,14 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core.bloom import (BloomSpec, cached_decode_bins,
                                     cached_hash_matrix,
+                                    cached_packed_hash_matrix,
                                     cached_quantized_table)
 from repro_torch.kernels.bloom_ce import bloom_ce as _ce
 from repro_torch.kernels.bloom_decode import bloom_decode as _decode
 from repro_torch.kernels.bloom_decode_topk import \
     bloom_decode_topk as _decode_topk
 from repro_torch.kernels.bloom_embed import bloom_embed as _embed
-from repro_torch.kernels.bloom_embed import bloom_embed_fwd_quantized
+from repro_torch.kernels.bloom_embed import bloom_embed_tokens_fwd_quantized
 
 
 def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
@@ -45,7 +48,10 @@ def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
                 table_dtype: Optional[str] = None,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """table (m, D); tokens (B, S) -> (B, S, D): each token's k hashed
-    table rows summed (Eq. 1's k-hot code times the table).
+    table rows summed (Eq. 1's k-hot code times the table).  On CUDA
+    tensors one launch of the embed kernel's token entry, which hashes the
+    tokens itself (``kernels.bloom_embed``); on the CPU
+    ``spec.indices_for`` and the plain gather-sum.
     Differentiable in ``table``: the backward is the CSR scatter-add
     (``bwd_impl="csr"``) or the dense m-tile sweep (``"dense"``), as
     ``ModelConfig.bwd_impl`` says through models/io.py.
@@ -58,17 +64,17 @@ def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
     on it, with ``out_dtype`` defaulting to float32 there, as in the
     reference."""
     B, S = tokens.shape
-    idx = spec.indices_for(tokens.reshape(-1)).contiguous()   # (T, k)
+    flat = tokens.reshape(-1).contiguous()
     td = quant.resolve_table_dtype(table_dtype)
     if td is not None and not (torch.is_grad_enabled()
                                and table.requires_grad):
         qtable, scales = cached_quantized_table(spec, table, td)
-        out = bloom_embed_fwd_quantized(
-            qtable, scales, idx,
+        out = bloom_embed_tokens_fwd_quantized(
+            qtable, scales, flat, spec,
             torch.float32 if out_dtype is None else out_dtype)
     else:
-        out = _embed(table, idx, table_dtype=td, out_dtype=out_dtype,
-                     bwd_impl=bwd_impl)
+        out = _embed(table, flat, table_dtype=td, out_dtype=out_dtype,
+                     bwd_impl=bwd_impl, spec=spec)
     return out.reshape(B, S, -1)
 
 
@@ -99,9 +105,11 @@ def bloom_decode(logp: torch.Tensor, spec: BloomSpec,
     read narrow; the gradient is straight-through."""
     lead = logp.shape[:-1]
     flat = logp.reshape(-1, logp.shape[-1]).contiguous()
-    bins_fn = None
+    bins_fn = packed = None
     if hash_matrix is None:
         H = cached_hash_matrix(spec, logp.device)
+        if logp.is_cuda:
+            packed = cached_packed_hash_matrix(spec, logp.device)
         if bwd_impl == "csr":
             bins_fn = functools.partial(cached_decode_bins, spec,
                                         logp.device)
@@ -109,7 +117,7 @@ def bloom_decode(logp: torch.Tensor, spec: BloomSpec,
         H = hash_matrix.to(torch.int32).contiguous()
     scores = _decode(flat, H, bwd_impl=bwd_impl,
                      table_dtype=quant.resolve_table_dtype(table_dtype),
-                     bins_fn=bins_fn)
+                     bins_fn=bins_fn, packed=packed)
     return scores.reshape(*lead, spec.d)
 
 

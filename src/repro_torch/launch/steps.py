@@ -145,7 +145,9 @@ def warm_bloom_caches(cfg: ModelConfig, model: torch.nn.Module,
     workload that differentiates the Eq. 3 decode through
     ``ops.bloom_decode``) and ``cfg.bwd_impl == "csr"``, the hash matrix
     and its CSR bins (``core.bloom.cached_decode_bins``) on the model's
-    device.  A no-op without Bloom IO."""
+    device, and on a CUDA device the 16-bit copy of the matrix that the
+    decode kernel reads (``core.bloom.cached_packed_hash_matrix``).  A
+    no-op without Bloom IO."""
     spec = io_lib.vocab_spec(cfg)
     if spec is None:
         return
@@ -154,6 +156,8 @@ def warm_bloom_caches(cfg: ModelConfig, model: torch.nn.Module,
         bloom_lib.cached_quantized_table(spec, model.embed, td)
     if decode_grad and cfg.bwd_impl == "csr":
         bloom_lib.cached_decode_bins(spec, model.embed.device)
+    if decode_grad and model.embed.is_cuda:
+        bloom_lib.cached_packed_hash_matrix(spec, model.embed.device)
 
 
 @torch.inference_mode()

@@ -186,13 +186,14 @@ def test_ops_embed_grad_flows_through_the_kernel_pair_on_cuda(cuda):
         (out * cot.to(dev)).sum().backward()
         grads.append(table.grad.cpu())
         if dev.type == "cuda":
-            assert common.LAUNCHES == {be.NAME: 1, csr.BIN: 1,
+            assert common.LAUNCHES == {"bloom_embed.hash": 1, csr.BIN: 1,
                                        csr.NAME: 1}
     assert torch.equal(grads[0], grads[1])
     with torch.inference_mode():
         common.reset_launches()
         out = ops.bloom_embed(base.to(cuda), tokens.to(cuda), spec)
-    assert out.shape == (2, 9, 16) and common.LAUNCHES == {be.NAME: 1}
+    assert out.shape == (2, 9, 16) and \
+        common.LAUNCHES == {"bloom_embed.hash": 1}
 
 
 def _ce_inputs(T, m, k, dev, seed=0, dup=False):
@@ -359,8 +360,8 @@ def test_train_step_launches_each_training_kernel_once(cuda):
     for _ in range(3):
         common.reset_launches()
         state, metrics = step(model, state, {"tokens": tokens})
-        assert common.LAUNCHES == {be.NAME: 1, csr.BIN: 1, csr.NAME: 1,
-                                   ce.FWD: 1, ce.BWD: 1}
+        assert common.LAUNCHES == {"bloom_embed.hash": 1, csr.BIN: 1,
+                                   csr.NAME: 1, ce.FWD: 1, ce.BWD: 1}
         assert bool(torch.isfinite(metrics["loss"]))
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
@@ -392,7 +393,7 @@ def test_lm_engine_launches_both_kernels_every_step(cuda):
         common.reset_launches()
         res, st = run([r.fresh_copy() for r in wl])
         want = st.prefills + st.decode_steps
-        assert common.LAUNCHES[be.NAME] == want
+        assert common.LAUNCHES["bloom_embed.hash"] == want
         assert common.LAUNCHES[dt.NAME] == want
         tokens.append({rid: r.tokens for rid, r in res.items()})
     assert tokens[0] == tokens[1]
@@ -489,8 +490,8 @@ def test_quantized_embed_grad_is_straight_through_on_cuda(cuda):
         grads.append(table.grad.cpu())
         outs.append(out.detach().cpu())
         if dev.type == "cuda":
-            assert common.LAUNCHES == {"bloom_embed.int8": 1, csr.BIN: 1,
-                                       csr.NAME: 1}
+            assert common.LAUNCHES == {"bloom_embed.int8.hash": 1,
+                                       csr.BIN: 1, csr.NAME: 1}
     assert torch.equal(grads[0], grads[1]) and torch.equal(outs[0], outs[1])
 
 
@@ -642,7 +643,7 @@ def test_quantized_lm_engine_launches_both_variants_every_step(cuda, td):
         common.reset_launches()
         res, st = run([r.fresh_copy() for r in wl])
         want = st.prefills + st.decode_steps
-        assert common.LAUNCHES == {be.variant_name(sd): want,
+        assert common.LAUNCHES == {be.variant_name(sd) + ".hash": want,
                                    dt.variant_name(sd, True): want}
         tokens.append({rid: r.tokens for rid, r in res.items()})
     assert tokens[0] == tokens[1]
@@ -658,7 +659,7 @@ def test_quantized_train_step_launches_the_embed_variant(cuda):
     for _ in range(2):
         common.reset_launches()
         state, metrics = step(model, state, {"tokens": tokens})
-        assert common.LAUNCHES == {"bloom_embed.int8": 1, csr.BIN: 1,
+        assert common.LAUNCHES == {"bloom_embed.int8.hash": 1, csr.BIN: 1,
                                    csr.NAME: 1, ce.FWD: 1, ce.BWD: 1}
         assert bool(torch.isfinite(metrics["loss"]))
 
@@ -705,6 +706,10 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         bd.bloom_decode_fwd(logp, H.cpu())
     with pytest.raises(TypeError):
         bd.bloom_decode_bwd_cuda(logp.double(), H[:64], 64)
+    with pytest.raises(ValueError, match="pack_h"):
+        bd.bloom_decode_cuda(logp, H, packed=H)
+    assert torch.equal(bd.bloom_decode_cuda(logp, H, packed=bd.pack_h(H)),
+                       bd.bloom_decode_cuda(logp, H))
 
 
 @pytest.mark.parametrize("B,d,m,k,pads", [
@@ -820,6 +825,159 @@ def test_dense_train_step_launches_the_dense_embed_backward(cuda):
     for _ in range(2):
         common.reset_launches()
         state, metrics = step(model, state, {"tokens": tokens})
-        assert common.LAUNCHES == {be.NAME: 1, be.BWD: 1, ce.FWD: 1,
-                                   ce.BWD: 1}
+        assert common.LAUNCHES == {"bloom_embed.hash": 1, be.BWD: 1,
+                                   ce.FWD: 1, ce.BWD: 1}
         assert bool(torch.isfinite(metrics["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# the embed kernel's token entry; the Eq. 3 decode forward's row tiles
+# ---------------------------------------------------------------------------
+
+def _token_specs():
+    import dataclasses
+    lm = io_lib.vocab_spec(configs.get_config("qwen1.5-0.5b"))
+    specs = {f"{'hash' if fly else 'H'} k={k}": dataclasses.replace(
+        lm, k=k, on_the_fly=fly) for k in (1, 2, 3, 4, 8)
+        for fly in (True, False)}
+    specs["identity"] = bloom.identity_spec(lm.m)
+    return specs
+
+
+@pytest.mark.parametrize("T,D", [(1, 1024), (8, 1024), (14, 1024),
+                                 (520, 1024), (4096, 1024), (14, 1000),
+                                 (14, 1020)])
+@pytest.mark.parametrize("td", [None, *QUANT_TDS])
+def test_token_entry_bit_identical_to_plain(cuda, td, T, D):
+    """Every spec kind at k = 1, 2, 3, 4, 8, every storage into f32 and
+    bf16, int32 and int64 token ids with 0, d - 1 and -1 among them: the
+    output bit-identical to the plain version and the indices written
+    beside it equal to spec.indices_for."""
+    from repro_torch.core import quant
+    g = torch.Generator().manual_seed(T * D)
+    m = 30208
+    base = torch.randn(m, D, generator=g).to(cuda)
+    if td is None:
+        tables = [(base.to(dt_), None, dt_) for dt_ in be.DTYPES]
+    else:
+        q, s = quant.quantize_table(base, td)
+        tables = [(q, s, od) for od in be.DTYPES]
+    for n, (name, spec) in enumerate(sorted(_token_specs().items())):
+        tok = torch.randint(0, spec.d, (T,), generator=g)
+        tok[:3] = torch.tensor([0, spec.d - 1, -1])[:T]
+        tok = tok.to(cuda).to(torch.int64 if n % 2 else torch.int32)
+        for q, s, od in tables:
+            common.reset_launches()
+            if td is None:
+                got, idx = be.bloom_embed_tokens_cuda(q, tok, spec, True)
+            else:
+                got, idx = be.bloom_embed_tokens_quantized_cuda(
+                    q, s, tok, spec, od, True)
+            torch.cuda.synchronize()
+            assert common.LAUNCHES == {be.token_variant_name(
+                spec, None if td is None else q.dtype): 1}
+            want, widx = be.bloom_embed_tokens_plain(q, s, tok, spec, od)
+            assert got.dtype == od and torch.equal(got, want), name
+            assert torch.equal(idx, widx), name
+
+
+def test_ops_embed_is_one_launch_without_a_host_sync(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    spec = io_lib.vocab_spec(configs.get_config("qwen1.5-0.5b"))
+    table = torch.randn(spec.m, 1024, device=cuda).to(torch.bfloat16)
+    tokens = torch.randint(0, spec.d, (8, 1), device=cuda)
+    ops.bloom_embed(table, tokens, spec)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = ops.bloom_embed(table, tokens, spec)
+            torch.cuda.synchronize()
+        ops.bloom_ce(torch.randn(16, spec.m, device=cuda),
+                     torch.randint(0, spec.d, (16,), device=cuda), spec)
+        bloom.encode(spec, torch.randint(-1, spec.d, (4, 8), device=cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert common.LAUNCHES == {"bloom_embed.hash": 1, ce.FWD: 1}
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "embed_fwd" in kernels[0], kernels
+    assert torch.equal(out.cpu(), ops.bloom_embed(table.cpu(), tokens.cpu(),
+                                                  spec))
+
+
+def test_ops_embed_takes_a_strided_token_column(cuda):
+    spec = io_lib.vocab_spec(configs.get_smoke_config("qwen1.5-0.5b"))
+    table = torch.randn(spec.m, 64, device=cuda)
+    tokens = torch.randint(0, spec.d, (4, 6), device=cuda)
+    column = tokens[:, -1:]                      # (4, 1), not contiguous
+    assert not column.reshape(-1).is_contiguous()
+    out = ops.bloom_embed(table, column, spec)
+    assert torch.equal(out.cpu(), ops.bloom_embed(table.cpu(), column.cpu(),
+                                                  spec))
+
+
+def test_token_entry_counts_only_what_it_launches(cuda):
+    spec = io_lib.vocab_spec(configs.get_smoke_config("qwen1.5-0.5b"))
+    table = torch.randn(spec.m, 64, device=cuda)
+    common.reset_launches()
+    out, _ = be.bloom_embed_tokens_cuda(
+        table, torch.zeros(0, dtype=torch.int64, device=cuda), spec)
+    assert out.shape == (0, 64) and not common.LAUNCHES
+    be.bloom_embed_tokens_cuda(table[:, :0].contiguous(),
+                               torch.zeros(3, dtype=torch.int64,
+                                           device=cuda), spec)
+    assert not common.LAUNCHES
+    be.bloom_embed_tokens_cuda(table, torch.zeros(3, dtype=torch.int64,
+                                                  device=cuda), spec)
+    assert common.LAUNCHES == {be.token_variant_name(spec): 1}
+
+
+def test_token_entry_rejects_what_the_kernel_does_not_take(cuda):
+    spec = io_lib.vocab_spec(configs.get_smoke_config("qwen1.5-0.5b"))
+    table = torch.randn(spec.m, 8, device=cuda)
+    tok = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        be.bloom_embed_tokens_cuda(table, tok.to(torch.int16), spec)
+    with pytest.raises(TypeError):
+        be.bloom_embed_tokens_cuda(table, tok[:, None], spec)
+    with pytest.raises(ValueError, match="rows"):
+        be.bloom_embed_tokens_cuda(table[1:], tok, spec)
+    with pytest.raises(ValueError, match="contiguous"):
+        be.bloom_embed_tokens_cuda(table, torch.zeros(8, dtype=torch.int64,
+                                                      device=cuda)[::2],
+                                   spec)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 13])
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("td", [None, *QUANT_TDS])
+def test_decode_row_tiles_bit_identical_to_plain(cuda, td, k, B):
+    """Row tiles of 4 / itemsize rows, ragged when B is not a multiple,
+    the largest tile (m = MAX_M), k = 3's 12-byte H rows and a d that is
+    not a multiple of 4."""
+    from repro_torch.core import quant
+    logp, H = _inputs(B, bd.MAX_M, 10_007, k, cuda, seed=B * k)
+    q, s = (logp, None) if td is None else quant.quantize_table(logp, td)
+    got = bd.bloom_decode_cuda(q, H, s)
+    torch.cuda.synchronize()
+    assert _equal_nan(got, bd.bloom_decode_plain(q, H, s))
+
+
+@pytest.mark.parametrize("td", [None, *QUANT_TDS])
+def test_decode_takes_unaligned_rows_and_h(cuda, td):
+    from repro_torch.core import quant
+    g = torch.Generator().manual_seed(5)
+    m, d, k = 1001, 5003, 4
+    flat = torch.randn(3 * m + 1, generator=g).to(cuda)
+    logp = torch.log_softmax(flat[1:].view(3, m), -1)
+    lp = torch.empty(3 * m + 1, device=cuda)[1:].view(3, m)
+    lp.copy_(logp)
+    hflat = torch.randint(0, m, (d * k + 1,), generator=g,
+                          dtype=torch.int32).to(cuda)
+    H = hflat[1:].view(d, k)
+    assert lp.data_ptr() % 16 and H.data_ptr() % 16
+    q, s = (lp, None) if td is None else quant.quantize_table(lp, td)
+    assert _equal_nan(bd.bloom_decode_cuda(q, H, s),
+                      bd.bloom_decode_plain(q, H, s))

@@ -76,3 +76,14 @@ def test_make_hash_matrix_np_and_validation():
         th.make_hash_matrix(10, 5, 4)
     with pytest.raises(ValueError, match="positive"):
         th.make_hash_matrix(0, 1, 4)
+
+
+@pytest.mark.parametrize("k,m", [(k, m) for m in (1, 2, 3, 30208,
+                                                   2 ** 31 - 1)
+                                  for k in range(1, 9) if k <= m])
+def test_double_hash_exact_for_every_k_up_to_8(k, m):
+    """The hash the kernels re-derive (csrc/bloom_hash.cuh), at the LM's
+    m, the smallest m and the largest int32 m, wherever k <= m."""
+    want, got = _both(lambda x: jh.double_hash(x, k, m, 5),
+                      lambda x: th.double_hash(x, k, m, 5))
+    np.testing.assert_array_equal(got, want)
