@@ -5,7 +5,7 @@
     python3 chip_smoke.py --parent DIR   # also time the parent commit's
         # csrc/bloom_embed.cu and bloom_decode.cu (copied into DIR with the
         # headers they include, and its core/hashing.py) beside this
-        # tree's: phase 13
+        # tree's: phase 14
 
 Phases, one line of numbers each:
   1. build    — compile every kernel in src/repro_torch/kernels/csrc/, one
@@ -21,7 +21,10 @@ Phases, one line of numbers each:
                 and 3; then the decode kernel's time, the plain version's,
                 one library call computing the same function, and the
                 least time the card could take (bytes over 3.35 TB/s, or
-                f32 adds over 67 TFLOP/s);
+                f32 adds over 67 TFLOP/s); and bloom_decode_topk at the
+                eval2k sweep's decode shapes (d = 2,000, m = 2,000 / 1,000
+                / 400 / 200, k = 2, topk = 10, B = 1 and 8 and rows 0, 3,
+                7 of 8), f32 with H and int8 with the hash and with H;
   2b. kernels-embed — the embed kernel's token entry (token ids in, hashed
                 in the kernel), the main paths' embedding: bit-identical to
                 its plain version, and its (T, k) indices equal to
@@ -153,7 +156,24 @@ Phases, one line of numbers each:
                 step's embedding gradient bit-identical to the CSR backward's
                 off the rows of tokens that repeat a row (within 1e-6 there),
                 and the median step walls side by side.
- 13. parent (only with --parent DIR) — the parent commit's embed and decode
+ 13. train-retrieval — the recommender's train -> serve -> eval loop on
+                CUDA, counts reset just before each run and read just
+                after: the eval2k compression sweep of the bench twin
+                (repro_torch.benchmarks.bench_retrieval: m/d 1/1, 1/2, 1/5,
+                1/10, 300 steps each, trained and untrained towers served
+                through RetrievalEngine), its integers equal to
+                BENCH_retrieval.json's, its three gates held on the fresh
+                values, one kernel launch per decode step; a crash at step
+                120 (checkpoint every 50) and a resume equal to the straight
+                run (params and history, rtol 1e-6); web10m (d = 10M, m =
+                8,192, k = 2, hidden (64, 64)) trained 300 steps and served
+                64 eval-seed requests on 8 slots in f32 and int8, each
+                decode step one launch of its variant and the served top-k
+                equal to the plain version's on the same tower outputs;
+                then a train step's median wall, device time by kernel
+                (torch.profiler), the GEMMs' and the optimizer's share, and
+                the serve walls.
+ 14. parent (only with --parent DIR) — the parent commit's embed and decode
                 kernels built from DIR beside this tree's, bit-identical,
                 timed in turns (parent, change, change, parent): embed at
                 T = 8, 14, 520 per storage (the kernels, and as called:
@@ -1708,6 +1728,246 @@ def phase_train_lm_dense(torch, be, common, names, csr_losses, csr_ms):
 PARENT_KERNELS = ("bloom_embed", "bloom_decode")
 
 
+def decode_topk_sweep_shapes(torch, dt, quant, bloom, get_retrieval_config):
+    """bloom_decode_topk at the eval2k sweep's decode shapes (d = 2,000,
+    m = 2,000 / 1,000 / 400 / 200, k = 2, topk = 10, B = 1 and 8, and rows
+    0, 3, 7 of 8 live): f32 with H, int8 with the in-kernel hash and int8
+    with H, each bit-identical to its plain version, the two int8 kernels
+    to each other; far smaller than web10m and the LM shapes (a d below a
+    block's share, m = 200).  Returns the largest |kernel - plain|."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(9)
+    partial = torch.zeros(8, dtype=torch.bool, device=dev)
+    partial[[0, 3, 7]] = True
+    err, n = 0.0, 0
+    for m in (2000, 1000, 400, 200):
+        spec = get_retrieval_config("eval2k", m=m).spec()
+        H = bloom.cached_hash_matrix(spec, dev)
+        hs = (spec.d, spec.k, spec.seed)
+        for B in (1, 8):
+            logp = torch.log_softmax(
+                3 * torch.randn(B, m, generator=gen), -1).to(dev)
+            q, s = quant.quantize_table(logp, "int8")
+            for act in [None] + ([partial] if B == 8 else []):
+                got = {}
+                for label, args in (("f32 H", (logp, H, 10, act)),
+                                    ("int8 hash", (q, None, 10, act, s, hs)),
+                                    ("int8 H", (q, H, 10, act, s))):
+                    kv, ki = dt.bloom_decode_topk_cuda(*args)
+                    torch.cuda.synchronize()
+                    pv, pi = dt.bloom_decode_topk_plain(*args)
+                    _check(torch.equal(ki, pi) and torch.equal(kv, pv),
+                           f"eval2k m={m} B={B} {label} active="
+                           f"{act is not None}: kernel != plain version")
+                    err = max(err, _max_abs_err(kv, pv))
+                    got[label] = (kv, ki)
+                    n += 1
+                _check(all(torch.equal(a, b) for a, b in zip(
+                    got["int8 hash"], got["int8 H"])),
+                    f"eval2k m={m} B={B}: int8 hash kernel != int8 H kernel")
+    print(f"kernels: bloom_decode_topk at the eval2k sweep's shapes (d=2000, "
+          f"m=2000/1000/400/200, k=2, topk=10, B=1 and 8, rows 0,3,7 of 8): "
+          f"f32 with H, int8 hash, int8 H bit-identical to the plain version "
+          f"on {n} cases", flush=True)
+    return err
+
+
+def phase_train_retrieval(torch, dt, common, bloom, quant, retrieval,
+                          get_retrieval_config):
+    """The recommender's train -> serve -> eval loop on the card: the
+    eval2k compression sweep of the bench twin, a crash/resume drill, and
+    web10m trained and served f32 and int8.  Returns the decode-top-k
+    launches by kernel name, summed over the runs."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.benchmarks import bench_retrieval as bench
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.serving.loadgen import (RetrievalLoadSpec,
+                                             retrieval_workload)
+    from repro_torch.train import retrieval_trainer as rt
+    from repro_torch.train import trainer as trainer_lib
+    dev = torch.device("cuda")
+    totals = {}
+
+    def read_counts():
+        torch.cuda.synchronize()
+        counts = dict(common.LAUNCHES)
+        for n, c in counts.items():
+            totals[n] = totals.get(n, 0) + c
+        return counts
+
+    # the bench twin's sweep: 4 points x (300 steps, trained and untrained
+    # serves of 64 requests on 8 slots, each decode step one launch)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    rows = bench.run_sweep(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = 2 * sum(r["decode_steps"] for r in rows)
+    _check(counts == {dt.NAME: want},
+           f"train-retrieval sweep: launches {counts}, want {want} "
+           f"{dt.NAME} (one per decode step of each serve)")
+    failures = bench.check_against(rows)
+    _check(not failures, f"train-retrieval sweep: {failures}")
+    for r in rows:
+        print(f"train-retrieval: {r['name']} d={r['d']} m={r['m']} "
+              f"steps={r['steps']} pairs={r['n_train_pairs']} "
+              f"n_evaluated={r['n_evaluated']} decode_steps="
+              f"{r['decode_steps']} final_loss={r['final_loss']} map="
+              f"{r['map']} rr={r['rr']} untrained_map={r['untrained_map']} "
+              f"map_int8={r['map_int8']} int8_retention="
+              f"{r['int8_retention']}", flush=True)
+    print(f"train-retrieval: eval2k sweep (bench twin) on CUDA in "
+          f"{wall:.3f} s: integers equal BENCH_retrieval.json, the three "
+          f"gates hold on fresh values, {want} kernel launches = decode "
+          "steps of the 8 serves", flush=True)
+
+    # crash/resume drill at eval2k 1/5: train_fault@120, checkpoint every 50
+    rcfg = get_retrieval_config("eval2k")
+    tc = rt.default_train_config(steps=300, checkpoint_every=50)
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke_retrieval"
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        straight, r1 = rt.train_retrieval(
+            rcfg, tc, checkpoint_dir=str(base / "a"), device=dev)
+        try:
+            rt.train_retrieval(rcfg, tc, checkpoint_dir=str(base / "b"),
+                               failpoints="train_fault@120", device=dev)
+            raise AssertionError("train_fault@120 did not fire")
+        except RuntimeError as e:
+            _check("induced fault at step 120" in str(e), str(e))
+        resumed, r3 = rt.train_retrieval(
+            rcfg, tc, checkpoint_dir=str(base / "b"), device=dev)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    _check([h["step"] for h in r3["history"]] ==
+           [h["step"] for h in r1["history"]] == list(range(10, 301, 10)),
+           "drill: history steps")
+    np.testing.assert_allclose([h["loss"] for h in r3["history"]],
+                               [h["loss"] for h in r1["history"]], rtol=1e-6)
+    for a, b in zip(straight.parameters(), resumed.parameters()):
+        np.testing.assert_allclose(b.detach().cpu().numpy(),
+                                   a.detach().cpu().numpy(), rtol=1e-6)
+    print(f"train-retrieval: eval2k crash at step 120 (checkpoint every 50) "
+          f"and resume: params and the {len(r3['history'])}-entry history "
+          f"equal the straight 300-step run within rtol 1e-6 (final loss "
+          f"{r3['history'][-1]['loss']})", flush=True)
+
+    # full width: web10m trained, then served f32 and int8 through the kernel
+    rcfg = get_retrieval_config("web10m")
+    tc = rt.default_train_config(steps=300)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tower, result = rt.train_retrieval(rcfg, tc, device=dev)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    hist = result["history"]
+    _check(result["steps"] == 300 and all(
+        math.isfinite(h["loss"]) for h in hist), "web10m: training")
+    _check(hist[-1]["loss"] < hist[0]["loss"],
+           f"web10m: loss did not fall {[h['loss'] for h in hist]}")
+    wl = retrieval_workload(RetrievalLoadSpec(
+        n_requests=64, catalog=rcfg.d, c_max=rcfg.c_max, rate=2.0, seed=1))
+    prefill = steps_lib.make_retrieval_prefill_step(rcfg)
+    rows_logits = []
+    for r in wl:
+        items = torch.full((1, rcfg.c_max), -1, dtype=torch.int32)
+        items[0, :r.prompt_len] = torch.as_tensor(r.prompt)
+        rows_logits.append(prefill(tower, items.to(dev))[0])
+    logp = torch.log_softmax(torch.stack(rows_logits).float(), -1)
+    _check(tuple(logp.shape) == (len(wl), rcfg.m)
+           and bool(torch.isfinite(logp).all()), "web10m: tower output")
+    spec = rcfg.spec()
+    serves = {}                 # table_dtype -> (wall s, decode steps)
+    for td in ("auto", "int8"):
+        qcfg = dataclasses.replace(rcfg, table_dtype=td)
+        engine = retrieval.RetrievalEngine(qcfg, tower, n_slots=8)
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        served, st = engine.run([r.fresh_copy() for r in wl])
+        torch.cuda.synchronize()
+        serves[td] = (time.perf_counter() - t0, st.decode_steps)
+        counts = read_counts()
+        name = (dt.NAME if td == "auto"
+                else dt.variant_name(quant.storage_dtype(td), True))
+        _check(counts == {name: st.decode_steps},
+               f"web10m {td}: launches {counts} for {st.decode_steps} "
+               "decode steps")
+        if td == "auto":
+            pv, pi = dt.bloom_decode_topk_plain(
+                logp, bloom.cached_hash_matrix(spec, dev), rcfg.topk)
+        else:
+            q, s = quant.quantize_table(logp, td)
+            pv, pi = dt.bloom_decode_topk_plain(
+                q, None, rcfg.topk, None, s, (spec.d, spec.k, spec.seed))
+        for i, r in enumerate(wl):
+            _check(served[r.rid].done and not served[r.rid].rejected
+                   and served[r.rid].topk_ids == pi[i].tolist()
+                   and served[r.rid].topk_scores == pv[i].tolist(),
+                   f"web10m {td} rid {r.rid}: served != plain version")
+
+    # one train step at web10m: host wall, device time by kernel, and the
+    # optimizer's update alone on the same tensors
+    loss_fn = rt.make_retrieval_loss(rcfg)
+    tx = trainer_lib.make_optimizer(tc)
+    step = trainer_lib.make_train_step(loss_fn, tx)
+    p, q = rt.make_retrieval_dataset(rcfg, 64, seed=2)
+    batch = {"p": torch.from_numpy(p).to(dev),
+             "q": torch.from_numpy(q).to(dev)}
+    state = [tx.init(dict(tower.named_parameters()))]
+
+    def one_step():
+        state[0], metrics = step(tower, state[0], batch)
+        return metrics
+
+    def median_wall_ms(fn, n):
+        for _ in range(5):
+            fn()
+        walls = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+
+    params = dict(tower.named_parameters())
+    grads = {n: torch.randn_like(t) for n, t in params.items()}
+
+    def update_only():          # the optimizer's update on fixed gradients
+        return opt_lib.apply_updates(
+            params, tx.update(grads, state[0], params)[0])
+
+    step_ms = median_wall_ms(one_step, 50)
+    split = _device_split(torch, one_step, calls=20)
+    busy_us = sum(split.values())
+    gemm_us = sum(us for n, us in split.items() if any(
+        t in n.lower() for t in ("gemm", "cutlass", "sm90_", "xmma")))
+    opt_ms = median_wall_ms(update_only, 50)
+    opt_us = sum(_device_split(torch, update_only, calls=20).values())
+    print(f"train-retrieval: web10m d={rcfg.d} m={rcfg.m} k={rcfg.k} hidden "
+          f"{rcfg.hidden}, batch 64, 300 steps: training wall "
+          f"{train_wall:.3f} s with set-up, loss {hist[0]['loss']:.6f} -> "
+          f"{hist[-1]['loss']:.6f}; a train step: median wall "
+          f"{step_ms:.6f} ms (host clock, synchronised, 50 steps), device "
+          f"busy {busy_us:.3f} us ({busy_us / 1e3 / step_ms:.4f} of the "
+          f"step; torch.profiler, 20 steps), GEMMs {gemm_us:.3f} us; the "
+          f"optimizer's update alone {opt_ms:.6f} ms wall, {opt_us:.3f} us "
+          f"on the device; {len(split)} kernels: {_split_line(split)}",
+          flush=True)
+    print(f"train-retrieval: web10m trained tower served 64 eval-seed "
+          f"requests on 8 slots: f32 {serves['auto'][1]} decode steps in "
+          f"{serves['auto'][0]:.6f} s, int8 {serves['int8'][1]} decode "
+          f"steps in {serves['int8'][0]:.6f} s (walls, host clock); served "
+          f"top-{rcfg.topk} == plain version on the same tower outputs",
+          flush=True)
+    return totals
+
+
 def start_parent_build(common, parent: Path):
     """nvcc on the parent commit's csrc/bloom_embed.cu and bloom_decode.cu
     (copied with the headers they include into ``parent``), started now,
@@ -1892,10 +2152,12 @@ def main() -> int:
     _check(set(built) == {dt.NAME, be.NAME, ce.NAME, csr.NAME, bd.NAME},
            f"unexpected kernels {sorted(built)}")
 
+    from repro_torch.core import quant
     row = phase_kernels(torch, dt, common, bloom, get_retrieval_config)
     lm_decode_topk(torch, dt, common, bloom)
+    row["max_abs_err"] = max(row["max_abs_err"], decode_topk_sweep_shapes(
+        torch, dt, quant, bloom, get_retrieval_config))
     phase_embed(torch, be)
-    from repro_torch.core import quant
     embed_rows = phase_embed_tokens(torch, be, common, quant)
     embed_row = embed_rows[0]       # bloom_embed.hash: the bf16 LM table
     row["launches"] = phase_serve(torch, dt, common, bloom, retrieval,
@@ -1934,6 +2196,12 @@ def main() -> int:
     launched.update(dense_counts)
     for r in decode_rows:
         r["launches"] = launched.get(r["name"], 0)
+    rt_counts = phase_train_retrieval(torch, dt, common, bloom, quant,
+                                      retrieval, get_retrieval_config)
+    for r in [row, *quant_rows]:
+        r["launches"] += rt_counts.pop(r["name"], 0)
+    _check(not rt_counts, f"train-retrieval launched {sorted(rt_counts)}, "
+           "which no kernel row names")
     rows = [row, embed_row, *train_rows, *quant_rows, *decode_rows]
     _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")

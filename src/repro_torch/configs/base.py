@@ -101,8 +101,8 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 1e-3
-    optimizer: str = "adam"       # adam|adamw (adagrad|rmsprop|sgd|
-                                  # adafactor: ROADMAP A6)
+    optimizer: str = "adam"       # adam|adamw|adafactor|adagrad|
+                                  # rmsprop|sgd
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
@@ -110,8 +110,10 @@ class TrainConfig:
     momentum: float = 0.0
     grad_clip_norm: float = 1.0
     grad_compression: str = "none"  # none|bf16 (gradient round trip)
-    microbatch: int = 0           # read by no LM train step (as in the
-                                  # reference's make_train_step)
+    microbatch: int = 0           # >0 => grad-accumulation chunks in
+                                  # train.trainer.make_train_step; the
+                                  # LM step (launch/steps.py) reads it
+                                  # not, as in the reference
     steps: int = 100
     warmup_steps: int = 10
     checkpoint_every: int = 50

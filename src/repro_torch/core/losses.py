@@ -8,7 +8,10 @@ mass 1/k per projection, so
 which needs only a k-gather, never a dense m-hot target.  That identity is
 what the fused CUDA kernel (``kernels/bloom_ce.py``) computes; the
 functions here are the plain PyTorch oracles and the dense-vocab LM loss.
-Copied from the JAX package's ``core/losses.py`` (the LM parts).
+For item sets (the recommender's outputs) ``bloom_xent_multilabel`` takes
+the CE against the normalized Bloom encoding of the set; the PMI and CCA
+baselines train with ``cosine_proximity_loss``.  Copied from the JAX
+package's ``core/losses.py``.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.bloom import BloomSpec
+from repro_torch.core.bloom import BloomSpec, encode
 
 
 def gather_last_axis(logits: torch.Tensor, idx: torch.Tensor
@@ -70,3 +73,37 @@ def bloom_xent_label(spec: BloomSpec, logits: torch.Tensor,
     if valid is not None:
         loss = loss * valid.to(loss.dtype)
     return loss
+
+
+def softmax_xent_dense(logits: torch.Tensor, target: torch.Tensor,
+                       dim: int = -1) -> torch.Tensor:
+    """CE against a dense target distribution (a row summing to 0 gives
+    0, masked)."""
+    logz = torch.logsumexp(logits, dim=dim)
+    tmass = target.sum(dim=dim)
+    return logz * tmass - (target * logits).sum(dim=dim)
+
+
+def bloom_xent_multilabel(spec: BloomSpec, logits: torch.Tensor,
+                          targets: torch.Tensor,
+                          hash_matrix: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Bloom CE for item *sets* (recommender outputs).
+
+    targets: (..., c_max) padded item ids (-1 = pad, encoding to nothing).
+    The target distribution is the Bloom encoding u of the set (binary, as
+    Eq. 1), normalized to sum 1; the mass is clipped at 1e-9, so an
+    all-pad row has target 0 and loss 0.
+    """
+    u = encode(spec, targets, hash_matrix)                 # (..., m) binary
+    mass = torch.clamp(u.sum(-1, keepdim=True), min=1e-9)
+    return softmax_xent_dense(logits, u / mass)
+
+
+def cosine_proximity_loss(pred: torch.Tensor, target: torch.Tensor,
+                          eps: float = 1e-8) -> torch.Tensor:
+    """Cosine loss used by the PMI / CCA alternatives (Chollet 2016)."""
+    p = pred / (torch.linalg.vector_norm(pred, dim=-1, keepdim=True) + eps)
+    t = target / (torch.linalg.vector_norm(target, dim=-1, keepdim=True)
+                  + eps)
+    return 1.0 - (p * t).sum(-1)

@@ -1,8 +1,9 @@
 """Synthetic data generators.
 
 Copied from the JAX package's ``data/synthetic.py``: ``make_token_stream``
-(numpy, element for element the reference's).  The recommender datasets
-wait for ROADMAP A6/A11.
+(numpy, element for element the reference's).  The paper tasks'
+recommender datasets wait for ROADMAP A11; the retrieval tower trains on
+the serving loadgen's Zipf stream (``train/retrieval_trainer.py``).
 """
 from __future__ import annotations
 

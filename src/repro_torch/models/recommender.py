@@ -1,9 +1,12 @@
-"""Feed-forward recommender tower (paper Sec. 4.2 architectures).
+"""Feed-forward recommenders (paper Sec. 4.2 architectures).
 
-A thin MLP: Bloom-encoded input (m_in) -> hidden ReLU layers -> m_out
-logits.  The JAX package keeps it as a ``{"l0": {"w", "b"}, ...}`` pytree;
-here it is an ``nn.Module`` whose layer i is ``layers[i]``, and
-``params_from_jax`` loads the reference's tree into it.
+A thin MLP over an IOEmbedding (``core/alternatives.py``: Bloom, HT, ECOC,
+PMI, CCA): encode(p) -> hidden ReLU layers -> m_out logits, trained with
+the embedding's own loss (``recommender_loss``) and evaluated after its
+decode back to item space (``recommender_scores``).  The JAX package keeps
+the tower as a ``{"l0": {"w", "b"}, ...}`` pytree; here it is an
+``nn.Module`` whose layer i is ``layers[i]``, and ``params_from_jax``
+loads the reference's tree into it.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers
 
 
@@ -51,3 +55,28 @@ def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],
             layer.bias.copy_(torch.tensor(
                 np.asarray(tree[f"l{i}"]["b"], np.float32)))
     return tower.to(device)
+
+
+def recommender_init(emb, hidden: Sequence[int],
+                     generator: torch.Generator | None = None,
+                     device=None) -> FFTower:
+    """An FFTower from ``emb.m_in`` through ``hidden`` to ``emb.m_out``,
+    drawn on the CPU from ``generator`` and moved to ``device`` (CUDA unless
+    the caller asks for the CPU)."""
+    tower = FFTower(emb.m_in, hidden, emb.m_out, generator=generator)
+    return tower.to(resolve_device(device))
+
+
+def recommender_loss(model: FFTower, emb, p_in: torch.Tensor,
+                     q_out: torch.Tensor) -> torch.Tensor:
+    """p_in / q_out: padded item-id sets (B, c_max). Mean loss over the
+    batch."""
+    pred = model(emb.encode_input(p_in))
+    return emb.loss(pred, q_out).mean()
+
+
+def recommender_scores(model: FFTower, emb,
+                       p_in: torch.Tensor) -> torch.Tensor:
+    """(B, c_max) -> (B, d) item ranking scores via the embedding's
+    decode."""
+    return emb.decode(model(emb.encode_input(p_in)))

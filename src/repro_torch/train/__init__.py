@@ -1,1 +1,2 @@
-"""train substrate: optimizer construction (trainer) and metrics."""
+"""train substrate: the Trainer and its step (trainer), retrieval-tower
+training (retrieval_trainer) and ranking metrics (metrics)."""

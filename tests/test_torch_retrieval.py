@@ -269,7 +269,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "'configs.qwen1_5_0_5b', 'launch.train', 'kernels.bloom_ce', "
         "'kernels.bloom_csr', 'core.losses', 'optim.optimizers', "
         "'train.trainer', 'checkpoint.checkpointer', 'data.pipeline', "
-        "'data.synthetic', 'kernels.bloom_decode'):\n"
+        "'data.synthetic', 'kernels.bloom_decode', 'core.alternatives', "
+        "'train.retrieval_trainer', 'launch.train_retrieval', "
+        "'benchmarks.bench_retrieval'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
