@@ -5,7 +5,7 @@
     python3 chip_smoke.py --parent DIR   # also time the parent commit's
         # csrc/bloom_embed.cu and bloom_decode.cu (copied into DIR with the
         # headers they include, and its core/hashing.py) beside this
-        # tree's: phase 14
+        # tree's: phase 15
 
 Phases, one line of numbers each:
   1. build    — compile every kernel in src/repro_torch/kernels/csrc/, one
@@ -173,7 +173,26 @@ Phases, one line of numbers each:
                 then a train step's median wall, device time by kernel
                 (torch.profiler), the GEMMs' and the optimizer's share, and
                 the serve walls.
- 14. parent (only with --parent DIR) — the parent commit's embed and decode
+ 14. paper — the paper's own benches (repro_torch.benchmarks.paper_phase) on
+                CUDA at run.py's full budget (150 steps, scale 0.6) and the
+                PAPER_TASKS widths: Fig. 1 on MSD (every m/d), Fig. 2 on MSD
+                (k = 1, 2, 4, 8, 16), Fig. 3 on MSD, Table 3 at (MSD, 0.1)
+                and (YC, 0.1), Table 5 at (MSD, 0.1), CountingBloomIO on
+                MSD at m/d 0.1, PTB and CADE at Baseline and BE k = 4,
+                m/d 0.2; every CSV row and trained run printed, counts
+                reset just before and read just after: every Bloom-style
+                evaluation's scores bit-equal to decode_scores on the same
+                logits (the identity Baseline, HT, k = 16, the CBE H_out
+                and CountingBloomIO among them), the bloom_decode launches
+                equal to the Bloom evaluations, every score finite and in
+                range, each at least 3x the same metric on seeded uniform
+                random scores; then the kernel at every eval shape against
+                its plain version, timed, and at MSD's (B = 600, m = 480,
+                d = 2,400, k = 4) beside the plain version and
+                F.embedding_bag, with its bound.  Re-executes itself with
+                PYTHONHASHSEED=0 when that is unset (the tasks' data seed
+                is hash(name)).
+ 15. parent (only with --parent DIR) — the parent commit's embed and decode
                 kernels built from DIR beside this tree's, bit-identical,
                 timed in turns (parent, change, change, parent): embed at
                 T = 8, 14, 520 per storage (the kernels, and as called:
@@ -188,6 +207,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1968,6 +1988,86 @@ def phase_train_retrieval(torch, dt, common, bloom, quant, retrieval,
     return totals
 
 
+def phase_paper(torch, bd, common):
+    """The paper's benches on the card (``repro_torch.benchmarks.
+    paper_phase``): Figs. 1-3, Tables 3 and 5, counting Bloom, PTB and
+    CADE at their full budget and widths, every CSV row printed; the
+    Eq. 3 kernel route bit-equal to decode_scores at every evaluated
+    shape; the bloom_decode launches equal to the Bloom evaluations; the
+    range and "learns" gates; then the kernel at each eval shape and, at
+    MSD's (B = 600, m = 480, d = 2,400, k = 4), the plain version and
+    F.embedding_bag.  Returns the bloom_decode launches of the runs."""
+    import torch.nn.functional as F
+    from repro_torch.benchmarks import paper_phase as pp
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    common.reset_launches()
+    rows, runs = pp.run(dev, out=lambda line: print(f"paper: {line}",
+                                                    flush=True))
+    torch.cuda.synchronize()
+    counts = dict(common.LAUNCHES)
+    wall = time.perf_counter() - t0
+    for r in runs:
+        print(pp.run_line(r, pp.chance_score(r.task, pp.SCALE)), flush=True)
+    failures = pp.check(runs, pp.SCALE, on_card=True)
+    _check(not failures, "paper: " + "; ".join(failures))
+    evals = sum(r.evals for r in runs)
+    _check(counts == {bd.NAME: evals},
+           f"paper: launched {counts}, want {{{bd.NAME!r}: {evals}}}")
+    # the kernel route held bit-equal on each kind of Eq. 3 decode
+    kinds = {"identity Baseline": lambda r: r.method == "Baseline",
+             "HT (k = 1)": lambda r: r.method == "HT",
+             "k = 16": lambda r: r.k == 16,
+             "CBE H_out": lambda r: r.method == "CBE",
+             "CountingBloomIO": lambda r: r.method == "CBE-count"}
+    for kind, pick in kinds.items():
+        _check(any(pick(r) and r.decode_equal for r in runs),
+               f"paper: no bit-equal Eq. 3 evaluation of the {kind}")
+    margins = [r.score / pp.chance_score(r.task, pp.SCALE) for r in runs]
+    fig3 = {kind: ", ".join(f"{n[len('fig3.MSD.'):-len(kind)]} {d:.4f}"
+                            for n, _, d in rows
+                            if n.startswith("fig3.") and n.endswith(kind))
+            for kind in (".train", ".eval")}
+    print(f"paper: fig3 MSD train ratio by m/d: {fig3['.train']}; eval "
+          f"ratio: {fig3['.eval']}", flush=True)
+    print(f"paper: {len(runs)} runs, {len(rows)} rows, {evals} bloom_decode "
+          f"launches, every Eq. 3 evaluation bit-equal to decode_scores, "
+          f"least margin over chance {min(margins):.2f}x (gate "
+          f"{pp.GATE}x), wall {wall:.3f} s", flush=True)
+
+    # the kernel at every eval shape the runs gave it; at MSD's, its plain
+    # version and one library call beside it
+    gen = torch.Generator().manual_seed(11)
+    shapes = sorted({(r.eval_shape[0], r.m, r.eval_shape[1], r.k)
+                     for r in runs if r.evals})
+    for B, m, d, k in shapes:
+        logp = torch.log_softmax(3 * torch.randn(B, m, generator=gen),
+                                 -1).to(dev)
+        H = torch.randint(0, m, (d, k), generator=gen,
+                          dtype=torch.int32).to(dev)
+        H16 = bd.pack_h(H)
+        got = bd.bloom_decode_cuda(logp, H, packed=H16)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, bd.bloom_decode_plain(logp, H)),
+               f"paper: bloom_decode B={B} m={m} d={d} k={k}: kernel != "
+               "plain version")
+        fns = {"kernel": lambda: bd.bloom_decode_cuda(logp, H, packed=H16)}
+        others = {}
+        if (B, m, d, k) == (600, 480, 2400, 4):
+            Hl = H.long()
+            fns["library"] = lambda: F.embedding_bag(
+                Hl, logp.t().contiguous(), mode="sum").t()
+            others["plain"] = lambda: bd.bloom_decode_plain(logp, H)
+        times = _times_kernels(common, fns, others)
+        nbytes = bd.min_bytes(B, m, d, k, index_bytes=2)
+        bound_ms, by = _bound(nbytes, B * d * (k - 1))
+        print(f"paper: bloom_decode eval shape B={B} m={m} d={d} k={k}: "
+              f"device ms (graph) / back-to-back ms (events; plain: events "
+              f"only): {_times_line(times)}, bound {bound_ms * 1e3:.3f} us "
+              f"({by}, {nbytes} bytes)", flush=True)
+    return evals
+
+
 def start_parent_build(common, parent: Path):
     """nvcc on the parent commit's csrc/bloom_embed.cu and bloom_decode.cu
     (copied with the headers they include into ``parent``), started now,
@@ -2114,6 +2214,11 @@ def phase_parent(torch, be, bd, common, quant, procs, parent):
 
 
 def main() -> int:
+    if "PYTHONHASHSEED" not in os.environ:
+        # the paper tasks' data seed is hash(name) (phase paper): pin str
+        # hashing so that every run draws the same data
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2202,6 +2307,10 @@ def main() -> int:
         r["launches"] += rt_counts.pop(r["name"], 0)
     _check(not rt_counts, f"train-retrieval launched {sorted(rt_counts)}, "
            "which no kernel row names")
+    paper_launches = phase_paper(torch, bd, common)
+    for r in decode_rows:
+        if r["name"] == bd.NAME:
+            r["launches"] += paper_launches
     rows = [row, embed_row, *train_rows, *quant_rows, *decode_rows]
     _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")

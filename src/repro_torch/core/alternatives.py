@@ -6,7 +6,11 @@ Every fit runs on the host in NumPy/SciPy, as preprocessing (like the
 paper's hash matrix), and gives the same integers and arrays as the JAX
 package's ``core/alternatives.py``; encode, loss and decode are PyTorch
 on the device the embedding was built for (``build(..., device=)``: CUDA
-unless the caller asks for the CPU, a raise when CUDA is absent).
+unless the caller asks for the CPU, a raise when CUDA is absent).  A
+Bloom embedding's Eq. 3 decode (``eq3_scores``) is the hand-written
+``bloom_decode`` kernel on a CUDA tensor (``kernels.ops.bloom_decode``)
+and the plain ``core.bloom.decode_scores`` on a CPU tensor: the same
+function, summed in the same order.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from repro_torch.core import losses
 from repro_torch.core.bloom import BloomSpec, decode_scores
 from repro_torch.core.bloom import encode as bloom_encode
+from repro_torch.kernels import ops
 from repro_torch.kernels.common import resolve_device
 
 
@@ -65,6 +70,17 @@ def _on(x, device) -> Optional[torch.Tensor]:
 # Bloom embeddings / hashing trick (HT == BE with k=1, paper Sec. 4.3)
 # --------------------------------------------------------------------------
 
+def eq3_scores(spec: BloomSpec, pred: torch.Tensor,
+               hash_matrix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, m) logits -> (B, d) Eq. 3 scores of their log_softmax through
+    ``spec`` (or the explicit (d, k) ``hash_matrix``): the ``bloom_decode``
+    kernel on a CUDA tensor, ``decode_scores`` on a CPU tensor."""
+    logp = torch.log_softmax(pred, dim=-1)
+    if logp.is_cuda:
+        return ops.bloom_decode(logp, spec, hash_matrix=hash_matrix)
+    return decode_scores(spec, logp, hash_matrix)
+
+
 @dataclasses.dataclass
 class BloomIO(IOEmbedding):
     spec_in: BloomSpec = None
@@ -94,8 +110,7 @@ class BloomIO(IOEmbedding):
                                             self.H_out)
 
     def decode(self, pred):
-        logp = torch.log_softmax(pred, dim=-1)
-        return decode_scores(self.spec_out, logp, self.H_out)
+        return eq3_scores(self.spec_out, pred, self.H_out)
 
 
 def hashing_trick(d: int, m: int, seed: int = 0, device=None) -> BloomIO:

@@ -3,10 +3,13 @@
 A thin MLP over an IOEmbedding (``core/alternatives.py``: Bloom, HT, ECOC,
 PMI, CCA): encode(p) -> hidden ReLU layers -> m_out logits, trained with
 the embedding's own loss (``recommender_loss``) and evaluated after its
-decode back to item space (``recommender_scores``).  The JAX package keeps
-the tower as a ``{"l0": {"w", "b"}, ...}`` pytree; here it is an
-``nn.Module`` whose layer i is ``layers[i]``, and ``params_from_jax``
-loads the reference's tree into it.
+decode back to item space (``recommender_scores``).  The same tower is
+CADE's classifier over an input embedding alone (``ff_init``; the
+reference's ``ff_apply`` is the tower's forward;
+``benchmarks/common.run_classify``).
+The JAX package keeps the tower as a ``{"l0": {"w", "b"}, ...}`` pytree
+(its ``ff_init``); here it is an ``nn.Module`` whose layer i is
+``layers[i]``, and ``params_from_jax`` loads the reference's tree into it.
 """
 from __future__ import annotations
 
@@ -57,14 +60,21 @@ def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],
     return tower.to(device)
 
 
+def ff_init(d_in: int, hidden: Sequence[int], d_out: int,
+            generator: torch.Generator | None = None,
+            device=None) -> FFTower:
+    """An FFTower of widths ``[d_in, *hidden, d_out]``, drawn on the CPU
+    from ``generator`` and moved to ``device`` (CUDA unless the caller asks
+    for the CPU)."""
+    tower = FFTower(d_in, hidden, d_out, generator=generator)
+    return tower.to(resolve_device(device))
+
+
 def recommender_init(emb, hidden: Sequence[int],
                      generator: torch.Generator | None = None,
                      device=None) -> FFTower:
-    """An FFTower from ``emb.m_in`` through ``hidden`` to ``emb.m_out``,
-    drawn on the CPU from ``generator`` and moved to ``device`` (CUDA unless
-    the caller asks for the CPU)."""
-    tower = FFTower(emb.m_in, hidden, emb.m_out, generator=generator)
-    return tower.to(resolve_device(device))
+    """``ff_init`` from ``emb.m_in`` through ``hidden`` to ``emb.m_out``."""
+    return ff_init(emb.m_in, hidden, emb.m_out, generator, device)
 
 
 def recommender_loss(model: FFTower, emb, p_in: torch.Tensor,

@@ -263,7 +263,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "'repro_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "for name in ('serving.retrieval', 'serving.engine', "
         "'launch.serve', 'kernels.bloom_embed', 'models.transformer', "
         "'configs.qwen1_5_0_5b', 'launch.train', 'kernels.bloom_ce', "
@@ -271,7 +271,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "'train.trainer', 'checkpoint.checkpointer', 'data.pipeline', "
         "'data.synthetic', 'kernels.bloom_decode', 'core.alternatives', "
         "'train.retrieval_trainer', 'launch.train_retrieval', "
-        "'benchmarks.bench_retrieval'):\n"
+        "'benchmarks.bench_retrieval', 'configs.paper_tasks', 'core.cbe', "
+        "'core.counting', 'models.rnn', 'benchmarks.common', "
+        "'benchmarks.bench_fig1_compression', 'benchmarks.bench_fig2_hashes', "
+        "'benchmarks.bench_fig3_time', "
+        "'benchmarks.bench_table3_alternatives', "
+        "'benchmarks.bench_table5_cbe', 'benchmarks.run', "
+        "'benchmarks.paper_phase'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -282,4 +288,4 @@ def test_port_imports_neither_jax_nor_the_reference():
     smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
     imports = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", smoke, re.M)
     assert imports and not [m for m in imports if m.split(".")[0] in
-                            ("jax", "jaxlib", "repro")], imports
+                            ("jax", "jaxlib", "repro", "benchmarks")], imports
