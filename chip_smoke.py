@@ -5,7 +5,7 @@
     python3 chip_smoke.py --parent DIR   # also time the parent commit's
         # csrc/bloom_embed.cu and bloom_decode.cu (copied into DIR with the
         # headers they include, and its core/hashing.py) beside this
-        # tree's: phase 15
+        # tree's: phase 18
 
 Phases, one line of numbers each:
   1. build    — compile every kernel in src/repro_torch/kernels/csrc/, one
@@ -192,7 +192,40 @@ Phases, one line of numbers each:
                 F.embedding_bag, with its bound.  Re-executes itself with
                 PYTHONHASHSEED=0 when that is unset (the tasks' data seed
                 is hash(name)).
- 15. parent (only with --parent DIR) — the parent commit's embed and decode
+ 15. serve-batch — qwen3-4b at full width (36 layers, d_model 2560, 32
+                heads, GQA kv 8, head_dim 128, qk_norm, vocab 151,936, Bloom
+                m = 30,208, k = 4, untied head, bf16, random weights drawn on
+                the card from seed 0) through launch.serve.run (the
+                whole-batch path: batch 4, prompt 32, gen 12, topk 8) twice,
+                counts reset just before and read just after each run: the
+                embed kernel's token entry and bloom_decode_topk launch gen
+                times each (one prefill, gen - 1 decode steps), the replay
+                gives the same ids; then the same loop walked through
+                make_prefill_step and make_decode_step, every step's
+                embedding bit-equal to the plain gather-sum and its top-k ids
+                and scores bit-equal to bloom_decode_topk_plain, the ids equal
+                to run's; then granite-8b and phi3-mini-3.8b at full width
+                with the depth cut to 2 layers (embed D = 4096 / 3072, decode
+                m 9,728 / 6,400 over d 49,152 / 32,064), the same walk and
+                serve.generate with its counts; per arch the set-up seconds,
+                the prefill ms and decode tok/s, and the decode-top-k kernel
+                (B = 4) and the embed token kernel (T = 128 and 4) timed
+                beside their plain versions, a library call and the bound;
+ 16. bench-serving — the serving bench twin's 13 rows
+                (repro_torch.benchmarks.bench_serving) on the card, held to
+                BENCH_serving.json by its check_against (the three mamba2
+                rows wait for the SSM family), counts reset just before and
+                read just after; every kernel launch of the run held
+                against its plain version on the same tensors as it
+                happens (``held_to_plain``), with as many checks as
+                launches, kernel by kernel;
+ 17. examples — each example twin's main on the card at its smallest
+                documented budget: quickstart, train_recommender --quick,
+                cbe_cooccurrence, serve_bloom_lm (qwen3-4b smoke, gen 12)
+                and train_lm_100m --steps 4 into a temporary checkpoint
+                directory under build/, each with its launches, and each
+                launch held against its plain version as in phase 16;
+ 18. parent (only with --parent DIR) — the parent commit's embed and decode
                 kernels built from DIR beside this tree's, bit-identical,
                 timed in turns (parent, change, change, parent): embed at
                 T = 8, 14, 520 per storage (the kernels, and as called:
@@ -205,6 +238,7 @@ without the repository's src/ beside this file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -2068,6 +2102,462 @@ def phase_paper(torch, bd, common):
     return evals
 
 
+SERVE_BATCH = (4, 32, 12, 8)     # batch, prompt, gen, topk: the example's
+
+
+def _walk_batch(torch, be, dt, cfg, model, prompts, gen, topk):
+    """serve.generate's whole-batch loop walked step by step through
+    make_prefill_step and make_decode_step, holding at every step the
+    embedding as the model computes it (the token kernel) bit-equal to
+    the plain gather-sum, and the decode-top-k kernel's ids and scores
+    bit-equal to bloom_decode_topk_plain on the same logp.  Returns the
+    (B, gen) ids."""
+    from repro_torch.core import bloom
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, steps as steps_lib
+    from repro_torch.models import io as io_lib
+    from repro_torch.models import transformer as tf
+    dev = model.embed.device
+    spec = io_lib.vocab_spec(cfg)
+    H = bloom.cached_hash_matrix(spec, dev)
+    B, S = prompts.shape
+    prefill = steps_lib.make_prefill_step(cfg)
+    decode = steps_lib.make_decode_step(cfg, topk, dev)
+
+    def check_embed(tokens, label):
+        with torch.inference_mode():
+            got = ops.bloom_embed(model.embed, tokens, spec)
+            want, _ = be.bloom_embed_tokens_plain(
+                model.embed, None, tokens.reshape(-1), spec, model.embed.dtype)
+        _check(torch.equal(got.reshape(want.shape), want),
+               f"{cfg.name} {label}: embedding kernel != plain gather-sum")
+
+    def check_decode(logits, scores, ids, label):
+        _check(bool(torch.isfinite(logits).all()),
+               f"{cfg.name} {label}: non-finite logits")
+        logp = torch.log_softmax(logits.float(), -1)
+        pv, pi = dt.bloom_decode_topk_plain(logp, H, topk)
+        _check(torch.equal(ids, pi) and torch.equal(scores, pv),
+               f"{cfg.name} {label}: decode-top-k kernel != plain version")
+
+    tokens = torch.as_tensor(prompts, device=dev)
+    check_embed(tokens, "prefill")
+    pre = prefill(model, tokens)
+    caches = serve.pad_caches_to(
+        pre["caches"], tf.init_lm_cache(cfg, B, S + gen, device=dev))
+    with torch.inference_mode():
+        scores, ids = io_lib.recover_topk(cfg, pre["last_logits"], topk=topk)
+    check_decode(pre["last_logits"], scores, ids, "prefill")
+    token, out_ids = ids[:, :1], [ids[:, :1]]
+    for t in range(gen - 1):
+        check_embed(token, f"decode step {t + 1}")
+        out = decode(model, token, caches, S + t)
+        caches = out["caches"]
+        check_decode(out["logits"][:, 0], out["topk_scores"],
+                     out["topk_ids"], f"decode step {t + 1}")
+        token = out["topk_ids"][:, :1]
+        out_ids.append(token)
+    # one more decode step at the last position, repeated: its wall (host
+    # clock, synchronised) beside its device time by kernel (profiler)
+    step = lambda: decode(model, token, caches, S + gen - 1)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+    split = _device_split(torch, step, calls=5)
+    busy_ms = sum(split.values()) / 1e3
+    top = dict(sorted(split.items(), key=lambda kv: -kv[1])[:6])
+    print(f"serve-batch: {cfg.name} decode step (B = {B}): wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / wall_ms:.4f}), top kernels: {_split_line(top)}",
+          flush=True)
+    return torch.cat(out_ids, 1).cpu().numpy()
+
+
+def _time_batch_kernels(torch, be, dt, common, cfg, model, B, S, topk):
+    """The decode-top-k kernel at (B, m, d) and the embed token kernel at
+    the prefill's and a decode step's T on this arch's table, beside their
+    plain versions, one library call and their bounds."""
+    import torch.nn.functional as F
+    from repro_torch.core import bloom
+    from repro_torch.models import io as io_lib
+    dev = model.embed.device
+    spec = io_lib.vocab_spec(cfg)
+    H = bloom.cached_hash_matrix(spec, dev)
+    (d, k), m = H.shape, spec.m
+    gen = torch.Generator().manual_seed(13)
+    logp = torch.log_softmax(torch.randn(B, m, generator=gen), -1).to(dev)
+    Hl = H.long()
+    times = _times_kernels(common, {
+        "kernel": lambda: dt.bloom_decode_topk_cuda(logp, H, topk),
+        "torch.topk": lambda: torch.topk(logp[:, Hl].sum(-1), topk)}, {
+        "plain": lambda: dt.bloom_decode_topk_plain(logp, H, topk)})
+    nbytes = dt.min_bytes(B, B, m=m, d=d, k=k, topk=topk)
+    bound_ms, by = _bound(nbytes, d * B * (k - 1))
+    print(f"serve-batch: {cfg.name} bloom_decode_topk B={B} m={m} d={d} "
+          f"k={k} topk={topk}: device ms (graph) / back-to-back ms (events;"
+          f" plain: events only): {_times_line(times)}, bound "
+          f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)", flush=True)
+    table = model.embed
+    D = table.shape[1]
+    for T in (B * S, B):
+        tok = torch.randint(0, spec.d, (T,), generator=gen).to(dev)
+        idx64 = spec.indices_for(tok).long()
+        with torch.no_grad():
+            times = _times_kernels(common, {
+                "token kernel": lambda: be.bloom_embed_tokens_cuda(
+                    table, tok, spec),
+                "embedding_bag": lambda: F.embedding_bag(idx64, table,
+                                                         mode="sum")}, {
+                "plain": lambda: be.bloom_embed_tokens_plain(
+                    table, None, tok, spec, table.dtype)})
+        nbytes = be.min_bytes(int(torch.unique(idx64).numel()), T, k, D,
+                              table.element_size(), token_itemsize=8)
+        bound_ms, by = _bound(nbytes, T * (k - 1) * D)
+        print(f"serve-batch: {cfg.name} {be.token_variant_name(spec)} "
+              f"{table.dtype} T={T} m={m} D={D} k={k}: device ms (graph) / "
+              f"back-to-back ms (events; plain: events only): "
+              f"{_times_line(times)}, bound {bound_ms * 1e3:.4f} us ({by}, "
+              f"{nbytes} bytes)", flush=True)
+
+
+def phase_serve_batch(torch, be, dt, common):
+    """qwen3-4b at full width through launch.serve.run twice, counts reset
+    just before and read just after each run; then the same loop walked
+    through make_prefill_step and make_decode_step with the kernels held
+    to their plain versions at every step; then granite-8b and
+    phi3-mini-3.8b at full width, depth cut to 2 layers, the same walk and
+    serve.generate with its counts.  Returns the launches of the runs by
+    kernel."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import io as io_lib
+    dev = torch.device("cuda")
+    B, S, gen, topk = SERVE_BATCH
+    totals = {}
+
+    def counted(label, cfg, fn):
+        torch.cuda.synchronize()
+        common.reset_launches()
+        ids = fn()
+        torch.cuda.synchronize()
+        counts = dict(common.LAUNCHES)
+        embed_name = be.token_variant_name(io_lib.vocab_spec(cfg))
+        _check(counts == {embed_name: gen, dt.NAME: gen},
+               f"serve-batch: {label}: launched {counts}, want {gen} each "
+               f"of {embed_name} and {dt.NAME}")
+        _check(ids.shape == (B, gen) and ((0 <= ids) & (ids < cfg.vocab))
+               .all(), f"serve-batch: {label}: ids {ids}")
+        for n, c in counts.items():
+            totals[n] = totals.get(n, 0) + c
+        print(f"serve-batch: {label}: launches {counts}", flush=True)
+        return ids
+
+    cfg = configs.get_config("qwen3-4b")
+    _check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.qk_norm, cfg.vocab, cfg.m_vocab,
+            cfg.bloom.k, cfg.tie_embeddings, cfg.dtype) ==
+           (36, 2560, 32, 8, 128, True, 151936, 30208, 4, False,
+            "bfloat16"), f"qwen3-4b config {cfg}")
+    runs = [counted(f"qwen3-4b serve.run {i + 1}", cfg, lambda: serve.run(
+        "qwen3-4b", batch=B, prompt_len=S, gen=gen, topk=topk, full=True,
+        device=dev)) for i in range(2)]
+    _check(np.array_equal(runs[0], runs[1]),
+           "serve-batch: the replay of serve.run gave other ids")
+
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(B, S), dtype=np.int32)
+    for arch in ("qwen3-4b", "granite-8b", "phi3-mini-3.8b"):
+        cfg = configs.get_config(arch)
+        if arch != "qwen3-4b":
+            cfg = dataclasses.replace(cfg, num_layers=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = serve.build_model(cfg, 0, dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        reduced = configs.get_config(arch).num_layers != cfg.num_layers
+        print(f"serve-batch: {arch} {cfg.num_layers}L"
+              + (f" (reduced from {configs.get_config(arch).num_layers})"
+                 if reduced else "") +
+              f" d_model {cfg.d_model} heads {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} head_dim {cfg.resolved_head_dim} d_ff "
+              f"{cfg.d_ff} qk_norm {cfg.qk_norm} vocab {cfg.vocab} m "
+              f"{cfg.m_vocab} k {cfg.bloom.k}: {n_params:,} params "
+              f"{next(model.parameters()).dtype} drawn on the card, set-up "
+              f"{setup:.3f} s", flush=True)
+        walked = _walk_batch(torch, be, dt, cfg, model, prompts, gen, topk)
+        if arch == "qwen3-4b":
+            _check(np.array_equal(walked, runs[0]),
+                   "serve-batch: the step walk's ids != serve.run's")
+        else:
+            res = {}
+
+            def gen_ids():
+                res["ids"], res["pre"], res["dec"] = serve.generate(
+                    cfg, model, prompts, gen, topk)
+                return res["ids"]
+
+            ids = counted(f"{arch} serve.generate", cfg, gen_ids)
+            _check(np.array_equal(walked, ids),
+                   f"serve-batch: {arch}: the step walk's ids != "
+                   "serve.generate's")
+            print(f"prefill {S} toks x{B}: {res['pre'] * 1e3:.0f} ms")
+            print(f"decode  {gen - 1} steps: {res['dec'] * 1e3:.0f} ms "
+                  f"({(gen - 1) * B / max(res['dec'], 1e-9):.0f} tok/s)")
+        print(f"serve-batch: {arch}: every step's embedding and top-k ids "
+              f"and scores bit-equal to the plain versions, logits finite; "
+              f"{len(np.unique(walked))} distinct ids of {walked.size}; ids "
+              f"(first seq) {walked[0].tolist()}", flush=True)
+        _time_batch_kernels(torch, be, dt, common, cfg, model, B, S, topk)
+        del model
+        torch.cuda.empty_cache()
+    return totals
+
+
+def _plain_checks(torch):
+    """(module, wrapper, check) for every kernel wrapper that counts a
+    launch.  ``check(out, *args, **kwargs)`` recomputes the wrapper's
+    result by its plain version on the same tensors, raises unless it
+    agrees within the tolerance the kernel's own phase states (bit-equal;
+    bloom_ce's forward within rtol 1e-6 / atol 1e-5 and its backward
+    within atol 1e-7, as in phase_ce), and returns the max abs error.  The
+    CSR binning, the CSR scatter and the dense embed backward are held
+    against their plain version on a CPU copy, as in their phases (on the
+    card ``index_add_`` adds in no fixed order)."""
+    from repro_torch.kernels import bloom_ce as ce
+    from repro_torch.kernels import bloom_csr as csr
+    from repro_torch.kernels import bloom_decode as bd
+    from repro_torch.kernels import bloom_decode_topk as dt
+    from repro_torch.kernels import bloom_embed as be
+
+    def equal(got, want, what):
+        _check(got.shape == want.shape and got.dtype == want.dtype
+               and _equal_nan(torch, got, want),
+               f"{what} {tuple(got.shape)}: kernel != plain version")
+        return 0.0
+
+    def close(got, want, what, rtol, atol):
+        try:
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        except AssertionError as e:
+            raise AssertionError(f"{what} {tuple(got.shape)}: kernel != "
+                                 f"plain version: {e}") from None
+        return _max_abs_err(got, want)
+
+    def decode_topk(out, logp, H, topk, active=None, scales=None,
+                    hash_spec=None):
+        pv, pi = dt.bloom_decode_topk_plain(logp, H, topk, active, scales,
+                                            hash_spec)
+        return max(equal(out[1], pi, "bloom_decode_topk ids"),
+                   equal(out[0], pv, "bloom_decode_topk values"))
+
+    def decode(out, logp, H, scales=None, packed=None):
+        return equal(out, bd.bloom_decode_plain(logp, H, scales),
+                     "bloom_decode")
+
+    def embed(out, table, idx):
+        return equal(out, be.bloom_embed_plain(table, idx), "bloom_embed")
+
+    def embed_q(out, qtable, scales, idx, out_dtype=torch.float32):
+        return equal(out, be.bloom_embed_quantized_plain(
+            qtable, scales, idx, out_dtype), "bloom_embed (stored table)")
+
+    def tokens(out, want_idx, qtable, scales, toks, spec, out_dtype, what):
+        want, idx = be.bloom_embed_tokens_plain(qtable, scales, toks, spec,
+                                                out_dtype)
+        if want_idx:
+            equal(out[1], idx, f"{what} indices")
+        return equal(out[0], want, what)
+
+    def embed_tok(out, table, toks, spec, want_idx=False):
+        return tokens(out, want_idx, table, None, toks, spec, table.dtype,
+                      "bloom_embed token entry")
+
+    def embed_tok_q(out, qtable, scales, toks, spec,
+                    out_dtype=torch.float32, want_idx=False):
+        return tokens(out, want_idx, qtable, scales, toks, spec, out_dtype,
+                      "bloom_embed token entry (stored table)")
+
+    def embed_bwd(out, g, idx, m):
+        return equal(out.cpu(), be.bloom_embed_bwd_plain(g.cpu(), idx.cpu(),
+                                                         m),
+                     "bloom_embed_bwd (plain on a CPU copy)")
+
+    def ce_fwd(out, z, h):
+        loss, lse = ce.bloom_ce_plain(z, h)
+        return max(close(out[0], loss, "bloom_ce loss", 1e-6, 1e-5),
+                   close(out[1], lse, "bloom_ce lse", 1e-6, 1e-5))
+
+    def ce_bwd(out, g, z, h, lse):
+        return close(out, ce.bloom_ce_bwd_plain(g, z, h, lse),
+                     "bloom_ce dz", 0.0, 1e-7)
+
+    def bins(out, idx, m):
+        want = csr.bin_csr_plain(idx.cpu(), m)
+        _check(all(torch.equal(x.cpu(), w) for x, w in zip(out, want)),
+               f"bloom_csr.bin {tuple(idx.shape)} m={m}: device bins != "
+               "bin_csr_plain's on a CPU copy")
+        return 0.0
+
+    def scatter(out, g, bins_, m, name=csr.NAME):
+        cpu_bins = csr.CSRBins(*(x.cpu() for x in bins_))
+        return equal(out.cpu(), csr.csr_scatter_add_plain(g.cpu(), cpu_bins,
+                                                          m),
+                     f"{name} (plain on a CPU copy)")
+
+    return [(dt, "bloom_decode_topk_cuda", decode_topk),
+            (bd, "bloom_decode_cuda", decode),
+            (be, "bloom_embed_cuda", embed),
+            (be, "bloom_embed_quantized_cuda", embed_q),
+            (be, "bloom_embed_tokens_cuda", embed_tok),
+            (be, "bloom_embed_tokens_quantized_cuda", embed_tok_q),
+            (be, "bloom_embed_bwd_cuda", embed_bwd),
+            (ce, "bloom_ce_cuda", ce_fwd),
+            (ce, "bloom_ce_bwd_cuda", ce_bwd),
+            (csr, "bin_csr_cuda", bins),
+            (csr, "csr_scatter_add_cuda", scatter)]
+
+
+@contextlib.contextmanager
+def held_to_plain(torch, common, label, errs):
+    """Hold every kernel launch of the block against its plain version on
+    the same tensors, right after the launch (``_plain_checks``), and
+    gather the largest max abs error by kernel name into ``errs``.  The
+    wrappers are patched on their modules, where every caller looks them
+    up.  On leaving, the checks by kernel name must equal the block's
+    launches by kernel name, so no launch went unchecked; the plain
+    versions launch no kernel, so the block's counts are the run's."""
+    checks = {}
+    start = dict(common.LAUNCHES)
+    saved = []
+
+    def held(fn, check):
+        def call(*args, **kwargs):
+            before = dict(common.LAUNCHES)
+            out = fn(*args, **kwargs)
+            with torch.no_grad():
+                err = check(out, *args, **kwargs)
+            for n, c in common.LAUNCHES.items():
+                if c != before.get(n, 0):
+                    checks[n] = checks.get(n, 0) + c - before.get(n, 0)
+                    errs[n] = max(errs.get(n, 0.0), err)
+            return out
+        return call
+
+    for mod, name, check in _plain_checks(torch):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, held(saved[-1][2], check))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    launched = {n: c - start.get(n, 0) for n, c in common.LAUNCHES.items()
+                if c != start.get(n, 0)}
+    _check(checks == launched, f"{label}: held {checks} against the plain "
+           f"versions, launched {launched}")
+
+
+def phase_bench_serving(torch, common):
+    """The serving bench twin's 13 rows on the card, held to
+    BENCH_serving.json by its check_against; counts reset just before and
+    read just after; every launch held against its plain version
+    (``held_to_plain``).  Returns (launches by kernel, max abs error by
+    kernel)."""
+    from repro_torch.benchmarks import bench_serving as bs
+    dev = torch.device("cuda")
+    errs = {}
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    common.reset_launches()
+    with held_to_plain(torch, common, "bench-serving", errs):
+        rows = bs.run(dev)
+        torch.cuda.synchronize()
+    counts = dict(common.LAUNCHES)
+    for r in rows:
+        print(f"bench-serving: {json.dumps(r, sort_keys=True)}", flush=True)
+    failures = bs.check_against(rows)
+    _check(not failures, "bench-serving: " + "; ".join(failures))
+    _check(len(rows) == 13 and {r["impl"] for r in rows if "impl" in r}
+           == {"kernel"}, "bench-serving: rows or route")
+    print(f"bench-serving: check ok: {len(rows)} rows vs "
+          f"{bs.JSON_PATH.name} on {torch.cuda.get_device_name(0)}, not "
+          f"built {sorted(bs.WAITING)}, launches {counts}, each held "
+          f"against its plain version (max abs err {errs}), wall "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return counts, errs
+
+
+def phase_examples(torch, common, names):
+    """Each example twin's main on CUDA at its smallest documented budget,
+    counts reset just before and read just after each, every launch held
+    against its plain version (``held_to_plain``).  ``names`` are the
+    training kernels train_lm_100m must launch once per step.  Returns
+    (the launches of the five runs by kernel, max abs error by kernel)."""
+    import tempfile
+    import numpy as np
+    from repro_torch.examples import (cbe_cooccurrence, quickstart,
+                                      serve_bloom_lm, train_lm_100m,
+                                      train_recommender)
+    from repro_torch.kernels import bloom_decode as bd
+    from repro_torch.kernels import bloom_decode_topk as dt
+    totals, errs = {}, {}
+
+    def counted(label, fn):
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        with held_to_plain(torch, common, f"examples: {label}", errs):
+            out = fn()
+            torch.cuda.synchronize()
+        counts = dict(common.LAUNCHES)
+        for n, c in counts.items():
+            totals[n] = totals.get(n, 0) + c
+        print(f"examples: {label}: wall {time.perf_counter() - t0:.3f} s "
+              f"(each launch held against its plain version), launches "
+              f"{counts}", flush=True)
+        return out, counts
+
+    (score, ids), c = counted("quickstart", lambda: quickstart.main(
+        ["--device", "cuda"]))
+    _check(0.01 < score <= 1 and len(set(ids)) == 5 and c.get(dt.NAME) == 1
+           and c.get(bd.NAME, 0) >= 1, f"quickstart: {score} {ids} {c}")
+    rows, c = counted("train_recommender --quick",
+                      lambda: train_recommender.main(["--quick"]))
+    _check(len(rows) == 4 and all(0 < r["score"] <= 1 for r in rows)
+           and c.get(bd.NAME, 0) >= 4, f"train_recommender: {rows} {c}")
+    rows, c = counted("cbe_cooccurrence", lambda: cbe_cooccurrence.main([]))
+    _check(len(rows) == 1 and rows[0]["cbe_ratio"] > 0
+           and c.get(bd.NAME, 0) >= 3, f"cbe_cooccurrence: {rows} {c}")
+    ids, c = counted("serve_bloom_lm", lambda: serve_bloom_lm.main([]))
+    gen = 12
+    _check(ids.shape == (4, gen) and c.get(dt.NAME) == gen
+           and sum(c.values()) == 2 * gen, f"serve_bloom_lm: {ids.shape} {c}")
+    ckpt_root = SRC.parent / "build"
+    ckpt_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ckpt_root) as ckpt:
+        (_, history), c = counted(
+            "train_lm_100m --steps 4", lambda: train_lm_100m.main(
+                ["--steps", "4", "--ckpt", ckpt]))
+        _check(any(Path(ckpt).iterdir()), "train_lm_100m: no checkpoint")
+    losses = [h["loss"] for h in history]
+    _check(len(losses) == 4 and all(np.isfinite(losses))
+           and all(c.get(n) == 4 for n in names),
+           f"train_lm_100m: losses {losses}, launches {c}")
+    print(f"examples: every launch held against its plain version, max abs "
+          f"err by kernel {errs}", flush=True)
+    return totals, errs
+
+
+
+
 def start_parent_build(common, parent: Path):
     """nvcc on the parent commit's csrc/bloom_embed.cu and bloom_decode.cu
     (copied with the headers they include into ``parent``), started now,
@@ -2312,6 +2802,19 @@ def main() -> int:
         if r["name"] == bd.NAME:
             r["launches"] += paper_launches
     rows = [row, embed_row, *train_rows, *quant_rows, *decode_rows]
+    by_name = {r["name"]: r for r in rows}
+    for counts, errs in ((phase_serve_batch(torch, be, dt, common), {}),
+                         phase_bench_serving(torch, common),
+                         phase_examples(torch, common, [
+                             embed_row["name"], csr.BIN, csr.NAME, ce.FWD,
+                             ce.BWD])):
+        _check(set(counts) <= set(by_name), f"launched "
+               f"{sorted(set(counts) - set(by_name))}, which no kernel row "
+               "names")
+        for name, c in counts.items():
+            by_name[name]["launches"] += c
+            by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
+                                               errs[name] if errs else 0.0)
     _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")
     if procs is not None:

@@ -37,7 +37,7 @@ from repro_torch.models import recommender as rec
 from repro_torch.models import rnn
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.train import metrics as M
-from repro_torch.train.trainer import make_train_step
+from repro_torch.train.trainer import apply_gradients
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,18 +70,36 @@ def _generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def bench_step(model, tx, loss_fn):
+    """The reference's bench step: ``step(opt_state, batch) -> opt_state``
+    takes the gradients of ``loss_fn(model, batch)`` (a scalar), runs the
+    optimizer and applies its update to the model's params in place, and
+    computes nothing else (no metrics, no gradient norm beyond the
+    optimizer's own clipping), so the timed window holds the reference's
+    work and no more."""
+    params = dict(model.named_parameters())
+
+    def step(opt_state, batch):
+        grads = torch.autograd.grad(loss_fn(model, batch),
+                                    list(params.values()))
+        return apply_gradients(params, dict(zip(params, grads)), tx,
+                               opt_state)
+
+    return step
+
+
 def _train(model, tx, loss_fn, it: BatchIterator, steps: int,
            device: torch.device) -> float:
-    """One untimed warm-up step, then ``steps`` timed steps over ``it``'s
-    batches; ``loss_fn(model, batch)`` returns the scalar loss.  Returns
-    the seconds of the timed steps."""
-    step = make_train_step(lambda mdl, batch: (loss_fn(mdl, batch), {}), tx)
+    """One untimed warm-up step, then ``steps`` timed steps of
+    ``bench_step`` over ``it``'s batches; ``loss_fn(model, batch)`` returns
+    the scalar loss.  Returns the seconds of the timed steps."""
+    step = bench_step(model, tx, loss_fn)
     opt_state = tx.init(dict(model.named_parameters()))
 
     def one():
         nonlocal opt_state
         batch = tuple(torch.as_tensor(a, device=device) for a in next(it))
-        opt_state, _ = step(model, opt_state, batch)
+        opt_state = step(opt_state, batch)
 
     one()
     _sync(device)

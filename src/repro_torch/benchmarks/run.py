@@ -4,8 +4,13 @@ The paper parts of the JAX package's ``benchmarks/run.py`` on ``--device``
 (CUDA unless ``--device cpu``).  Prints ``name,us_per_call,derived`` CSV
 rows, the reference's names and columns: score ratios (derived =
 S_i/S_0) and, for Fig. 3, train time per step and eval time
-(us_per_call) beside the time ratios.  The reference's ``kernels``,
-``serving`` and ``roofline`` parts are not ported (ROADMAP A11).
+(us_per_call) beside the time ratios; and the ``serving`` part, the
+rows of ``bench_serving`` (the utilization, or for a ``.speedup`` row the
+continuous/static decode-step speedup, as derived; the run's wall in
+us_per_call), held to ``BENCH_serving.json`` but never written to it
+(the reference refreshes the file; a difference from it is printed to
+stderr).  The reference's ``kernels`` and ``roofline`` parts are not
+ported (ROADMAP A14b).
 
 Full-budget run: PYTHONHASHSEED=0 PYTHONPATH=src python -m repro_torch.benchmarks.run
 Quick run:       PYTHONHASHSEED=0 PYTHONPATH=src python -m repro_torch.benchmarks.run --quick
@@ -14,9 +19,10 @@ Quick run:       PYTHONHASHSEED=0 PYTHONPATH=src python -m repro_torch.benchmark
 from __future__ import annotations
 
 import argparse
+import sys
 
-PARTS = ("fig1", "fig2", "fig3", "table3", "table5")
-UNPORTED = ("kernels", "serving", "roofline")
+PARTS = ("fig1", "fig2", "fig3", "table3", "table5", "serving")
+UNPORTED = ("kernels", "roofline")
 
 
 def fig1_rows(tasks, steps, scale, device):
@@ -57,6 +63,20 @@ def table5_rows(points, steps, scale, device):
         yield f"{name}.CBE", 0.0, row["cbe_ratio"]
 
 
+def serving_rows(device):
+    from repro_torch.benchmarks import bench_serving as bs
+    rows = bs.run(device)   # one seeded run per case: no quick/full split
+    for row in rows:
+        if row["name"].endswith(".speedup"):
+            yield f"serving.{row['name']}", 0.0, row["decode_step_speedup"]
+        else:
+            yield (f"serving.{row['name']}", 1e6 * row.get("wall_s", 0.0),
+                   row["utilization"])
+    for failure in bs.check_against(rows):
+        print(f"serving: differs from {bs.JSON_PATH.name}: {failure}",
+              file=sys.stderr)
+
+
 def csv_line(name, us, derived) -> str:
     return f"{name},{us:.2f},{derived:.4f}"
 
@@ -77,7 +97,7 @@ def main(argv=None) -> None:
         bad = sorted(only - set(PARTS))
         ap.error(f"unknown or unported parts {bad}: the port has "
                  f"{','.join(PARTS)} ({','.join(UNPORTED)} are not ported, "
-                 f"ROADMAP A11)")
+                 f"ROADMAP A14b)")
     from repro_torch.kernels.common import resolve_device
     device = resolve_device(args.device)
 
@@ -102,6 +122,8 @@ def main(argv=None) -> None:
             (("MSD", 0.1),) if quick
             else (("MSD", 0.1), ("MSD", 0.3), ("AMZ", 0.2)),
             steps, scale, device))
+    if want("serving"):
+        parts.append(serving_rows(device))
     for rows in parts:
         for row in rows:
             print(csv_line(*row), flush=True)

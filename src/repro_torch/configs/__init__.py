@@ -4,22 +4,24 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import qwen1_5_0_5b
+from repro_torch.configs import (granite_8b, phi3_mini_3_8b, qwen1_5_0_5b,
+                                 qwen3_4b)
 from repro_torch.configs.base import (  # noqa: F401
-    BloomConfig, ModelConfig, TrainConfig)
+    BloomConfig, ModelConfig, ShapeConfig, TrainConfig)
 from repro_torch.configs.retrieval import (  # noqa: F401
     RETRIEVAL_CONFIGS,
     RetrievalConfig,
     get_retrieval_config,
 )
 
-ARCH_MODULES = {qwen1_5_0_5b.ARCH: qwen1_5_0_5b}
+# the JAX package's registry order, ported archs only
+ARCH_MODULES = {m.ARCH: m for m in (phi3_mini_3_8b, granite_8b, qwen3_4b,
+                                    qwen1_5_0_5b)}
 ARCH_NAMES = tuple(ARCH_MODULES)
 
 # the JAX package's other architectures, which wait for ROADMAP A12
-UNPORTED_ARCHS = ("pixtral-12b", "phi3-mini-3.8b", "granite-8b", "qwen3-4b",
-                  "whisper-small", "deepseek-moe-16b", "olmoe-1b-7b",
-                  "jamba-v0.1-52b", "mamba2-1.3b")
+UNPORTED_ARCHS = ("pixtral-12b", "whisper-small", "deepseek-moe-16b",
+                  "olmoe-1b-7b", "jamba-v0.1-52b", "mamba2-1.3b")
 
 
 def _module(arch: str):

@@ -8,8 +8,10 @@ and frontend fields and ``param_dtype`` (a ``family`` other than
 port's IO path follows the tensors' device: kernel on CUDA, plain version
 on the CPU); the XLA execution knobs (``scan_layers``, ``remat``,
 ``attn_chunk_*``, ``attn_impl``, ``causal_skip``, ``attn_bf16_scores``,
-``moe_impl``, ``unroll_for_analysis``); and the shape and mesh configs,
-which no ported module reads.  ``bwd_impl`` picks the Bloom embedding's
+``moe_impl``, ``unroll_for_analysis``); the mesh config and the
+reference's ``SHAPES`` cells, which wait for the dry run (ROADMAP A13).
+``ShapeConfig`` is copied whole (``launch/steps.init_caches_for`` reads
+it).  ``bwd_impl`` picks the Bloom embedding's
 backward, "csr" (the CSR scatter-add) or "dense" (the dense m-tile
 sweep), as in the reference.  ``table_dtype`` and ``bwd_impl`` are
 validated when the config is made: an unknown value raises
@@ -96,6 +98,20 @@ class ModelConfig:
             n += D * V
         n += self.num_layers * (attn + dense_ffn + 2 * D)  # + two pre-norms
         return n + D  # final norm
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (assigned per-arch)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train|prefill|decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
 
 
 @dataclasses.dataclass(frozen=True)

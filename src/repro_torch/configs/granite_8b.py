@@ -1,0 +1,37 @@
+"""granite-8b [dense]: llama-arch code model.  36L d_model=4096 32H
+(GQA kv=8) d_ff=14336 vocab=49152.  [arXiv:2405.04324; hf]
+
+Copied from the JAX package's ``configs/granite_8b.py``; the smoke
+variant drops only the reference's attention chunk sizes, which the port
+has no field for.
+"""
+import dataclasses
+
+from repro_torch.configs.base import BloomConfig, ModelConfig
+
+ARCH = "granite-8b"
+
+
+def config(bloom: bool = True) -> ModelConfig:
+    return ModelConfig(
+        name=ARCH,
+        family="dense",
+        num_layers=36,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=14336,
+        vocab=49152,
+        rope_theta=10_000.0,
+        bloom=BloomConfig(enabled=bloom, m_ratio=0.2, k=4),
+    )
+
+
+def smoke() -> ModelConfig:
+    return dataclasses.replace(
+        config(),
+        num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+        d_ff=128, vocab=512, dtype="float32",
+        bloom=BloomConfig(enabled=True, m_ratio=0.25, k=3),
+    )

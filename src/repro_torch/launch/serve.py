@@ -1,17 +1,19 @@
-"""Serving driver: thin CLI over the continuous-batching engine.
+"""Serving entry point: thin CLI over the continuous-batching engine and
+the whole-batch path.
 
 The default mode builds a seeded Poisson workload (serving/loadgen.py) and
-serves it through ``serving.engine.Engine``: requests are admitted into
-freed cache slots every decode step and retired on per-slot stop
-conditions.  Every prefill and decode step embeds its tokens through the
-Bloom embedding (the ``bloom_embed`` CUDA kernel on a GPU) and recovers
-the next token by the paper's Eq. 3 top-k over the original vocab (the
-``bloom_decode_topk`` CUDA kernel).  ``--static`` serves the same workload
-by static batching (``Engine.run_static``), the A/B baseline.
-``--table-dtype`` (int8, fp8_e4m3, bfloat16, float32) stores the Bloom
-tables narrow: the embedding table is quantized once at set-up and
-gathered by the quantized ``bloom_embed`` variant, and every Eq. 3 decode
-quantizes its logp rows and rehashes the vocab in the kernel.
+serves it through ``serving.engine.Engine`` (``run_continuous``): requests
+are admitted into freed cache slots every decode step and retired on
+per-slot stop conditions.  Every prefill and decode step embeds its tokens
+through the Bloom embedding (the ``bloom_embed`` CUDA kernel on a GPU) and
+recovers the next token by the paper's Eq. 3 top-k over the original
+vocab (the ``bloom_decode_topk`` CUDA kernel).  ``--static`` is the
+whole-batch path (``run``): ``--batch`` seeded prompts of one length,
+prefilled together, then greedy decoding at one shared position until
+``--gen`` tokens.  ``--table-dtype`` (int8, fp8_e4m3, bfloat16, float32)
+stores the Bloom tables narrow: the embedding table is quantized once at
+set-up and gathered by the quantized ``bloom_embed`` variant, and every
+Eq. 3 decode quantizes its logp rows and rehashes the vocab in the kernel.
 
 ``--mode retrieval`` serves one-shot Bloom top-k retrieval requests (Zipf
 item lookups over a configs/retrieval.py catalog preset) through
@@ -19,28 +21,36 @@ item lookups over a configs/retrieval.py catalog preset) through
 ``--failpoints`` and the overload flags (``--deadline-slack`` /
 ``--max-queue-depth``) apply there too.
 
-Weights are random, drawn on the CPU from ``--seed`` by the port's own
-init, then cast to the compute dtype and moved to the device.  It runs on
-CUDA unless ``--device cpu`` is given (smoke size unless ``--full``), and
-raises when CUDA is asked for and absent.
+Weights are random, drawn from ``--seed`` (``build_model``, the
+reference's ``_setup``): on the CPU by the port's own init, on CUDA on the
+card, so the two devices serve different weights for one seed.  It runs
+on CUDA unless ``--device cpu`` is given (smoke size unless ``--full``),
+and raises when CUDA is asked for and absent.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --full --slots 8 --requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
+      --full --static --batch 4 --prompt-len 32 --gen 12
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
-      --device cpu --slots 3 --requests 10 --topk 4 [--static] \\
-      [--table-dtype int8]
+      --device cpu --slots 3 --requests 10 --topk 4 [--table-dtype int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
       --retrieval-config smoke --device cpu --requests 16
 """
 from __future__ import annotations
 
 import argparse
+import time
+
+import numpy as np
+import torch
 
 from repro_torch import configs
 from repro_torch.kernels import common as kernels_common
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch import steps as steps_lib
+from repro_torch.models import io as io_lib
+from repro_torch.models import transformer as tf
 from repro_torch.serving import retrieval as retrieval_lib
 from repro_torch.serving.admission import AdmissionPolicy
 from repro_torch.serving.engine import Engine, mean_latency
@@ -75,31 +85,115 @@ def _print_policy(stats):
 
 
 def build_model(cfg, seed: int, device):
-    """Random serving weights: drawn from ``seed`` in f32 on the CPU, cast
-    to the compute dtype once, then moved to ``device``."""
-    model = steps_lib.init_fn_for(cfg)(seed)
+    """The serving model on ``device``: random weights drawn there from a
+    generator of that device seeded with ``seed``, then cast param by
+    param to the compute dtype (``cast_params_for_compute``), so the host
+    never holds a card's model.  On the CPU this is the port's init
+    (``steps.init_fn_for``); the card's generator draws other weights."""
+    device = torch.device(device)
+    with device:
+        model = tf.TransformerLM(cfg,
+                                 torch.Generator(device).manual_seed(seed))
     model = steps_lib.cast_params_for_compute(model, cfg)
-    return model.to(device).eval().requires_grad_(False)
+    return model.eval().requires_grad_(False)
 
 
-def run_lm(arch: str, slots: int = 4, requests: int = 16,
-           rate: float = 1.0, prompt_len: int = 32, gen: int = 16,
-           topk: int = 8, seed: int = 0, full: bool = False,
-           static: bool = False, eos_id: int | None = None,
-           prefill_workers: int = 1, failpoints: str | None = None,
-           deadline_slack: int | None = None,
-           max_queue_depth: int | None = None,
-           table_dtype: str | None = None, device=None):
-    """Serve a seeded Poisson workload continuously (or, with ``static``,
-    by static batching over the same pool), with the Bloom tables stored
-    as ``table_dtype`` (default: the config's, "auto")."""
+def _config(arch: str, full: bool, table_dtype: str | None = None):
+    over = {} if table_dtype is None else {"table_dtype": table_dtype}
+    return (configs.get_config(arch, **over) if full
+            else configs.get_smoke_config(arch, **over))
+
+
+def _setup(arch: str, full: bool, table_dtype, seed: int, device):
+    """(device, cfg, serving model) for ``run`` and ``run_continuous``:
+    the kernels are built first on a card (nvcc at first use), so the
+    build is not in a run's wall."""
     device = resolve_device(device)
     if device.type == "cuda":
-        kernels_common.build()     # nvcc at first use: not in the run's wall
-    over = {} if table_dtype is None else {"table_dtype": table_dtype}
-    cfg = (configs.get_config(arch, **over) if full
-           else configs.get_smoke_config(arch, **over))
-    model = build_model(cfg, seed, device)
+        kernels_common.build()
+    cfg = _config(arch, full, table_dtype)
+    return device, cfg, build_model(cfg, seed, device)
+
+
+def pad_caches_to(caches_small, caches_template):
+    """Place prefill caches (length S_p) into preallocated max-length
+    buffers: the whole-batch case (slot 0, every row) of the engine's
+    slot-indexed ``steps.insert_cache_slot``."""
+    return steps_lib.insert_cache_slot(caches_template, caches_small, 0)
+
+
+def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int):
+    """Whole-batch greedy generation on a built model: prefill ``prompts``
+    (B, S) together, place the caches into (B, S + gen) buffers
+    (``pad_caches_to``), recover the first token from the last prefill
+    logits, then decode ``gen - 1`` steps, every row at position
+    S + t (``make_decode_step``).  Returns (ids (B, gen) int32 numpy,
+    prefill seconds, decode seconds); each window ends with the device
+    synchronised."""
+    device = model.embed.device
+    B, S = prompts.shape
+    prefill = steps_lib.make_prefill_step(cfg)
+    decode = steps_lib.make_decode_step(cfg, topk, device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    pre = prefill(model, torch.as_tensor(prompts, device=device))
+    caches = pad_caches_to(pre["caches"],
+                           tf.init_lm_cache(cfg, B, S + gen, device=device))
+    sync()
+    t_prefill = time.perf_counter() - t0
+
+    with torch.inference_mode():
+        _, ids = io_lib.recover_topk(cfg, pre["last_logits"], topk=topk)
+    token = ids[:, :1]
+    generated = [token.cpu()]
+    t0 = time.perf_counter()
+    for t in range(gen - 1):
+        out = decode(model, token, caches, S + t)
+        caches = out["caches"]
+        token = out["topk_ids"][:, :1]
+        generated.append(token.cpu())
+    t_decode = time.perf_counter() - t0
+    return torch.cat(generated, 1).numpy(), t_prefill, t_decode
+
+
+def run(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
+        topk: int = 8, seed: int = 0, full: bool = False,
+        table_dtype: str | None = None, device=None):
+    """Static whole-batch serving (``--static``): ``batch`` seeded prompts
+    of ``prompt_len`` tokens, ``gen`` greedy tokens each (``generate``).
+    Prints the prefill and decode times and the first sequence's ids;
+    returns the (batch, gen) ids."""
+    device, cfg, model = _setup(arch, full, table_dtype, seed, device)
+    steps_lib.warm_bloom_caches(cfg, model)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len),
+                           dtype=np.int32)
+    ids, t_prefill, t_decode = generate(cfg, model, prompts, gen, topk)
+    print(f"whole-batch serving ({cfg.name} {cfg.num_layers}L d_model "
+          f"{cfg.d_model}, table_dtype {cfg.table_dtype}, {device})")
+    print(f"prefill {prompt_len} toks x{batch}: {t_prefill * 1e3:.0f} ms")
+    print(f"decode  {gen - 1} steps: {t_decode * 1e3:.0f} ms "
+          f"({(gen - 1) * batch / max(t_decode, 1e-9):.0f} tok/s)")
+    print("generated ids (first seq):", ids[0].tolist())
+    return ids
+
+
+def run_continuous(arch: str, slots: int = 4, requests: int = 16,
+                   rate: float = 1.0, prompt_len: int = 32, gen: int = 16,
+                   topk: int = 8, seed: int = 0, full: bool = False,
+                   eos_id: int | None = None, prefill_workers: int = 1,
+                   failpoints: str | None = None,
+                   deadline_slack: int | None = None,
+                   max_queue_depth: int | None = None,
+                   table_dtype: str | None = None, device=None):
+    """Serve a seeded Poisson workload by continuous batching, with the
+    Bloom tables stored as ``table_dtype`` (default: the config's,
+    "auto")."""
+    device, cfg, model = _setup(arch, full, table_dtype, seed, device)
     spec = LoadSpec(
         n_requests=requests, vocab=cfg.vocab, rate=rate,
         prompt_lens=(max(prompt_len // 2, 2), prompt_len),
@@ -112,14 +206,12 @@ def run_lm(arch: str, slots: int = 4, requests: int = 16,
                     failpoints=FailPlan.parse(failpoints),
                     admission_policy=_overload_policy(deadline_slack,
                                                       max_queue_depth))
-    results, stats = (engine.run_static(workload) if static
-                      else engine.run(workload))
+    results, stats = engine.run(workload)
     _print_policy(stats)
     row = stats.as_row()
     print(f"served {len(results)} requests on {slots} slots "
-          f"({'static' if static else 'continuous'}, {cfg.name} "
-          f"{cfg.num_layers}L d_model {cfg.d_model}, table_dtype "
-          f"{cfg.table_dtype}, {device}): "
+          f"(continuous, {cfg.name} {cfg.num_layers}L d_model "
+          f"{cfg.d_model}, table_dtype {cfg.table_dtype}, {device}): "
           f"{row['decode_steps']} decode steps, "
           f"utilization {row['utilization']:.2f}, "
           f"mean latency {mean_latency(results):.1f} steps")
@@ -180,11 +272,15 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="the full-width config (default: its smoke size)")
     ap.add_argument("--static", action="store_true",
-                    help="static batching over the same pool (A/B)")
+                    help="the whole-batch path (A/B baseline): --batch "
+                         "prompts prefilled together, decoded at one "
+                         "position")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="batch size (--static path)")
     ap.add_argument("--slots", type=int, default=4,
-                    help="cache-pool slots")
+                    help="cache-pool slots (continuous path)")
     ap.add_argument("--requests", type=int, default=16,
-                    help="workload size")
+                    help="workload size (continuous path)")
     ap.add_argument("--rate", type=float, default=None,
                     help="Poisson arrivals per decode step (default 1.0, "
                          "2.0 for --mode retrieval)")
@@ -235,11 +331,15 @@ def main(argv=None):
         return
     if args.arch is None:
         ap.error("--arch is required with --mode lm")
-    run_lm(args.arch, rate=1.0 if args.rate is None else args.rate,
-           prompt_len=args.prompt_len, gen=args.gen, topk=args.topk,
-           full=args.full, static=args.static, eos_id=args.eos_id,
-           table_dtype=args.table_dtype, **common)
-
+    if args.static:
+        run(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+            gen=args.gen, topk=args.topk, seed=args.seed, full=args.full,
+            table_dtype=args.table_dtype, device=args.device)
+        return
+    run_continuous(args.arch, rate=1.0 if args.rate is None else args.rate,
+                   prompt_len=args.prompt_len, gen=args.gen, topk=args.topk,
+                   full=args.full, eos_id=args.eos_id,
+                   table_dtype=args.table_dtype, **common)
 
 if __name__ == "__main__":
     main()

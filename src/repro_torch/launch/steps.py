@@ -6,23 +6,48 @@ LM training: ``make_train_step`` casts the f32 master params to the
 compute dtype inside the step (differentiably), takes the loss and its
 gradients (``value_and_grad``), and applies the optimizer's update to the
 master params.  LM serving: ``init_fn_for`` + ``cast_params_for_compute``
-make the serving model, ``make_prefill_step`` / ``make_slot_decode_step``
-run it (the decode step includes the paper's Eq. 3 top-k recovery, so
-serving cost is end to end), ``warm_bloom_caches`` pre-builds a quantized
-embedding table (and, for a differentiated decode, the CSR bins of the
-vocab hash matrix), and ``insert_cache_slot`` writes a prefill's caches into
-the slot pool.
+make the serving model, ``make_prefill_step`` runs the prompt, and
+``make_decode_step`` (the whole batch at one position) or
+``make_slot_decode_step`` (a slot pool, each row at its own position) one
+token (both include the paper's Eq. 3 top-k recovery, so serving cost is
+end to end); ``init_caches_for`` allocates the decode caches,
+``warm_bloom_caches`` pre-builds a quantized embedding table (and, for a
+differentiated decode, the CSR bins of the vocab hash matrix), and
+``insert_cache_slot`` writes a prefill's caches into the slot pool.
+``loss_fn_for`` and ``apply_fn_for`` give the family's objective and
+forward; the encoder-decoder family (``audio``) is not ported.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core import bloom as bloom_lib
 from repro_torch.models import io as io_lib
 from repro_torch.models import transformer as tf
-from repro_torch.optim import optimizers as opt_lib
 from repro_torch.train import trainer as trainer_lib
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family (audio) is not ported "
+            "yet (ROADMAP A12 item 6)")
+
+
+def loss_fn_for(cfg: ModelConfig):
+    """(model, batch) -> (loss, metrics): the LM objective
+    (``transformer.lm_loss_fn``)."""
+    _check_family(cfg)
+    return lambda model, batch: tf.lm_loss_fn(model, cfg, batch)
+
+
+def apply_fn_for(cfg: ModelConfig):
+    """The family's forward, ``transformer.lm_apply``."""
+    _check_family(cfg)
+    return tf.lm_apply
 
 
 def init_fn_for(cfg: ModelConfig):
@@ -81,12 +106,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
 
     def step(model, opt_state, batch):
         loss, metrics, grads = value_and_grad(model, cfg, batch)
-        params = {n: p.detach() for n, p in model.named_parameters()}
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        new = opt_lib.apply_updates(params, updates)
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(new[name])
+        opt_state = trainer_lib.apply_gradients(
+            dict(model.named_parameters()), grads, optimizer, opt_state)
         return opt_state, {"loss": loss, **metrics}
 
     return step, optimizer
@@ -105,11 +126,31 @@ def make_prefill_step(cfg: ModelConfig):
     return step
 
 
+def make_decode_step(cfg: ModelConfig, topk: int, device):
+    """Whole-batch decode step on ``device`` (the static path).
+
+    (model, token (B, 1), caches, pos int) ->
+        {logits (B, 1, m_vocab), caches, topk_scores, topk_ids}
+
+    The slot step (``make_slot_decode_step``) with every row at the one
+    sequence offset ``pos`` and no ``active`` mask, so the Eq. 3 recovery
+    takes the decode-top-k kernel's dense grid on CUDA.
+    """
+    slot_step = make_slot_decode_step(cfg, topk, device)
+
+    def step(model, token, caches, pos):
+        rows = torch.full((token.shape[0],), int(pos), dtype=torch.long,
+                          device=token.device)
+        return slot_step(model, token, caches, rows, None)
+
+    return step
+
+
 def make_slot_decode_step(cfg: ModelConfig, topk: int, device):
     """Continuous-batching decode step over a slot pool on ``device``.
 
-    (model, token (B, 1), caches, pos (B,), active (B,)) ->
-        {caches, topk_scores, topk_ids}
+    (model, token (B, 1), caches, pos (B,), active (B,) or None) ->
+        {logits (B, 1, m_vocab), caches, topk_scores, topk_ids}
 
     Every slot decodes at its own sequence offset ``pos``; ``active``
     masks the Eq. 3 recovery so retired slots never leak tokens (and the
@@ -129,8 +170,8 @@ def make_slot_decode_step(cfg: ModelConfig, topk: int, device):
                           pos=pos)
         scores, ids = io_lib.recover_topk(cfg, out["logits"][:, 0],
                                           topk=topk, active=active)
-        return {"caches": out["caches"], "topk_scores": scores,
-                "topk_ids": ids}
+        return {"logits": out["logits"], "caches": out["caches"],
+                "topk_scores": scores, "topk_ids": ids}
 
     return step
 
@@ -162,16 +203,28 @@ def warm_bloom_caches(cfg: ModelConfig, model: torch.nn.Module,
 
 @torch.inference_mode()
 def insert_cache_slot(pool, caches_small, slot: int):
-    """Write one request's prefill caches (per layer (1, S, KV, hd)) into
-    slot ``slot`` of the pool (per layer (n_slots, T, KV, hd)) at positions
-    [0, S), in place; returns the pool.  Stale entries past S from an
-    earlier occupant are never read: decode attends only to positions
-    <= the slot's offset and writes each position before reaching it."""
+    """Write a prefill's caches (per layer (B, S, KV, hd)) into rows
+    [slot, slot + B) of the pool (per layer (n_slots, T, KV, hd)) at
+    positions [0, S), in place; returns the pool.  One request is B = 1;
+    a whole-batch prefill at slot 0 fills the pool (``serve.pad_caches_to``).
+    Stale entries past S from an earlier occupant are never read: decode
+    attends only to positions <= the slot's offset and writes each
+    position before reaching it."""
     for buf, small in zip(pool, caches_small):
         for name in ("k", "v"):
             s = small[name]
-            buf[name][slot, :s.shape[1]] = s[0].to(buf[name].dtype)
+            buf[name][slot:slot + s.shape[0], :s.shape[1]] = \
+                s.to(buf[name].dtype)
     return pool
+
+
+def init_caches_for(cfg: ModelConfig, shape: ShapeConfig):
+    """``(dtype=..., device=...) -> caches``: zeroed decode caches of
+    ``shape.global_batch`` rows of ``shape.seq_len`` positions
+    (``transformer.init_lm_cache``)."""
+    _check_family(cfg)
+    return functools.partial(tf.init_lm_cache, cfg, shape.global_batch,
+                             shape.seq_len)
 
 
 def make_retrieval_prefill_step(rcfg):

@@ -1,5 +1,6 @@
 """Self-attention of the dense decoder: q/k/v/o projections with the
-optional QKV bias, causal full-sequence attention for training, causal
+optional QKV bias and the optional per-head RMSNorm of q and k
+(``qk_norm``, qwen3-style), causal full-sequence attention for training, causal
 prefill that also emits the KV cache, and the single-token slot decode
 against that cache.
 
@@ -8,7 +9,8 @@ outside any Pallas kernel, so the port computes it in plain PyTorch
 (matmuls and an f32 softmax), and training differentiates it by autograd
 where the reference has a chunked flash-style ``custom_vjp``.  Weights
 keep the reference's layout: ``wq`` (D, H, hd), ``wk`` / ``wv``
-(D, KV, hd), ``wo`` (H, hd, D), biases (H, hd) / (KV, hd).  The
+(D, KV, hd), ``wo`` (H, hd, D), biases (H, hd) / (KV, hd), the q/k
+norm gains (hd,).  The
 reference's flash-style chunking, its cross attention and its
 sharded-cache decode are not ported: they serve memory limits of long
 sequences and models this path does not run.
@@ -47,13 +49,15 @@ class Attention(nn.Module):
             self.bk = nn.Parameter(torch.zeros(KV, hd))
             self.bv = nn.Parameter(torch.zeros(KV, hd))
         if cfg.qk_norm:
-            raise NotImplementedError(
-                "qk_norm (qwen3-style) is not ported yet (ROADMAP A12)")
+            self.q_norm = nn.Parameter(torch.ones(hd))
+            self.k_norm = nn.Parameter(torch.ones(hd))
 
 
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor):
-    """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, KV, hd), RoPE'd."""
+    """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, KV, hd): biased,
+    q and k RMS-normed per head (``qk_norm``), then RoPE'd, in the
+    reference's order."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
@@ -62,6 +66,9 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         q = q + p.bq.to(dt)
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
+    if cfg.qk_norm:
+        q = layers.rms_norm(p.q_norm, q, cfg.norm_eps)
+        k = layers.rms_norm(p.k_norm, k, cfg.norm_eps)
     if cfg.use_rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)

@@ -185,7 +185,9 @@ def lm_params_from_jax(tree: Mapping, cfg: ModelConfig
         sd[pre + "norm1"] = t(sub["norm1"]["scale"][i])
         sd[pre + "norm2"] = t(sub["norm2"]["scale"][i])
         for name, a in sub["attn"].items():
-            sd[pre + "attn." + name] = t(a[i])
+            # the q/k norm gains are {"scale": (L, hd)} like the block norms
+            sd[pre + "attn." + name] = t(a["scale"][i] if isinstance(a, dict)
+                                         else a[i])
         for name, a in sub["ffn"].items():
             sd[pre + "ffn." + name] = t(a[i])
     return sd

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -48,6 +48,20 @@ def _tree_map(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def apply_gradients(params: Dict[str, torch.Tensor],
+                    grads: Dict[str, torch.Tensor], optimizer, opt_state):
+    """One optimizer update: ``optimizer.update`` on ``grads``, then
+    ``(p + u).to(p.dtype)`` written into ``params`` (name -> parameter)
+    in place; returns the new optimizer state."""
+    detached = {n: p.detach() for n, p in params.items()}
+    updates, opt_state = optimizer.update(grads, opt_state, detached)
+    new = opt_lib.apply_updates(detached, updates)
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(new[n])
+    return opt_state
 
 
 def make_train_step(loss_fn: Callable, optimizer, microbatch: int = 0):
@@ -96,12 +110,7 @@ def make_train_step(loss_fn: Callable, optimizer, microbatch: int = 0):
                        for k in chunk_metrics[0]}
         else:
             loss, metrics, g = grads_of(model, params, batch)
-        detached = {n: p.detach() for n, p in params.items()}
-        updates, opt_state = optimizer.update(g, opt_state, detached)
-        new = opt_lib.apply_updates(detached, updates)
-        with torch.no_grad():
-            for n, p in params.items():
-                p.copy_(new[n])
+        opt_state = apply_gradients(params, g, optimizer, opt_state)
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["grad_norm"] = opt_lib.global_norm(g)

@@ -81,7 +81,7 @@ def test_config_matches_the_reference(models):
         assert dataclasses.asdict(t.bloom) == dataclasses.asdict(j.bloom)
         assert t.param_count() == j.param_count()
     with pytest.raises(NotImplementedError, match="A12"):
-        tconfigs.get_config("qwen3-4b")
+        tconfigs.get_config("deepseek-moe-16b")
     assert tconfigs.get_config(ARCH, table_dtype="int8").table_dtype == \
         "int8"
     with pytest.raises(ValueError, match="table_dtype must be one of"):
@@ -92,35 +92,17 @@ def test_config_matches_the_reference(models):
 
 def test_compute_cast_matches_the_reference_set():
     """The reference casts every floating param with ndim >= 2 of its
-    layer-stacked tree: the per-layer norm gains and the (H, hd) QKV
-    biases go to the compute dtype, the final norm's 1-D gain stays f32.
-    The port casts the same set, checked name by name."""
-    jcfg = jconfigs.get_smoke_config(ARCH, dtype="bfloat16")
-    tcfg = tconfigs.get_smoke_config(ARCH, dtype="bfloat16")
-    jp = j_steps.cast_params_for_compute(
-        j_steps.init_fn_for(jcfg)(jax.random.PRNGKey(0)), jcfg)
-    j_bf16 = {jax.tree_util.keystr(k) for k, v in
-              jax.tree_util.tree_flatten_with_path(jp)[0]
-              if v.dtype == jnp.bfloat16}
-    model = t_steps.cast_params_for_compute(t_tf.TransformerLM(tcfg), tcfg)
-
-    def jax_key(name):
-        parts = name.split(".")
-        if parts[0] == "embed":
-            return "['io']['embed']"
-        if parts[0] == "final_norm":
-            return "['final_norm']['scale']"
-        rest = parts[2:] + (["scale"] if parts[2].startswith("norm")
-                            else [])
-        return "['blocks']['sub0']" + "".join(f"['{p}']" for p in rest)
-
-    t_bf16 = {jax_key(n) for n, p in model.named_parameters()
-              if p.dtype == torch.bfloat16}
-    t_f32 = {jax_key(n) for n, p in model.named_parameters()
-             if p.dtype == torch.float32}
-    assert t_bf16 == j_bf16 and not t_bf16 & t_f32
-    assert "['blocks']['sub0']['attn']['bq']" in t_bf16
-    assert t_f32 == {"['final_norm']['scale']"}
+    layer-stacked tree: the per-layer norm gains, the (H, hd) QKV biases
+    and qwen3-4b's per-layer q/k norm gains go to the compute dtype, the
+    final norm's 1-D gain stays f32.  The port casts the same set, checked
+    name by name, for this arch and for qwen3-4b (``qk_norm``)."""
+    from test_torch_dense_archs import cast_sets
+    for arch, extra in ((ARCH, "['bq']"),
+                        ("qwen3-4b", "['q_norm']['scale']")):
+        j_bf16, t_bf16, t_f32 = cast_sets(arch)
+        assert t_bf16 == j_bf16 and not t_bf16 & t_f32
+        assert "['blocks']['sub0']['attn']" + extra in t_bf16
+        assert t_f32 == {"['final_norm']['scale']"}
 
 
 def test_embed_tokens_matches(models):

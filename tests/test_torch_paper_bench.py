@@ -397,7 +397,7 @@ def test_run_prints_the_reference_csv_rows(monkeypatch, capsys, quick):
     assert len(got) == (32 if quick else 62)
 
 
-@pytest.mark.parametrize("part", ["kernels", "serving", "roofline", "fig9"])
+@pytest.mark.parametrize("part", ["kernels", "roofline", "fig9"])
 def test_run_rejects_parts_it_does_not_have(capsys, part):
     with pytest.raises(SystemExit):
         t_run.main(["--only", f"fig1,{part}", "--device", "cpu"])

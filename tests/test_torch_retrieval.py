@@ -277,7 +277,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         "'benchmarks.bench_fig3_time', "
         "'benchmarks.bench_table3_alternatives', "
         "'benchmarks.bench_table5_cbe', 'benchmarks.run', "
-        "'benchmarks.paper_phase'):\n"
+        "'benchmarks.paper_phase', 'configs.common', 'configs.qwen3_4b', "
+        "'configs.granite_8b', 'configs.phi3_mini_3_8b', "
+        "'benchmarks.bench_serving', 'examples.quickstart', "
+        "'examples.train_recommender', 'examples.cbe_cooccurrence', "
+        "'examples.serve_bloom_lm', 'examples.train_lm_100m'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

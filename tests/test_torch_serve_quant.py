@@ -230,14 +230,23 @@ def test_lm_quantized_embed_matches_the_reference_io(lm_models):
 
 
 def test_serve_cli_serves_every_request_with_a_quantized_table(capsys):
+    """Continuous serving with an int8 table, and the whole-batch path
+    (``--static --batch``) with an fp8 table, on the CPU: no launch."""
     from repro_torch.launch import serve
-    for td, extra in (("int8", []), ("fp8_e4m3", ["--static"])):
+    for td, extra in (("int8", []),
+                      ("fp8_e4m3", ["--static", "--batch", "3",
+                                    "--prompt-len", "8", "--gen", "5"])):
         common.reset_launches()
         serve.main(["--arch", ARCH, "--device", "cpu", "--slots", "3",
                     "--requests", "10", "--topk", "4", "--table-dtype", td,
                     *extra])
         out = capsys.readouterr().out
-        assert "served 10 requests on 3 slots" in out
+        if extra:
+            assert "prefill 8 toks x3:" in out and "decode  4 steps:" in out
+            ids = out.split("generated ids (first seq): ")[1].splitlines()[0]
+            assert len(ids.strip("[]").split(",")) == 5
+        else:
+            assert "served 10 requests on 3 slots" in out
         assert f"table_dtype {td}" in out and common.LAUNCHES == {}
 
 
