@@ -211,10 +211,45 @@ Phases, one line of numbers each:
                 the prefill ms and decode tok/s, and the decode-top-k kernel
                 (B = 4) and the embed token kernel (T = 128 and 4) timed
                 beside their plain versions, a library call and the bound;
- 16. bench-serving — the serving bench twin's 13 rows
-                (repro_torch.benchmarks.bench_serving) on the card, held to
-                BENCH_serving.json by its check_against (the three mamba2
-                rows wait for the SSM family), counts reset just before and
+ 15b. serve-families — the MoE, SSM and hybrid archs at full width, bf16,
+                random weights drawn on the card from seed 0 block by block
+                (serve.build_model: the peak is the bf16 model plus one f32
+                block, printed): deepseek-moe-16b (28 layers, d_model 2048,
+                MHA 16 x 128, 64 routed experts top-6 + 2 shared,
+                d_ff_expert 1408, vocab 102,400, m 20,480), olmoe-1b-7b
+                (16 layers, 64 experts top-8, d_ff_expert 1024, vocab
+                50,304, m 9,984), mamba2-1.3b (48 layers, d_inner 4096, 64
+                heads of 64, d_state 128, chunk 256, vocab 50,280, m 9,984)
+                and jamba-v0.1-52b with its depth cut to 8 of 32 layers
+                (one period: attention at offset 4, no RoPE, GQA 32/8, 7
+                Mamba layers of d_state 16, MoE 16 experts top-2 of
+                d_ff_expert 14,336 on the odd layers; all 51.0 B params do
+                not fit on one card); each through launch.serve.run
+                twice as serve-batch (launch counts exactly gen each, the
+                replay's ids equal), then the loop walked step by step
+                with both kernels bit-equal to their plain versions and the
+                walk's ids equal to run's; for the MoE archs the first MoE
+                layer's capacity path held to moe_apply_reference at the
+                prefill and at the first decode step on the tokens with no
+                copy dropped (bf16 within 2^-5 x max |ref|, an f32 copy
+                within 1e-4 x), with the dropped copies counted;
+                olmoe-1b-7b also through the continuous Engine (8 slots, 16
+                mixed-length requests) twice, mamba2-1.3b through the
+                continuous and static Engine twice each (the same tokens
+                every time), and a 300-token prompt through its prefill
+                step, the first Mamba layer's last output held to
+                mamba_reference (f32 copy within 1e-4 x max |ref|, bf16
+                within 2^-5 x); every Engine launch held against its plain
+                version as it happens (``held_to_plain``, as phase 16);
+                per arch the set-up seconds and peak
+                memory, serve.run's prefill ms and decode tok/s, a walked
+                decode step's wall and device-busy share, and the two
+                kernels timed at the arch's shapes;
+ 16. bench-serving — the serving bench twin's 16 rows
+                (repro_torch.benchmarks.bench_serving; the mamba2-1.3b
+                rows since the SSM family's port) on the card, held to
+                BENCH_serving.json by its check_against, counts reset just
+                before and
                 read just after; every kernel launch of the run held
                 against its plain version on the same tensors as it
                 happens (``held_to_plain``), with as many checks as
@@ -2105,13 +2140,16 @@ def phase_paper(torch, bd, common):
 SERVE_BATCH = (4, 32, 12, 8)     # batch, prompt, gen, topk: the example's
 
 
-def _walk_batch(torch, be, dt, cfg, model, prompts, gen, topk):
+def _walk_batch(torch, be, dt, cfg, model, prompts, gen, topk,
+                phase="serve-batch", around=None):
     """serve.generate's whole-batch loop walked step by step through
     make_prefill_step and make_decode_step, holding at every step the
     embedding as the model computes it (the token kernel) bit-equal to
     the plain gather-sum, and the decode-top-k kernel's ids and scores
-    bit-equal to bloom_decode_topk_plain on the same logp.  Returns the
-    (B, gen) ids."""
+    bit-equal to bloom_decode_topk_plain on the same logp.  ``around(label,
+    step)``, if given, runs the prefill and the first decode step (it
+    calls ``step()`` and returns its result), so a phase can hold a layer
+    inside them.  Returns the (B, gen) ids."""
     from repro_torch.core import bloom
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, steps as steps_lib
@@ -2140,9 +2178,12 @@ def _walk_batch(torch, be, dt, cfg, model, prompts, gen, topk):
         _check(torch.equal(ids, pi) and torch.equal(scores, pv),
                f"{cfg.name} {label}: decode-top-k kernel != plain version")
 
+    def run(label, step):
+        return step() if around is None else around(label, step)
+
     tokens = torch.as_tensor(prompts, device=dev)
     check_embed(tokens, "prefill")
-    pre = prefill(model, tokens)
+    pre = run("prefill", lambda: prefill(model, tokens))
     caches = serve.pad_caches_to(
         pre["caches"], tf.init_lm_cache(cfg, B, S + gen, device=dev))
     with torch.inference_mode():
@@ -2151,7 +2192,8 @@ def _walk_batch(torch, be, dt, cfg, model, prompts, gen, topk):
     token, out_ids = ids[:, :1], [ids[:, :1]]
     for t in range(gen - 1):
         check_embed(token, f"decode step {t + 1}")
-        out = decode(model, token, caches, S + t)
+        step = lambda: decode(model, token, caches, S + t)  # noqa: E731
+        out = run("decode step 1", step) if t == 0 else step()
         caches = out["caches"]
         check_decode(out["logits"][:, 0], out["topk_scores"],
                      out["topk_ids"], f"decode step {t + 1}")
@@ -2170,14 +2212,15 @@ def _walk_batch(torch, be, dt, cfg, model, prompts, gen, topk):
     split = _device_split(torch, step, calls=5)
     busy_ms = sum(split.values()) / 1e3
     top = dict(sorted(split.items(), key=lambda kv: -kv[1])[:6])
-    print(f"serve-batch: {cfg.name} decode step (B = {B}): wall "
+    print(f"{phase}: {cfg.name} decode step (B = {B}): wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({busy_ms / wall_ms:.4f}), top kernels: {_split_line(top)}",
           flush=True)
     return torch.cat(out_ids, 1).cpu().numpy()
 
 
-def _time_batch_kernels(torch, be, dt, common, cfg, model, B, S, topk):
+def _time_batch_kernels(torch, be, dt, common, cfg, model, B, S, topk,
+                        phase="serve-batch"):
     """The decode-top-k kernel at (B, m, d) and the embed token kernel at
     the prefill's and a decode step's T on this arch's table, beside their
     plain versions, one library call and their bounds."""
@@ -2197,7 +2240,7 @@ def _time_batch_kernels(torch, be, dt, common, cfg, model, B, S, topk):
         "plain": lambda: dt.bloom_decode_topk_plain(logp, H, topk)})
     nbytes = dt.min_bytes(B, B, m=m, d=d, k=k, topk=topk)
     bound_ms, by = _bound(nbytes, d * B * (k - 1))
-    print(f"serve-batch: {cfg.name} bloom_decode_topk B={B} m={m} d={d} "
+    print(f"{phase}: {cfg.name} bloom_decode_topk B={B} m={m} d={d} "
           f"k={k} topk={topk}: device ms (graph) / back-to-back ms (events;"
           f" plain: events only): {_times_line(times)}, bound "
           f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)", flush=True)
@@ -2217,11 +2260,37 @@ def _time_batch_kernels(torch, be, dt, common, cfg, model, B, S, topk):
         nbytes = be.min_bytes(int(torch.unique(idx64).numel()), T, k, D,
                               table.element_size(), token_itemsize=8)
         bound_ms, by = _bound(nbytes, T * (k - 1) * D)
-        print(f"serve-batch: {cfg.name} {be.token_variant_name(spec)} "
+        print(f"{phase}: {cfg.name} {be.token_variant_name(spec)} "
               f"{table.dtype} T={T} m={m} D={D} k={k}: device ms (graph) / "
               f"back-to-back ms (events; plain: events only): "
               f"{_times_line(times)}, bound {bound_ms * 1e3:.4f} us ({by}, "
               f"{nbytes} bytes)", flush=True)
+
+
+def _counted(torch, be, dt, common, phase, totals, label, cfg, fn):
+    """Run ``fn`` (a whole-batch generation of SERVE_BATCH's shape, which
+    returns the (B, gen) ids) with the counts reset just before and read
+    just after: it must launch the embed kernel's token entry and
+    bloom_decode_topk ``gen`` times each (one prefill, gen - 1 decode
+    steps), and nothing else.  Adds the counts to ``totals``; returns the
+    ids."""
+    from repro_torch.models import io as io_lib
+    B, S, gen, topk = SERVE_BATCH
+    torch.cuda.synchronize()
+    common.reset_launches()
+    ids = fn()
+    torch.cuda.synchronize()
+    counts = dict(common.LAUNCHES)
+    embed_name = be.token_variant_name(io_lib.vocab_spec(cfg))
+    _check(counts == {embed_name: gen, dt.NAME: gen},
+           f"{phase}: {label}: launched {counts}, want {gen} each "
+           f"of {embed_name} and {dt.NAME}")
+    _check(ids.shape == (B, gen) and ((0 <= ids) & (ids < cfg.vocab))
+           .all(), f"{phase}: {label}: ids {ids}")
+    for n, c in counts.items():
+        totals[n] = totals.get(n, 0) + c
+    print(f"{phase}: {label}: launches {counts}", flush=True)
+    return ids
 
 
 def phase_serve_batch(torch, be, dt, common):
@@ -2236,27 +2305,13 @@ def phase_serve_batch(torch, be, dt, common):
     import numpy as np
     from repro_torch import configs
     from repro_torch.launch import serve
-    from repro_torch.models import io as io_lib
     dev = torch.device("cuda")
     B, S, gen, topk = SERVE_BATCH
     totals = {}
 
     def counted(label, cfg, fn):
-        torch.cuda.synchronize()
-        common.reset_launches()
-        ids = fn()
-        torch.cuda.synchronize()
-        counts = dict(common.LAUNCHES)
-        embed_name = be.token_variant_name(io_lib.vocab_spec(cfg))
-        _check(counts == {embed_name: gen, dt.NAME: gen},
-               f"serve-batch: {label}: launched {counts}, want {gen} each "
-               f"of {embed_name} and {dt.NAME}")
-        _check(ids.shape == (B, gen) and ((0 <= ids) & (ids < cfg.vocab))
-               .all(), f"serve-batch: {label}: ids {ids}")
-        for n, c in counts.items():
-            totals[n] = totals.get(n, 0) + c
-        print(f"serve-batch: {label}: launches {counts}", flush=True)
-        return ids
+        return _counted(torch, be, dt, common, "serve-batch", totals, label,
+                        cfg, fn)
 
     cfg = configs.get_config("qwen3-4b")
     _check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -2319,6 +2374,320 @@ def phase_serve_batch(torch, be, dt, common):
         del model
         torch.cuda.empty_cache()
     return totals
+
+
+# the MoE, SSM and hybrid archs at full width, each as (depth run: None
+# for all its layers, the widths it must have): layers, d_model, (heads,
+# kv heads, head_dim), vocab, m, k, tied head, RoPE, (experts, top-k,
+# shared, d_ff_expert, MoE period), (d_inner, heads, head_dim, d_state,
+# chunk) of the Mamba mixer, (attention period, offset), compute dtype
+SERVE_FAMILIES = {
+    "deepseek-moe-16b": (None, (
+        28, 2048, (16, 16, 128), 102400, 20480, 4, False, True,
+        (64, 6, 2, 1408, 1), None, (0, 4), "bfloat16")),
+    "olmoe-1b-7b": (None, (
+        16, 2048, (16, 16, 128), 50304, 9984, 4, False, True,
+        (64, 8, 0, 1024, 1), None, (0, 4), "bfloat16")),
+    "mamba2-1.3b": (None, (
+        48, 2048, None, 50280, 9984, 4, False, True, None,
+        (4096, 64, 64, 128, 256), (0, 4), "bfloat16")),
+    # 8 of 32 layers (one period of the 1 attn : 7 mamba pattern): all
+    # 51.0 B params (102 GB in bf16) do not fit on one 80 GB card
+    "jamba-v0.1-52b": (8, (
+        8, 4096, (32, 8, 128), 65536, 13056, 4, False, False,
+        (16, 2, 0, 14336, 2), (8192, 128, 64, 16, 256), (8, 4),
+        "bfloat16")),
+}
+# the MoE layer against the dense oracle on the tokens none of whose
+# copies were dropped: bf16 as served (the two paths round the expert
+# products and sum the gated outputs in other orders, a few bf16 ulps of
+# the largest output), and an f32 copy of the layer on the same input
+# (TF32 off: only f32 summation order, far below any bf16 rounding)
+MOE_TOL_BF16 = 2 ** -5
+MOE_TOL_F32 = 1e-4
+# the chunked SSD path against the sequential oracle on a 300-token
+# prompt (two chunks of 256, the second zero-padded): f32 copy of the
+# layer (summation order only), and bf16 as served, where the oracle
+# rounds its state to bf16 at each of the 300 steps
+MAMBA_LONG = 300
+MAMBA_TOL_F32 = 1e-4
+MAMBA_TOL_BF16 = 2 ** -5
+
+
+def _family_shape(cfg):
+    mo, mc = cfg.moe, cfg.mamba
+    heads = None if cfg.is_attention_free else (
+        cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+    experts = None if mo is None else (
+        mo.num_experts, mo.top_k, mo.num_shared, mo.d_ff_expert,
+        cfg.moe_layer_period)
+    mamba = None if mc is None else (
+        mc.expand * cfg.d_model, mc.expand * cfg.d_model // mc.head_dim,
+        mc.head_dim, mc.d_state, mc.chunk)
+    return (cfg.num_layers, cfg.d_model, heads, cfg.vocab, cfg.m_vocab,
+            cfg.bloom.k, cfg.tie_embeddings, cfg.use_rope, experts, mamba,
+            (cfg.attn_layer_period, cfg.attn_layer_offset), cfg.dtype)
+
+
+@contextlib.contextmanager
+def _first_call(mod, name, seen):
+    """Patch ``mod.name`` so that its first call's (args, result) lands in
+    ``seen``; the model looks the function up on its module per call."""
+    fn = getattr(mod, name)
+
+    def rec(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if not seen:
+            seen.append((args, out))
+        return out
+
+    setattr(mod, name, rec)
+    try:
+        yield seen
+    finally:
+        setattr(mod, name, fn)
+
+
+def _hold_moe(torch, cfg, p, x, y, label):
+    """One MoE layer's capacity-path output ``y`` on ``x`` against
+    moe_apply_reference, on the tokens none of whose copies were dropped:
+    in bf16 as served, and for an f32 copy of the layer."""
+    import copy
+    from repro_torch.models import moe
+    D = x.shape[-1]
+    T, k = x.numel() // D, cfg.moe.top_k
+    C = moe.capacity(T, cfg)
+
+    def held(p, x, y):
+        r = moe.route(p.router, x.reshape(T, D), cfg, C)
+        whole = r.keep.reshape(T, k).all(1)
+        want = moe.moe_apply_reference(p, x, cfg).reshape(T, D)[whole]
+        got = y.reshape(T, D)[whole]
+        return (float((got.float() - want.float()).abs().max()),
+                float(want.float().abs().max()), int(whole.sum()),
+                int((~r.keep).sum()))
+
+    with torch.inference_mode():
+        err, scale, n_tok, dropped = held(p, x, y)
+        p32, x32 = copy.deepcopy(p).float(), x.float()
+        err32, scale32, n32, dropped32 = held(
+            p32, x32, moe.moe_apply(p32, x32, cfg)[0])
+        del p32
+    _check(n_tok > 0 and err <= MOE_TOL_BF16 * scale,
+           f"serve-families: {cfg.name} {label}: MoE capacity path vs "
+           f"moe_apply_reference: max abs err {err} over {n_tok} tokens, "
+           f"limit {MOE_TOL_BF16} x {scale}")
+    _check(n32 > 0 and err32 <= MOE_TOL_F32 * scale32,
+           f"serve-families: {cfg.name} {label}: f32 MoE capacity path vs "
+           f"moe_apply_reference: max abs err {err32}, limit {MOE_TOL_F32} "
+           f"x {scale32}")
+    print(f"serve-families: {cfg.name} {label}: the first MoE layer (T = "
+          f"{T}, C = {C}, {T * k} routed copies, {dropped} dropped) held "
+          f"to moe_apply_reference on the {n_tok} tokens with no copy "
+          f"dropped: bf16 max abs err {err:.6g} (limit {MOE_TOL_BF16} x "
+          f"max |ref| {scale:.6g}); f32 copy ({dropped32} dropped, "
+          f"{n32} tokens) {err32:.6g} (limit {MOE_TOL_F32} x "
+          f"{scale32:.6g})", flush=True)
+
+
+def _moe_holder(torch, cfg):
+    """``around`` for _walk_batch: run the step, then hold its first MoE
+    layer against the dense oracle (``_hold_moe``)."""
+    from repro_torch.models import moe
+
+    def around(label, step):
+        with _first_call(moe, "moe_apply", []) as seen:
+            out = step()
+        (p, x, _), (y, _) = seen[0][0][:3], seen[0][1]
+        _hold_moe(torch, cfg, p, x, y, label)
+        return out
+
+    return around
+
+
+def _hold_mamba_long(torch, cfg, model):
+    """A 300-token prompt through the prefill step: the first Mamba
+    layer's chunked output (two chunks of 256, the second zero-padded) at
+    the last position against mamba_reference on the same input, in bf16
+    as served and for an f32 copy of the layer."""
+    import copy
+    import numpy as np
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import mamba2
+    dev = model.embed.device
+    prompt = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, size=(1, MAMBA_LONG)), device=dev)
+    with _first_call(mamba2, "mamba_apply", []) as seen:
+        pre = steps_lib.make_prefill_step(cfg)(model, prompt)
+    _check(bool(torch.isfinite(pre["last_logits"]).all()),
+           f"serve-families: {cfg.name}: non-finite logits at 300 tokens")
+    (p, _, x), (y, _) = seen[0][0][:3], seen[0][1]
+    with torch.inference_mode():
+        ref = mamba2.mamba_reference(p, cfg, x)
+        err = float((y[:, -1].float() - ref[:, -1].float()).abs().max())
+        scale = float(ref[:, -1].float().abs().max())
+        p32, x32 = copy.deepcopy(p).float(), x.float()
+        y32 = mamba2.mamba_apply(p32, cfg, x32)
+        ref32 = mamba2.mamba_reference(p32, cfg, x32)
+        err32 = float((y32[:, -1] - ref32[:, -1]).abs().max())
+        err32_all = float((y32 - ref32).abs().max())
+        scale32 = float(ref32[:, -1].abs().max())
+    _check(err32 <= MAMBA_TOL_F32 * scale32,
+           f"serve-families: {cfg.name}: f32 chunked SSD vs mamba_reference"
+           f" at position {MAMBA_LONG - 1}: {err32}, limit {MAMBA_TOL_F32} "
+           f"x {scale32}")
+    _check(err <= MAMBA_TOL_BF16 * scale,
+           f"serve-families: {cfg.name}: bf16 chunked SSD vs "
+           f"mamba_reference: {err}, limit {MAMBA_TOL_BF16} x {scale}")
+    print(f"serve-families: {cfg.name}: a {MAMBA_LONG}-token prompt through "
+          f"the prefill step (chunk {cfg.mamba.chunk}, padded to "
+          f"{-(-MAMBA_LONG // cfg.mamba.chunk) * cfg.mamba.chunk}): the "
+          f"first Mamba layer's last output held to mamba_reference: f32 "
+          f"copy max abs err {err32:.6g} (limit {MAMBA_TOL_F32} x "
+          f"{scale32:.6g}; {err32_all:.6g} over all positions), bf16 as "
+          f"served {err:.6g} (limit {MAMBA_TOL_BF16} x {scale:.6g})",
+          flush=True)
+
+
+def _engine_replays(torch, be, dt, common, cfg, model, labels, totals,
+                    errs):
+    """The continuous (and static) Engine over 8 slots and 16 mixed-length
+    requests, once per label, the counts reset just before and read just
+    after each run: one launch each of the embed token entry and
+    bloom_decode_topk (the row-skipping grid) per prefill and per decode
+    step, each held against its plain version on the same tensors as it
+    happens (``held_to_plain``, the largest error by kernel into
+    ``errs``).  Returns the tokens by label."""
+    from repro_torch.models import io as io_lib
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.loadgen import mixed_length_workload
+    engine = Engine(cfg, model, n_slots=8, max_len=40, topk=8)
+    wl = mixed_length_workload(cfg.vocab, 16, seed=0)
+    embed_name = be.token_variant_name(io_lib.vocab_spec(cfg))
+    tokens = {}
+    for label in labels:
+        run = engine.run_static if label.startswith("static") else engine.run
+        reqs = [r.fresh_copy() for r in wl]
+        torch.cuda.synchronize()
+        common.reset_launches()
+        with held_to_plain(torch, common,
+                           f"serve-families: {cfg.name} {label}", errs):
+            res, st = run(reqs)
+            torch.cuda.synchronize()
+        counts = dict(common.LAUNCHES)
+        _check(all(r.done and not r.rejected for r in res.values()),
+               f"serve-families: {cfg.name} {label}: a request was not "
+               "served")
+        want = st.prefills + st.decode_steps
+        _check(counts == {embed_name: want, dt.NAME: want},
+               f"serve-families: {cfg.name} {label}: launched {counts} for "
+               f"{st.prefills} prefills + {st.decode_steps} decode steps")
+        for n, c in counts.items():
+            totals[n] = totals.get(n, 0) + c
+        for r in res.values():
+            _check(len(r.tokens) == r.max_gen
+                   and all(0 <= t < cfg.vocab for t in r.tokens),
+                   f"serve-families: {cfg.name} {label}: rid {r.rid} "
+                   f"tokens {r.tokens}")
+        tokens[label] = {rid: r.tokens for rid, r in res.items()}
+        print(f"serve-families: {cfg.name} Engine {label}: "
+              f"{st.decode_steps} decode steps, {st.prefills} prefills, "
+              f"{st.tokens_out} tokens out, utilization "
+              f"{st.utilization:.4f}, wall {st.wall_s:.3f} s "
+              f"({st.tokens_out / max(st.wall_s, 1e-9):.1f} tok/s, each "
+              f"launch held against its plain version), launches {counts}",
+              flush=True)
+    return tokens
+
+
+def phase_serve_families(torch, be, dt, common):
+    """The MoE, SSM and hybrid archs at full width (jamba's depth cut to
+    one 8-layer period), weights drawn on the card from seed 0 in bf16:
+    each through launch.serve.run twice (batch 4, prompt 32, gen 12, topk
+    8), counts reset just before and read just after each run, the replay
+    giving the same ids; then the same loop walked through
+    make_prefill_step and make_decode_step with both kernels held to
+    their plain versions at every step and, for MoE, the first MoE layer
+    held to moe_apply_reference at the prefill and the first decode step;
+    olmoe-1b-7b also through the continuous Engine twice, mamba2-1.3b
+    through the continuous and the static Engine twice each and a
+    300-token prompt held to mamba_reference; every Engine launch held
+    against its plain version (``held_to_plain``).  Returns (the launches
+    of the counted runs by kernel, max abs error by kernel)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    dev = torch.device("cuda")
+    B, S, gen, topk = SERVE_BATCH
+    totals, errs = {}, {}
+    for arch, (layers, want) in SERVE_FAMILIES.items():
+        over = {} if layers is None else {"num_layers": layers}
+        cfg = configs.get_config(arch, **over)
+        _check(_family_shape(cfg) == want,
+               f"serve-families: {arch} config {_family_shape(cfg)}")
+        runs = [_counted(
+            torch, be, dt, common, "serve-families", totals,
+            f"{arch} serve.run {i + 1}", cfg, lambda: serve.run(
+                arch, batch=B, prompt_len=S, gen=gen, topk=topk, full=True,
+                device=dev, layers=layers)) for i in range(2)]
+        _check(np.array_equal(runs[0], runs[1]),
+               f"serve-families: {arch}: the replay of serve.run gave "
+               "other ids")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = serve.build_model(cfg, 0, dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        print(f"serve-families: {arch} {cfg.num_layers}L"
+              + (f" (reduced from {configs.get_config(arch).num_layers})"
+                 if layers else "") +
+              f" {cfg.family} d_model {cfg.d_model} vocab {cfg.vocab} m "
+              f"{cfg.m_vocab} k {cfg.bloom.k}: {n_params:,} params "
+              f"({n_bytes / 1e9:.3f} GB) drawn on the card block by block, "
+              f"set-up {setup:.3f} s, peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab, size=(B, S), dtype=np.int32)
+        walked = _walk_batch(
+            torch, be, dt, cfg, model, prompts, gen, topk,
+            phase="serve-families",
+            around=_moe_holder(torch, cfg) if cfg.moe else None)
+        _check(np.array_equal(walked, runs[0]),
+               f"serve-families: {arch}: the step walk's ids != serve.run's")
+        print(f"serve-families: {arch}: every step's embedding and top-k "
+              f"ids and scores bit-equal to the plain versions, logits "
+              f"finite, ids equal to serve.run's; "
+              f"{len(np.unique(walked))} distinct ids of {walked.size}; ids "
+              f"(first seq) {walked[0].tolist()}", flush=True)
+        if arch == "olmoe-1b-7b":
+            tok = _engine_replays(torch, be, dt, common, cfg, model,
+                                  ("continuous", "continuous replay"),
+                                  totals, errs)
+            _check(tok["continuous"] == tok["continuous replay"],
+                   f"serve-families: {arch}: the Engine's replay served "
+                   "other tokens")
+        if arch == "mamba2-1.3b":
+            tok = _engine_replays(torch, be, dt, common, cfg, model,
+                                  ("continuous", "continuous replay",
+                                   "static", "static replay"), totals,
+                                  errs)
+            _check(tok["continuous"] == tok["continuous replay"]
+                   == tok["static"] == tok["static replay"],
+                   f"serve-families: {arch}: the Engine's replays or its "
+                   "static run served other tokens")
+            _hold_mamba_long(torch, cfg, model)
+        _time_batch_kernels(torch, be, dt, common, cfg, model, B, S, topk,
+                            phase="serve-families")
+        del model
+        torch.cuda.empty_cache()
+    print(f"serve-families: every Engine launch held against its plain "
+          f"version, max abs err by kernel {errs}", flush=True)
+    return totals, errs
 
 
 def _plain_checks(torch):
@@ -2466,7 +2835,7 @@ def held_to_plain(torch, common, label, errs):
 
 
 def phase_bench_serving(torch, common):
-    """The serving bench twin's 13 rows on the card, held to
+    """The serving bench twin's 16 rows on the card, held to
     BENCH_serving.json by its check_against; counts reset just before and
     read just after; every launch held against its plain version
     (``held_to_plain``).  Returns (launches by kernel, max abs error by
@@ -2485,11 +2854,12 @@ def phase_bench_serving(torch, common):
         print(f"bench-serving: {json.dumps(r, sort_keys=True)}", flush=True)
     failures = bs.check_against(rows)
     _check(not failures, "bench-serving: " + "; ".join(failures))
-    _check(len(rows) == 13 and {r["impl"] for r in rows if "impl" in r}
-           == {"kernel"}, "bench-serving: rows or route")
+    _check(len(rows) == 16
+           and {r["impl"] for r in rows if "impl" in r} == {"kernel"},
+           "bench-serving: rows or route")
     print(f"bench-serving: check ok: {len(rows)} rows vs "
-          f"{bs.JSON_PATH.name} on {torch.cuda.get_device_name(0)}, not "
-          f"built {sorted(bs.WAITING)}, launches {counts}, each held "
+          f"{bs.JSON_PATH.name} on {torch.cuda.get_device_name(0)}, "
+          f"launches {counts}, each held "
           f"against its plain version (max abs err {errs}), wall "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     return counts, errs
@@ -2804,6 +3174,7 @@ def main() -> int:
     rows = [row, embed_row, *train_rows, *quant_rows, *decode_rows]
     by_name = {r["name"]: r for r in rows}
     for counts, errs in ((phase_serve_batch(torch, be, dt, common), {}),
+                         phase_serve_families(torch, be, dt, common),
                          phase_bench_serving(torch, common),
                          phase_examples(torch, common, [
                              embed_row["name"], csr.BIN, csr.NAME, ce.FWD,
@@ -2814,7 +3185,7 @@ def main() -> int:
         for name, c in counts.items():
             by_name[name]["launches"] += c
             by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
-                                               errs[name] if errs else 0.0)
+                                               errs.get(name, 0.0))
     _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")
     if procs is not None:

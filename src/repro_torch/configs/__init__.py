@@ -4,10 +4,12 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (granite_8b, phi3_mini_3_8b, qwen1_5_0_5b,
-                                 qwen3_4b)
+from repro_torch.configs import (deepseek_moe_16b, granite_8b,
+                                 jamba_v0_1_52b, mamba2_1_3b, olmoe_1b_7b,
+                                 phi3_mini_3_8b, qwen1_5_0_5b, qwen3_4b)
 from repro_torch.configs.base import (  # noqa: F401
-    BloomConfig, ModelConfig, ShapeConfig, TrainConfig)
+    BloomConfig, MambaConfig, MoEConfig, ModelConfig, ShapeConfig,
+    TrainConfig)
 from repro_torch.configs.retrieval import (  # noqa: F401
     RETRIEVAL_CONFIGS,
     RetrievalConfig,
@@ -16,12 +18,14 @@ from repro_torch.configs.retrieval import (  # noqa: F401
 
 # the JAX package's registry order, ported archs only
 ARCH_MODULES = {m.ARCH: m for m in (phi3_mini_3_8b, granite_8b, qwen3_4b,
-                                    qwen1_5_0_5b)}
+                                    qwen1_5_0_5b, deepseek_moe_16b,
+                                    olmoe_1b_7b, jamba_v0_1_52b,
+                                    mamba2_1_3b)}
 ARCH_NAMES = tuple(ARCH_MODULES)
 
-# the JAX package's other architectures, which wait for ROADMAP A12
-UNPORTED_ARCHS = ("pixtral-12b", "whisper-small", "deepseek-moe-16b",
-                  "olmoe-1b-7b", "jamba-v0.1-52b", "mamba2-1.3b")
+# the JAX package's other architectures: the vision-frontend and the
+# encoder-decoder families, which wait for ROADMAP A12 items 6-7
+UNPORTED_ARCHS = ("pixtral-12b", "whisper-small")
 
 
 def _module(arch: str):
@@ -29,8 +33,8 @@ def _module(arch: str):
         return ARCH_MODULES[arch]
     if arch in UNPORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP A12); ported: "
-            f"{ARCH_NAMES}")
+            f"arch {arch!r} is not ported yet (ROADMAP A12 items 6-7); "
+            f"ported: {ARCH_NAMES}")
     raise KeyError(f"unknown arch {arch!r}; ported: {ARCH_NAMES}")
 
 

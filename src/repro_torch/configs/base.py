@@ -1,25 +1,30 @@
 """Config dataclasses of the token-LM path.
 
-Copied from the JAX package's ``configs/base.py``: ``BloomConfig`` and
-``ModelConfig`` with the fields the dense decoder-only family reads, and
-``TrainConfig`` whole.  Left out: the MoE, Mamba, hybrid, encoder-decoder
-and frontend fields and ``param_dtype`` (a ``family`` other than
-``"dense"`` raises where a model is built, ROADMAP A12); ``io_impl`` (the
-port's IO path follows the tensors' device: kernel on CUDA, plain version
-on the CPU); the XLA execution knobs (``scan_layers``, ``remat``,
+Copied from the JAX package's ``configs/base.py``: ``BloomConfig``,
+``MoEConfig`` and ``MambaConfig`` whole, ``ModelConfig`` with the fields
+the decoder-only families read (dense, moe, ssm and hybrid: the MoE FFN
+and its period, the Mamba-2 mixer, the hybrid's attention period and
+offset), its layer-role predicates and its ``param_count``, and
+``TrainConfig`` whole.  Left out: the encoder-decoder and frontend
+fields and ``param_dtype`` (the ``audio`` and ``vlm`` families raise
+where a model is built, ROADMAP A12 items 6-7); ``io_impl`` (the port's
+IO path follows the tensors' device: kernel on CUDA, plain version on
+the CPU); the XLA execution knobs (``scan_layers``, ``remat``,
 ``attn_chunk_*``, ``attn_impl``, ``causal_skip``, ``attn_bf16_scores``,
-``moe_impl``, ``unroll_for_analysis``); the mesh config and the
-reference's ``SHAPES`` cells, which wait for the dry run (ROADMAP A13).
-``ShapeConfig`` is copied whole (``launch/steps.init_caches_for`` reads
-it).  ``bwd_impl`` picks the Bloom embedding's
-backward, "csr" (the CSR scatter-add) or "dense" (the dense m-tile
-sweep), as in the reference.  ``table_dtype`` and ``bwd_impl`` are
-validated when the config is made: an unknown value raises
-``ValueError``.
+``unroll_for_analysis``) and ``moe_impl``: the port has the one
+single-device MoE path, the one the reference takes whenever it runs
+without a mesh, and expert parallelism waits for ROADMAP A13, as do the
+mesh config and the reference's ``SHAPES`` cells.  ``ShapeConfig`` is
+copied whole (``launch/steps.init_caches_for`` reads it).  ``bwd_impl``
+picks the Bloom embedding's backward, "csr" (the CSR scatter-add) or
+"dense" (the dense m-tile sweep), as in the reference.  ``table_dtype``
+and ``bwd_impl`` are validated when the config is made: an unknown value
+raises ``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from repro_torch.core import quant
 from repro_torch.kernels.common import resolve_bwd_impl
@@ -45,6 +50,27 @@ class BloomConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0          # routed experts (0 = dense FFN)
+    top_k: int = 2
+    num_shared: int = 0           # always-active shared experts
+    d_ff_expert: int = 0          # per-expert hidden dim
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256              # SSD chunk length
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     family: str = "dense"         # dense|moe|ssm|hybrid|vlm|audio
@@ -62,6 +88,13 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: str = "bfloat16"       # activation/compute dtype
+    # --- mixture of experts ---
+    moe: Optional[MoEConfig] = None
+    moe_layer_period: int = 1     # MoE FFN every Nth layer (jamba: 2)
+    # --- SSM / hybrid ---
+    mamba: Optional[MambaConfig] = None
+    attn_layer_period: int = 0    # hybrid: 1 attn layer per N (jamba: 8)
+    attn_layer_offset: int = 4    # index of the attn layer inside a period
     # --- paper technique ---
     bloom: BloomConfig = dataclasses.field(default_factory=BloomConfig)
     table_dtype: str = "auto"     # Bloom table storage dtype: auto
@@ -81,13 +114,16 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.num_heads)
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def m_vocab(self) -> int:
         """Output/input IO dimensionality after (optional) Bloom compression."""
         return self.bloom.m_of(self.vocab) if self.bloom.enabled else self.vocab
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + backbone + head) of the
-        dense decoder-only family, the one the port serves."""
+        """Analytic parameter count (embedding + backbone + head)."""
         D, F, V = self.d_model, self.d_ff, self.m_vocab
         hd = self.resolved_head_dim
         H, KV = self.num_heads, self.num_kv_heads
@@ -96,8 +132,38 @@ class ModelConfig:
         n = V * D  # embedding
         if not self.tie_embeddings:
             n += D * V
-        n += self.num_layers * (attn + dense_ffn + 2 * D)  # + two pre-norms
+        for li in range(self.num_layers):
+            if self._layer_is_attention(li):
+                n += attn
+            elif self.mamba is not None:
+                mc = self.mamba
+                d_in = mc.expand * self.d_model
+                nh = d_in // mc.head_dim
+                # in_proj (z,x,B,C,dt) + conv + A,D + norm + out_proj
+                n += D * (2 * d_in + 2 * mc.n_groups * mc.d_state + nh)
+                n += (d_in + 2 * mc.n_groups * mc.d_state) * mc.d_conv
+                n += 2 * nh + d_in
+                n += d_in * D
+            if self._layer_is_moe(li):
+                mo = self.moe
+                n += D * mo.num_experts  # router
+                n += mo.num_experts * 3 * D * mo.d_ff_expert
+                n += mo.num_shared * 3 * D * mo.d_ff_expert
+            elif not (self.family == "ssm"):
+                n += dense_ffn
+            n += 2 * D  # two pre-norms
         return n + D  # final norm
+
+    def _layer_is_attention(self, li: int) -> bool:
+        if self.family == "ssm":
+            return False
+        if self.attn_layer_period > 0:  # hybrid
+            return li % self.attn_layer_period == self.attn_layer_offset
+        return True
+
+    def _layer_is_moe(self, li: int) -> bool:
+        return self.moe is not None and li % self.moe_layer_period == (
+            self.moe_layer_period - 1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,6 +32,10 @@ Examples:
       --full --slots 8 --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --full --static --batch 4 --prompt-len 32 --gen 12
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-moe-16b --full --static --batch 4 --gen 12
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+      --full --layers 8 --static --batch 4 --gen 12
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --device cpu --slots 3 --requests 10 --topk 4 [--table-dtype int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
@@ -86,32 +90,40 @@ def _print_policy(stats):
 
 def build_model(cfg, seed: int, device):
     """The serving model on ``device``: random weights drawn there from a
-    generator of that device seeded with ``seed``, then cast param by
-    param to the compute dtype (``cast_params_for_compute``), so the host
-    never holds a card's model.  On the CPU this is the port's init
-    (``steps.init_fn_for``); the card's generator draws other weights."""
+    generator of that device seeded with ``seed``, each block cast to the
+    compute dtype (``transformer.compute_cast``) as soon as it is drawn
+    (``TransformerLM(cast=True)``), so neither the host nor the card ever
+    holds the whole model in f32: the peak is the cast model plus one f32
+    block.  The draws and the cast params are the same as a whole f32
+    model cast afterwards (``cast_params_for_compute``).  On the CPU this
+    is the port's init (``steps.init_fn_for``); the card's generator
+    draws other weights."""
     device = torch.device(device)
     with device:
-        model = tf.TransformerLM(cfg,
-                                 torch.Generator(device).manual_seed(seed))
-    model = steps_lib.cast_params_for_compute(model, cfg)
+        model = tf.TransformerLM(
+            cfg, torch.Generator(device).manual_seed(seed), cast=True)
     return model.eval().requires_grad_(False)
 
 
-def _config(arch: str, full: bool, table_dtype: str | None = None):
+def _config(arch: str, full: bool, table_dtype: str | None = None,
+            layers: int | None = None):
     over = {} if table_dtype is None else {"table_dtype": table_dtype}
+    if layers is not None:
+        over["num_layers"] = layers
     return (configs.get_config(arch, **over) if full
             else configs.get_smoke_config(arch, **over))
 
 
-def _setup(arch: str, full: bool, table_dtype, seed: int, device):
+def _setup(arch: str, full: bool, table_dtype, seed: int, device,
+           layers: int | None = None):
     """(device, cfg, serving model) for ``run`` and ``run_continuous``:
     the kernels are built first on a card (nvcc at first use), so the
-    build is not in a run's wall."""
+    build is not in a run's wall.  ``layers`` cuts the depth (a model
+    that one card cannot hold whole)."""
     device = resolve_device(device)
     if device.type == "cuda":
         kernels_common.build()
-    cfg = _config(arch, full, table_dtype)
+    cfg = _config(arch, full, table_dtype, layers)
     return device, cfg, build_model(cfg, seed, device)
 
 
@@ -162,12 +174,15 @@ def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int):
 
 def run(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         topk: int = 8, seed: int = 0, full: bool = False,
-        table_dtype: str | None = None, device=None):
+        table_dtype: str | None = None, device=None,
+        layers: int | None = None):
     """Static whole-batch serving (``--static``): ``batch`` seeded prompts
-    of ``prompt_len`` tokens, ``gen`` greedy tokens each (``generate``).
-    Prints the prefill and decode times and the first sequence's ids;
-    returns the (batch, gen) ids."""
-    device, cfg, model = _setup(arch, full, table_dtype, seed, device)
+    of ``prompt_len`` tokens, ``gen`` greedy tokens each (``generate``),
+    with the depth cut to ``layers`` if given.  Prints the prefill and
+    decode times and the first sequence's ids; returns the (batch, gen)
+    ids."""
+    device, cfg, model = _setup(arch, full, table_dtype, seed, device,
+                                layers)
     steps_lib.warm_bloom_caches(cfg, model)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len),
@@ -271,6 +286,11 @@ def main(argv=None):
     ap.add_argument("--arch", default=None, choices=list(configs.ARCH_NAMES))
     ap.add_argument("--full", action="store_true",
                     help="the full-width config (default: its smoke size)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="--static path: cut the depth to this many "
+                         "layers (a whole number of layer-pattern "
+                         "periods), for a model that one card cannot hold "
+                         "whole")
     ap.add_argument("--static", action="store_true",
                     help="the whole-batch path (A/B baseline): --batch "
                          "prompts prefilled together, decoded at one "
@@ -331,10 +351,13 @@ def main(argv=None):
         return
     if args.arch is None:
         ap.error("--arch is required with --mode lm")
+    if args.layers is not None and not args.static:
+        ap.error("--layers cuts the depth of the --static path only")
     if args.static:
         run(args.arch, batch=args.batch, prompt_len=args.prompt_len,
             gen=args.gen, topk=args.topk, seed=args.seed, full=args.full,
-            table_dtype=args.table_dtype, device=args.device)
+            table_dtype=args.table_dtype, device=args.device,
+            layers=args.layers)
         return
     run_continuous(args.arch, rate=1.0 if args.rate is None else args.rate,
                    prompt_len=args.prompt_len, gen=args.gen, topk=args.topk,

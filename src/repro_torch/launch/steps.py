@@ -57,25 +57,12 @@ def init_fn_for(cfg: ModelConfig):
         cfg, torch.Generator().manual_seed(seed))
 
 
-def _cast_for_compute(name: str, p: torch.Tensor) -> bool:
-    """The params the reference casts to the compute dtype: every floating
-    param of ndim >= 2 of its layer-STACKED tree, in which each block param
-    carries a leading layer axis.  So every block param (the per-layer
-    RMSNorm gains and the (H, hd) QKV biases too) and the embedding go to
-    the compute dtype, and only the final norm's 1-D gain stays f32."""
-    return p.is_floating_point() and (p.ndim >= 2
-                                      or name.startswith("blocks."))
-
-
 def cast_params_for_compute(model: torch.nn.Module, cfg: ModelConfig):
     """One-shot f32 -> ``cfg.dtype`` cast of the params the reference
-    casts (``_cast_for_compute``), for serving.  In place (the serving
-    model keeps no f32 copy); returns ``model``."""
-    dt = getattr(torch, cfg.dtype)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if _cast_for_compute(name, p):
-                p.data = p.data.to(dt)
+    casts (``transformer.compute_cast``: every block param and the
+    embedding; the final norm's 1-D gain stays f32), for serving.  In
+    place (the serving model keeps no f32 copy); returns ``model``."""
+    tf.cast_for_compute(model, "", getattr(torch, cfg.dtype))
     return model
 
 
@@ -87,7 +74,7 @@ def value_and_grad(model: tf.TransformerLM, cfg: ModelConfig, batch):
     name to a tensor in the master's dtype."""
     dt = getattr(torch, cfg.dtype)
     params = dict(model.named_parameters())
-    compute = {n: p.to(dt) if _cast_for_compute(n, p) else p
+    compute = {n: p.to(dt) if tf.compute_cast(n, p) else p
                for n, p in params.items()}
     loss, metrics = torch.func.functional_call(model, compute, (batch,))
     grads = torch.autograd.grad(loss, list(params.values()))
@@ -203,18 +190,21 @@ def warm_bloom_caches(cfg: ModelConfig, model: torch.nn.Module,
 
 @torch.inference_mode()
 def insert_cache_slot(pool, caches_small, slot: int):
-    """Write a prefill's caches (per layer (B, S, KV, hd)) into rows
-    [slot, slot + B) of the pool (per layer (n_slots, T, KV, hd)) at
-    positions [0, S), in place; returns the pool.  One request is B = 1;
-    a whole-batch prefill at slot 0 fills the pool (``serve.pad_caches_to``).
-    Stale entries past S from an earlier occupant are never read: decode
-    attends only to positions <= the slot's offset and writes each
-    position before reaching it."""
+    """Write a prefill's caches into rows [slot, slot + B) of the pool, in
+    place, leaf by leaf by its role; returns the pool.  Attention k/v
+    (prefill (B, S, KV, hd), pool (n_slots, T, KV, hd)) go to positions
+    [0, S); the Mamba leaves (ssm state and conv history) have no
+    sequence axis and are replaced whole.  One request is B = 1; a
+    whole-batch prefill at slot 0 fills the pool
+    (``serve.pad_caches_to``).  Stale k/v past S from an earlier occupant
+    are never read: decode attends only to positions <= the slot's offset
+    and writes each position before reaching it."""
     for buf, small in zip(pool, caches_small):
-        for name in ("k", "v"):
-            s = small[name]
-            buf[name][slot:slot + s.shape[0], :s.shape[1]] = \
-                s.to(buf[name].dtype)
+        for name, s in small.items():
+            rows = buf[name][slot:slot + s.shape[0]]
+            if name in ("k", "v"):
+                rows = rows[:, :s.shape[1]]
+            rows.copy_(s)
     return pool
 
 

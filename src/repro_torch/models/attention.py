@@ -1,4 +1,4 @@
-"""Self-attention of the dense decoder: q/k/v/o projections with the
+"""Self-attention of the decoder LMs: q/k/v/o projections with the
 optional QKV bias and the optional per-head RMSNorm of q and k
 (``qk_norm``, qwen3-style), causal full-sequence attention for training, causal
 prefill that also emits the KV cache, and the single-token slot decode

@@ -1,4 +1,5 @@
-"""Shared neural building blocks: initialisers, RMSNorm, RoPE, SwiGLU.
+"""Shared neural building blocks: initialisers, RMSNorm, RoPE, SwiGLU (the
+function and the module holding its weights).
 
 The JAX package's ``dense`` layer (``x @ w + b``) is ``nn.Linear`` here,
 whose weight is stored transposed, (d_out, d_in).  The transformer's
@@ -98,3 +99,20 @@ def swiglu(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     g = x @ w_gate.to(dt)
     u = x @ w_up.to(dt)
     return (torch.nn.functional.silu(g) * u) @ w_down.to(dt)
+
+
+class SwiGLU(nn.Module):
+    """The dense FFN's weights (reference layout: (D, F), (D, F), (F, D))."""
+
+    def __init__(self, d_model: int, d_ff: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.w_gate = nn.Parameter(
+            truncated_normal((d_model, d_ff), 1.0, generator))
+        self.w_up = nn.Parameter(
+            truncated_normal((d_model, d_ff), 1.0, generator))
+        self.w_down = nn.Parameter(
+            truncated_normal((d_ff, d_model), 1.0, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swiglu(self.w_gate, self.w_up, self.w_down, x)

@@ -5,16 +5,19 @@ slots, host-side admission/retirement per decode step
 (serving/scheduler.py), freed slots refilled from the queue every step, and
 ONE decode over the whole pool per step.  What a slot holds and what a
 decode step computes live in a ``SlotProgram``: the token-LM program
-below (``LMSlotProgram``: a per-slot KV-cache pool, every slot at its own
-position) and the retrieval program (serving/retrieval.py).  Prefill goes
+below (``LMSlotProgram``: a per-slot cache pool, KV for attention layers
+and conv + SSM state for Mamba layers, every slot at its own position) and the retrieval program (serving/retrieval.py).  Prefill goes
 through a ``PrefillPool`` of ``PrefillWorker``s with
 retry-on-another-worker.
 
 ``Engine`` serves LM requests: ``run`` continuously, ``run_static`` as the
 static-batching A/B baseline over the same steps — groups of n_slots start
 together and drain until the longest request finishes.  A request's
-tokens are the same on both paths: every decode op is row-independent and
-prefill is B = 1 at the exact prompt length.  The JAX package's sharded
+tokens are the same on both paths where every decode op is
+row-independent (dense and SSM layers; prefill is B = 1 at the exact
+prompt length).  An MoE layer is not: the slots' tokens, dead slots'
+among them, share each expert's capacity, so which copies are dropped
+depends on the pool, as in the reference.  The JAX package's sharded
 serving (``dist``) waits for ROADMAP A13.
 
 Time is counted in decode steps (deterministic); wall-clock is recorded
@@ -169,7 +172,7 @@ def build_stage_decodes(stage0, topk: int,
 
 @dataclasses.dataclass
 class _LMState:
-    """Device-resident LM slot-pool state: the per-layer KV-cache pool
+    """Device-resident LM slot-pool state: the per-layer cache pool
     plus the (tokens, pos, active) slot vectors, which stay on the device
     for the whole run (the host writes them only on admit/retire)."""
     caches: list
@@ -559,7 +562,8 @@ def run_slot_loop(program: SlotProgram, params, prefill_pool: PrefillPool,
 
 
 class Engine:
-    """Continuous-batching engine over a fixed slot pool of a dense LM.
+    """Continuous-batching engine over a fixed slot pool of a decoder LM
+    (dense, MoE, SSM or hybrid).
 
     One Engine owns ONE ``LMSlotProgram``; ``run`` (continuous, via
     ``run_slot_loop``) and ``run_static`` (A/B baseline) share it, so any

@@ -1,10 +1,10 @@
 """The serving bench twin (``repro_torch.benchmarks.bench_serving``) on the
-CPU: ``--check`` holds its 13 rows' checked fields to the committed
+CPU: ``--check`` holds all 16 rows' checked fields to the committed
 ``BENCH_serving.json`` (integers, and roundings of integers, exactly),
-names the three waiting mamba2 rows, never writes the file, and fails on
-a drifted field, a missing row or a broken gate; ``run.py --only
-serving`` prints the 13 rows as the reference's ``serving.<name>`` CSV
-rows."""
+the SSM family's mamba2-1.3b rows among them, with no row waiting; it
+never writes the file, and fails on a drifted field, a missing row or a
+broken gate; ``run.py --only serving`` prints the 16 rows as the
+reference's ``serving.<name>`` CSV rows."""
 import contextlib
 import copy
 import io
@@ -46,15 +46,17 @@ def checked(tmp_path_factory):
 
 
 def test_check_passes_with_13_rows_and_names_the_waiting_ones(checked):
-    assert "check ok: 13 rows on cpu vs BENCH_serving.json" in \
+    """(Name kept from when three mamba2 rows waited.)  All 16 rows are
+    built and checked, the mamba2 ones too, and none waits."""
+    assert "check ok: 16 rows on cpu vs BENCH_serving.json" in \
         checked["stdout"]
-    for mode in ("continuous", "static", "speedup"):
-        assert f"not built: mamba2-1.3b.{mode} (waits for the SSM family, " \
-            "ROADMAP A12 item 4)" in checked["stdout"]
+    assert "not built" not in checked["stdout"]
     names = [r["name"] for r in checked["rows"]]
     committed = {r["name"]: r for r in
                  json.loads(checked["before"])["rows"]}
-    assert len(names) == 13 and set(committed) - set(names) == set(bs.WAITING)
+    assert len(names) == 16 and set(names) == set(committed)
+    for mode in ("continuous", "static", "speedup"):
+        assert f"mamba2-1.3b.{mode}" in names
     for r in checked["rows"]:
         for f in bs.CHECKED_FIELDS:
             if f in committed[r["name"]]:
@@ -88,7 +90,7 @@ def test_run_py_prints_the_serving_rows(checked, monkeypatch, capsys):
     run_lib.main(["--only", "serving", "--device", "cpu"])
     out, err = capsys.readouterr()
     lines = [ln for ln in out.splitlines() if ln.startswith("serving.")]
-    assert len(lines) == 13 and not err
+    assert len(lines) == 16 and not err
     assert "serving.qwen1.5-0.5b.speedup,0.00,1.6316" in lines
     assert "serving.sched.sharded_kill1,0.00,0.4205" in lines
     with pytest.raises(SystemExit):

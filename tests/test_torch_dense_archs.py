@@ -38,8 +38,10 @@ PARAMS = {"qwen3-4b": 3_788_167_680, "granite-8b": 7_931_727_872,
           "phi3-mini-3.8b": 3_663_399_936}
 
 
-def jax_key(name: str) -> str:
-    """A port param name as the reference's layer-stacked tree path."""
+def jax_key(name: str, period: int = 1) -> str:
+    """A port param name as the reference's super-block-stacked tree path:
+    block i is entry i // period of ``sub{i % period}``, and a norm gain
+    (``norm1``, ``q_norm``, the Mamba mixer's ``norm``) is a {"scale"}."""
     parts = name.split(".")
     if parts[0] in ("embed", "head"):
         return f"['io']['{parts[0]}']"
@@ -48,7 +50,8 @@ def jax_key(name: str) -> str:
     rest = parts[2:]
     if rest[-1].startswith("norm") or rest[-1].endswith("_norm"):
         rest = rest + ["scale"]
-    return "['blocks']['sub0']" + "".join(f"['{p}']" for p in rest)
+    return f"['blocks']['sub{int(parts[1]) % period}']" + "".join(
+        f"['{p}']" for p in rest)
 
 
 def cast_sets(arch: str):
@@ -63,9 +66,12 @@ def cast_sets(arch: str):
               if v.dtype == jnp.bfloat16}
     model = t_steps.cast_params_for_compute(t_tf.TransformerLM(tcfg), tcfg)
     named = list(model.named_parameters())
+    period = t_tf.period_of(tcfg)
     return (j_bf16,
-            {jax_key(n) for n, p in named if p.dtype == torch.bfloat16},
-            {jax_key(n) for n, p in named if p.dtype == torch.float32})
+            {jax_key(n, period) for n, p in named
+             if p.dtype == torch.bfloat16},
+            {jax_key(n, period) for n, p in named
+             if p.dtype == torch.float32})
 
 
 def _tokens(shape, vocab, seed=0):

@@ -81,27 +81,40 @@ def test_config_matches_the_reference(models):
         assert dataclasses.asdict(t.bloom) == dataclasses.asdict(j.bloom)
         assert t.param_count() == j.param_count()
     with pytest.raises(NotImplementedError, match="A12"):
-        tconfigs.get_config("deepseek-moe-16b")
+        tconfigs.get_config("whisper-small")
     assert tconfigs.get_config(ARCH, table_dtype="int8").table_dtype == \
         "int8"
     with pytest.raises(ValueError, match="table_dtype must be one of"):
         tconfigs.get_config(ARCH, table_dtype="int4")
     with pytest.raises(NotImplementedError, match="A12"):
-        t_tf.TransformerLM(dataclasses.replace(tcfg, family="moe"))
+        t_tf.TransformerLM(dataclasses.replace(tcfg, family="audio"))
 
 
 def test_compute_cast_matches_the_reference_set():
     """The reference casts every floating param with ndim >= 2 of its
-    layer-stacked tree: the per-layer norm gains, the (H, hd) QKV biases
-    and qwen3-4b's per-layer q/k norm gains go to the compute dtype, the
-    final norm's 1-D gain stays f32.  The port casts the same set, checked
-    name by name, for this arch and for qwen3-4b (``qk_norm``)."""
+    layer-stacked tree: the per-layer norm gains, the (H, hd) QKV biases,
+    qwen3-4b's per-layer q/k norm gains, and the MoE and Mamba params
+    (the router and experts, the shared experts, and the Mamba mixers'
+    1-D A_log, D, dt_bias, conv biases and norm, stacked to 2-D) go to the
+    compute dtype, the final norm's 1-D gain stays f32.  The port casts
+    the same set, checked name by name, for this arch, qwen3-4b
+    (``qk_norm``), deepseek-moe-16b (shared experts) and jamba (attention,
+    Mamba, dense and MoE FFNs in one period)."""
     from test_torch_dense_archs import cast_sets
-    for arch, extra in ((ARCH, "['bq']"),
-                        ("qwen3-4b", "['q_norm']['scale']")):
+    for arch, extras in (
+            (ARCH, ["['attn']['bq']"]),
+            ("qwen3-4b", ["['attn']['q_norm']['scale']"]),
+            ("deepseek-moe-16b", ["['ffn']['router']",
+                                  "['ffn']['shared']['w_down']"]),
+            ("jamba-v0.1-52b", ["['mamba']['A_log']", "['mamba']['D']",
+                                "['mamba']['dt_bias']",
+                                "['mamba']['conv_b']['b']",
+                                "['mamba']['norm']['scale']"])):
         j_bf16, t_bf16, t_f32 = cast_sets(arch)
         assert t_bf16 == j_bf16 and not t_bf16 & t_f32
-        assert "['blocks']['sub0']['attn']" + extra in t_bf16
+        for extra in extras:
+            assert "['blocks']['sub0']" + extra in t_bf16 or \
+                "['blocks']['sub1']" + extra in t_bf16, (arch, extra)
         assert t_f32 == {"['final_norm']['scale']"}
 
 

@@ -281,7 +281,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "'configs.granite_8b', 'configs.phi3_mini_3_8b', "
         "'benchmarks.bench_serving', 'examples.quickstart', "
         "'examples.train_recommender', 'examples.cbe_cooccurrence', "
-        "'examples.serve_bloom_lm', 'examples.train_lm_100m'):\n"
+        "'examples.serve_bloom_lm', 'examples.train_lm_100m', "
+        "'models.moe', 'models.mamba2', 'configs.deepseek_moe_16b', "
+        "'configs.olmoe_1b_7b', 'configs.mamba2_1_3b', "
+        "'configs.jamba_v0_1_52b'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
