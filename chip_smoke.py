@@ -245,6 +245,30 @@ Phases, one line of numbers each:
                 memory, serve.run's prefill ms and decode tok/s, a walked
                 decode step's wall and device-busy share, and the two
                 kernels timed at the arch's shapes;
+ 15c. serve-frontends — the encoder-decoder and vision-frontend archs at
+                full width and depth, bf16, drawn on the card from seed 0
+                block by block: whisper-small (12 encoder and 12 decoder
+                layers, d_model 768, MHA 12 x 64, d_ff 3,072, vocab 51,865,
+                m 10,240; the stub audio frontend) and pixtral-12b (40
+                layers, d_model 5120, GQA 32/8 x 128, d_ff 14,336, vocab
+                131,072, m 26,112; the stub vision frontend); each through
+                launch.serve.run twice as serve-batch (the reference's zero
+                frames / image embeddings, max(4, 32 // 4) = 8 rows), then
+                the loop walked step by step with seeded nonzero inputs
+                (whisper 1,500 frames, the reference's 30 s window; pixtral
+                32 image rows ahead of 96 tokens, its input_specs rule at
+                S_tot 128), every kernel launch held against its plain
+                version (``held_to_plain``) and every decode step's logits
+                held to a full pass over the prefix and the tokens so far
+                within 2^-5 x max |logit| (pixtral decodes at S_emb + S +
+                t); the set-up seconds, peak memory, prefill ms, decode
+                tok/s, a walked step's wall and device-busy share, and the
+                two kernels timed at the arch's shapes; then whisper-small
+                trained 8 steps at full width through launch/train.run
+                (batch 8, seq 64) twice, once with every launch (embed
+                token entry, CSR binning and scatter, bloom_ce forward and
+                backward, once a step each) held to its plain version and
+                once timed, the losses finite and equal (rtol 1e-6);
  16. bench-serving — the serving bench twin's 16 rows
                 (repro_torch.benchmarks.bench_serving; the mamba2-1.3b
                 rows since the SSM family's port) on the card, held to
@@ -861,7 +885,26 @@ def phase_ce(torch, ce, common):
           f"on (T, repeated hashes) = {cases}, m={m} k={k}: max abs err "
           f"loss/lse {err_fwd}, dz {err_bwd}", flush=True)
 
-    T = 512
+    rows = []
+    for (name, times, bound_ms, by), err, line in zip(
+            _time_ce(torch, ce, common, 512, m, k, gen, "kernels-train"),
+            (err_fwd, err_bwd), (145, 87)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/bloom_ce.cu",
+                     "replaces": f"src/repro/kernels/bloom_ce.py:{line}",
+                     "launches": None, "max_abs_err": err,
+                     "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": times["library"][0]})
+    return rows
+
+
+def _time_ce(torch, ce, common, T, m, k, gen, phase):
+    """bloom_ce forward and backward at (T, m, k) on seeded logits, timed
+    beside their plain versions and one library call each, with their
+    bounds; prints a line each and returns [(name, times, bound ms,
+    bound by)] for the forward and the backward."""
+    dev = torch.device("cuda")
     z = (3.0 * torch.randn(T, m, generator=gen)).to(dev)
     h = torch.randint(0, m, (T, k), generator=gen, dtype=torch.int32).to(dev)
     g = torch.randn(T, generator=gen).to(dev)
@@ -877,25 +920,51 @@ def phase_ce(torch, ce, common):
         "plain": lambda: ce.bloom_ce_bwd_plain(g, z, h, lse),
         "library": lambda: torch.softmax(z, -1).scatter_add_(1, hl, neg)
         * g[:, None]})
-    rows = []
-    for label, name, times, nbytes, ops, err, line in (
-            ("forward", ce.FWD, fwd, ce.min_bytes(T, m, k), 4 * T * m,
-             err_fwd, 145),
+    out = []
+    for label, name, times, nbytes, ops in (
+            ("forward", ce.FWD, fwd, ce.min_bytes(T, m, k), 4 * T * m),
             ("backward", ce.BWD, bwd, ce.min_bytes(T, m, k, backward=True),
-             5 * T * m + T * m * k, err_bwd, 87)):
+             5 * T * m + T * m * k)):
         bound_ms, by = _bound(nbytes, ops)
-        print(f"kernels-train: bloom_ce {label} T={T} m={m} k={k}: device "
+        print(f"{phase}: bloom_ce {label} T={T} m={m} k={k}: device "
               f"ms (graph) / back-to-back ms (events): "
               f"{_times_line(times)}, bound {bound_ms * 1e3:.3f} us ({by}, "
               f"{nbytes} bytes)", flush=True)
-        rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/bloom_ce.cu",
-                     "replaces": f"src/repro/kernels/bloom_ce.py:{line}",
-                     "launches": None, "max_abs_err": err,
-                     "ms": times["kernel"][0], "plain_ms": times["plain"][0],
-                     "bound_ms": bound_ms, "bound_by": by,
-                     "library_ms": times["library"][0]})
-    return rows
+        out.append((name, times, bound_ms, by))
+    return out
+
+
+def _time_csr(torch, csr, common, T, k, D, m, gen, phase):
+    """The CSR scatter-add (bf16 gradient rows) and the card's binning at
+    (T, k, D, m) on seeded indices, timed beside their plain versions and
+    ``index_add_``, with their bounds; prints one line and returns (times,
+    (bound ms, by) of the scatter, (bound ms, by) of the binning, and the
+    call as the backward makes it, binning plus kernel)."""
+    dev = torch.device("cuda")
+    g = torch.randn(T, D, generator=gen).to(torch.bfloat16).to(dev)
+    idx = torch.randint(0, m, (T, k), generator=gen,
+                        dtype=torch.int32).to(dev)
+    bins = csr.bin_csr(idx, m)
+    flat, rows = idx.reshape(-1).long(), torch.arange(
+        T, device=dev).repeat_interleave(k)
+    times = _times(common, {
+        "kernel": lambda: csr.csr_scatter_add_cuda(g, bins, m),
+        "binning": lambda: csr.bin_csr(idx, m),
+        "kernel+binning": lambda: csr.csr_scatter_add(g, idx, m),
+        "plain": lambda: csr.csr_scatter_add_plain(g, bins, m),
+        "plain binning": lambda: csr.bin_csr_plain(idx, m),
+        "library": lambda: torch.zeros(m, D, device=dev).index_add_(
+            0, flat, g[rows].float())})
+    nbytes = csr.min_bytes(T * k, T, m, D, 2)
+    bound = _bound(nbytes, T * k * D)
+    bin_bytes = csr.bin_min_bytes(T * k, m)
+    bin_bound = _bound_int(bin_bytes, T * k + m)
+    print(f"{phase}: bloom_csr bf16 T={T} k={k} D={D} m={m}: device "
+          f"ms (graph) / back-to-back ms (events): {_times_line(times)}, "
+          f"bound {bound[0] * 1e3:.3f} us ({bound[1]}, {nbytes} bytes); "
+          f"binning bound {bin_bound[0] * 1e3:.3f} us ({bin_bound[1]}, "
+          f"{bin_bytes} bytes)", flush=True)
+    return times, bound, bin_bound, lambda: csr.csr_scatter_add(g, idx, m)
 
 
 def phase_csr(torch, csr, common):
@@ -937,32 +1006,11 @@ def phase_csr(torch, csr, common):
               f"plain version on the CPU and to a second launch, for "
               f"{[c[0] for c in cases]} (T={T}, k={k}, m={m})", flush=True)
 
-    g = torch.randn(T, D, generator=gen).to(torch.bfloat16).to(dev)
-    idx = torch.randint(0, m, (T, k), generator=gen,
-                        dtype=torch.int32).to(dev)
-    bins = csr.bin_csr(idx, m)
-    flat, rows = idx.reshape(-1).long(), torch.arange(
-        T, device=dev).repeat_interleave(k)
-    times = _times(common, {
-        "kernel": lambda: csr.csr_scatter_add_cuda(g, bins, m),
-        "binning": lambda: csr.bin_csr(idx, m),
-        "kernel+binning": lambda: csr.csr_scatter_add(g, idx, m),
-        "plain": lambda: csr.csr_scatter_add_plain(g, bins, m),
-        "plain binning": lambda: csr.bin_csr_plain(idx, m),
-        "library": lambda: torch.zeros(m, D, device=dev).index_add_(
-            0, flat, g[rows].float())})
-    nbytes = csr.min_bytes(T * k, T, m, D, 2)
-    bound_ms, by = _bound(nbytes, T * k * D)
-    bin_bytes = csr.bin_min_bytes(T * k, m)
-    bin_bound_ms, bin_by = _bound_int(bin_bytes, T * k + m)
-    print(f"kernels-train: bloom_csr bf16 T={T} k={k} D={D} m={m}: device "
-          f"ms (graph) / back-to-back ms (events): {_times_line(times)}, "
-          f"bound {bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes); binning "
-          f"bound {bin_bound_ms * 1e3:.3f} us ({bin_by}, {bin_bytes} bytes)",
-          flush=True)
+    times, (bound_ms, by), (bin_bound_ms, bin_by), called = _time_csr(
+        torch, csr, common, T, k, D, m, gen, "kernels-train")
     print("kernels-train: the CSR backward as called, device time by kernel "
-          "(torch.profiler): " + _split_line(_device_split(
-              torch, lambda: csr.csr_scatter_add(g, idx, m))), flush=True)
+          "(torch.profiler): " + _split_line(_device_split(torch, called)),
+          flush=True)
     return [{"name": csr.NAME, "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/bloom_csr.cu",
              "replaces": "src/repro/kernels/bloom_csr.py:204",
@@ -2141,7 +2189,7 @@ SERVE_BATCH = (4, 32, 12, 8)     # batch, prompt, gen, topk: the example's
 
 
 def _walk_batch(torch, be, dt, cfg, model, prompts, gen, topk,
-                phase="serve-batch", around=None):
+                phase="serve-batch", around=None, embeds=None, hold=None):
     """serve.generate's whole-batch loop walked step by step through
     make_prefill_step and make_decode_step, holding at every step the
     embedding as the model computes it (the token kernel) bit-equal to
@@ -2149,12 +2197,16 @@ def _walk_batch(torch, be, dt, cfg, model, prompts, gen, topk,
     bit-equal to bloom_decode_topk_plain on the same logp.  ``around(label,
     step)``, if given, runs the prefill and the first decode step (it
     calls ``step()`` and returns its result), so a phase can hold a layer
-    inside them.  Returns the (B, gen) ids."""
+    inside them.  ``embeds`` (the frontend's image embeddings or frames)
+    go into the prefill, and then each decode step's logits are held to a
+    full pass over the prefix and every token so far, within
+    FRONTEND_TOL x its max |logit|.  ``hold()``, if given, is a context
+    the walk (not the timed steps after it) runs in.  Returns the (B,
+    gen) ids."""
     from repro_torch.core import bloom
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, steps as steps_lib
     from repro_torch.models import io as io_lib
-    from repro_torch.models import transformer as tf
     dev = model.embed.device
     spec = io_lib.vocab_spec(cfg)
     H = bloom.cached_hash_matrix(spec, dev)
@@ -2181,27 +2233,54 @@ def _walk_batch(torch, be, dt, cfg, model, prompts, gen, topk,
     def run(label, step):
         return step() if around is None else around(label, step)
 
+    apply_fn = steps_lib.apply_fn_for(cfg)
+    full_errs = []
+
+    def check_full(seq, logits, label):
+        with torch.inference_mode():
+            ref = apply_fn(model, cfg, seq, mode="train",
+                           embeds=embeds)["logits"][:, -1].float()
+        err = float((logits.float() - ref).abs().max())
+        scale = float(ref.abs().max())
+        _check(err <= FRONTEND_TOL * scale,
+               f"{cfg.name} {label}: decode step vs a full pass: max abs "
+               f"err {err} of max |logit| {scale}")
+        full_errs.append(err / scale)
+
     tokens = torch.as_tensor(prompts, device=dev)
-    check_embed(tokens, "prefill")
-    pre = run("prefill", lambda: prefill(model, tokens))
-    caches = serve.pad_caches_to(
-        pre["caches"], tf.init_lm_cache(cfg, B, S + gen, device=dev))
-    with torch.inference_mode():
-        scores, ids = io_lib.recover_topk(cfg, pre["last_logits"], topk=topk)
-    check_decode(pre["last_logits"], scores, ids, "prefill")
-    token, out_ids = ids[:, :1], [ids[:, :1]]
-    for t in range(gen - 1):
-        check_embed(token, f"decode step {t + 1}")
-        step = lambda: decode(model, token, caches, S + t)  # noqa: E731
-        out = run("decode step 1", step) if t == 0 else step()
-        caches = out["caches"]
-        check_decode(out["logits"][:, 0], out["topk_scores"],
-                     out["topk_ids"], f"decode step {t + 1}")
-        token = out["topk_ids"][:, :1]
-        out_ids.append(token)
+    with contextlib.nullcontext() if hold is None else hold():
+        check_embed(tokens, "prefill")
+        pre = run("prefill", lambda: prefill(model, tokens, embeds))
+        template, n_prefix = serve.decode_caches(cfg, B, S, gen, embeds, dev)
+        caches = serve.pad_caches_to(pre["caches"], template)
+        with torch.inference_mode():
+            scores, ids = io_lib.recover_topk(cfg, pre["last_logits"],
+                                              topk=topk)
+        check_decode(pre["last_logits"], scores, ids, "prefill")
+        token, out_ids = ids[:, :1], [ids[:, :1]]
+        for t in range(gen - 1):
+            check_embed(token, f"decode step {t + 1}")
+            step = lambda: decode(  # noqa: E731
+                model, token, caches, n_prefix + t)
+            out = run("decode step 1", step) if t == 0 else step()
+            caches = out["caches"]
+            check_decode(out["logits"][:, 0], out["topk_scores"],
+                         out["topk_ids"], f"decode step {t + 1}")
+            if embeds is not None:
+                check_full(torch.cat([tokens, *out_ids], 1),
+                           out["logits"][:, 0], f"decode step {t + 1}")
+            token = out["topk_ids"][:, :1]
+            out_ids.append(token)
+    if full_errs:
+        print(f"{phase}: {cfg.name}: every walked decode step (at positions "
+              f"{n_prefix}-{n_prefix + gen - 2}) held to a full pass over "
+              f"the prefix and the tokens so far: max abs err / max |logit| "
+              f"by step {[round(e, 6) for e in full_errs]} (limit "
+              f"{FRONTEND_TOL})", flush=True)
     # one more decode step at the last position, repeated: its wall (host
     # clock, synchronised) beside its device time by kernel (profiler)
-    step = lambda: decode(model, token, caches, S + gen - 1)  # noqa: E731
+    step = lambda: decode(  # noqa: E731
+        model, token, caches, n_prefix + gen - 1)
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2690,6 +2769,167 @@ def phase_serve_families(torch, be, dt, common):
     return totals, errs
 
 
+# the encoder-decoder and vision-frontend archs at full width, each as
+# (the widths it must have: decoder layers, encoder layers, d_model,
+# (heads, kv heads, head_dim), d_ff, vocab, m, k, frontend, compute dtype;
+# the walk's frontend rows and tokens per row, B = 4): whisper's 1,500
+# frames are the reference's 30 s window (configs.cache_specs); pixtral's
+# S_tot 128 keeps int(128 x frontend_frac) = 32 rows for the image, the
+# reference's input_specs rule
+SERVE_FRONTENDS = {
+    "whisper-small": ((12, 12, 768, (12, 12, 64), 3072, 51865, 10240, 4,
+                       "audio_stub", "bfloat16"), 1500, 32),
+    "pixtral-12b": ((40, 0, 5120, (32, 8, 128), 14336, 131072, 26112, 4,
+                     "vision_stub", "bfloat16"), 32, 96),
+}
+# a bf16 decode step against a full pass over the same positions: the two
+# round their products at other shapes (GEMV vs GEMM), a few bf16 ulps of
+# the largest logit after the whole depth
+FRONTEND_TOL = 2 ** -5
+
+
+def _frontend_shape(cfg):
+    return (cfg.num_layers, cfg.encoder_layers, cfg.d_model,
+            (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim),
+            cfg.d_ff, cfg.vocab, cfg.m_vocab, cfg.bloom.k, cfg.frontend,
+            cfg.dtype)
+
+
+def _train_frontend(torch, common, names, errs, held):
+    """whisper-small at full width, 8 steps through launch/train.run
+    (batch 8, seq 64, the reference's zero frames), counts reset just
+    before and read just after: each step launches each kernel of
+    ``names`` once; with ``held`` every launch is held against its plain
+    version as it happens.  Returns (counts, losses, step walls in ms of
+    steps 2-8)."""
+    from repro_torch.launch import train
+    steps = 8
+    torch.cuda.synchronize()
+    common.reset_launches()
+    with (held_to_plain(torch, common, "serve-frontends: whisper-small "
+                        "training", errs) if held
+          else contextlib.nullcontext()):
+        _, hist = train.run("whisper-small", steps=steps, batch=8, seq=64,
+                            full=True, log_every=1)
+        torch.cuda.synchronize()
+    counts = dict(common.LAUNCHES)
+    _check(counts == {n: steps for n in names},
+           f"serve-frontends: whisper-small training launched {counts}, "
+           f"want {steps} each of {names}")
+    losses = [h["loss"] for h in hist]
+    _check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+           f"serve-frontends: whisper-small losses {losses}")
+    return counts, losses, [h["step_s"] * 1e3 for h in hist[1:]]
+
+
+def phase_serve_frontends(torch, be, dt, common, train_names):
+    """The encoder-decoder and vision-frontend archs at full width and
+    depth, weights drawn on the card from seed 0 in bf16 block by block:
+    whisper-small and pixtral-12b, each through launch.serve.run twice
+    (batch 4, prompt 32, gen 12, topk 8; the reference's zero frames /
+    image embeddings), counts reset just before and read just after each
+    run, the replay giving the same ids; then the loop walked step by step
+    with seeded nonzero frames (1,500) / image embeddings (32, ahead of 96
+    tokens) inside ``held_to_plain``, every decode step held to a full
+    pass; then both kernels timed at the arch's shapes.  Then whisper-small
+    trained 8 steps at full width twice, once with every launch held to
+    its plain version and once timed, the losses finite and equal.
+    Returns (the launches of the counted runs by kernel, max abs error by
+    kernel)."""
+    import gc
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    dev = torch.device("cuda")
+    B, S, gen, topk = SERVE_BATCH
+    totals, errs = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve-frontends: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          "allocated before the phase", flush=True)
+    for arch, (want, n_emb, n_tok) in SERVE_FRONTENDS.items():
+        cfg = configs.get_config(arch)
+        _check(_frontend_shape(cfg) == want,
+               f"serve-frontends: {arch} config {_frontend_shape(cfg)}")
+        runs = [_counted(
+            torch, be, dt, common, "serve-frontends", totals,
+            f"{arch} serve.run {i + 1}", cfg, lambda: serve.run(
+                arch, batch=B, prompt_len=S, gen=gen, topk=topk, full=True,
+                device=dev)) for i in range(2)]
+        _check(np.array_equal(runs[0], runs[1]),
+               f"serve-frontends: {arch}: the replay of serve.run gave "
+               "other ids")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = serve.build_model(cfg, 0, dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        print(f"serve-frontends: {arch} {cfg.num_layers}L"
+              + (f" + {cfg.encoder_layers}L encoder" if cfg.encoder_layers
+                 else "") +
+              f" {cfg.family} d_model {cfg.d_model} vocab {cfg.vocab} m "
+              f"{cfg.m_vocab} k {cfg.bloom.k}: {n_params:,} params "
+              f"({n_bytes / 1e9:.3f} GB) drawn on the card block by block, "
+              f"set-up {setup:.3f} s, peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab, size=(B, n_tok), dtype=np.int32)
+        embeds = torch.randn(B, n_emb, cfg.d_model, generator=torch.Generator(
+            dev).manual_seed(0), device=dev).to(getattr(torch, cfg.dtype))
+        walked = _walk_batch(
+            torch, be, dt, cfg, model, prompts, gen, topk,
+            phase="serve-frontends", embeds=embeds,
+            hold=lambda: held_to_plain(  # noqa: B023
+                torch, common, f"serve-frontends: {arch} walk", errs))
+        print(f"serve-frontends: {arch}: {n_emb} seeded "
+              f"{cfg.frontend} rows and {n_tok} tokens a row, every step's "
+              f"kernels held against their plain versions; "
+              f"{len(np.unique(walked))} distinct ids of {walked.size}; ids "
+              f"(first seq) {walked[0].tolist()}", flush=True)
+        _time_batch_kernels(torch, be, dt, common, cfg, model, B, n_tok,
+                            topk, phase="serve-frontends")
+        del model, embeds
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    counts, losses, _ = _train_frontend(torch, common, train_names, errs,
+                                        held=True)
+    again, replay, step_ms = _train_frontend(torch, common, train_names,
+                                             errs, held=False)
+    np.testing.assert_allclose(replay, losses, rtol=1e-6)
+    for c in (counts, again):
+        for n, k in c.items():
+            totals[n] = totals.get(n, 0) + k
+    med = float(np.median(step_ms))
+    print(f"serve-frontends: whisper-small trained 8 steps at full width "
+          f"(batch 8, seq 64, 16 zero frames a row) twice: losses {losses}, "
+          f"the second run's equal within rtol 1e-6; every launch of the "
+          f"first held against its plain version; the second's median step "
+          f"wall {med:.6f} ms (steps 2-8: "
+          f"{[round(x, 3) for x in step_ms]}), peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches "
+          f"{counts} a run", flush=True)
+    # the training kernels at whisper-small's shapes: bloom_ce over the
+    # 8 x 64 predicted positions, the CSR backward over the 8 x 65 tokens
+    from repro_torch.kernels import bloom_ce as ce
+    from repro_torch.kernels import bloom_csr as csr
+    cfg = configs.get_config("whisper-small")
+    gen = torch.Generator().manual_seed(23)
+    _time_ce(torch, ce, common, 8 * 64, cfg.m_vocab, cfg.bloom.k, gen,
+             "serve-frontends")
+    _time_csr(torch, csr, common, 8 * 65, cfg.bloom.k, cfg.d_model,
+              cfg.m_vocab, gen, "serve-frontends")
+    print(f"serve-frontends: every walked and trained launch held against "
+          f"its plain version, max abs err by kernel {errs}", flush=True)
+    return totals, errs
+
+
 def _plain_checks(torch):
     """(module, wrapper, check) for every kernel wrapper that counts a
     launch.  ``check(out, *args, **kwargs)`` recomputes the wrapper's
@@ -3175,6 +3415,9 @@ def main() -> int:
     by_name = {r["name"]: r for r in rows}
     for counts, errs in ((phase_serve_batch(torch, be, dt, common), {}),
                          phase_serve_families(torch, be, dt, common),
+                         phase_serve_frontends(torch, be, dt, common, [
+                             embed_row["name"], csr.BIN, csr.NAME, ce.FWD,
+                             ce.BWD]),
                          phase_bench_serving(torch, common),
                          phase_examples(torch, common, [
                              embed_row["name"], csr.BIN, csr.NAME, ce.FWD,

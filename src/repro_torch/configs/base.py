@@ -1,14 +1,13 @@
 """Config dataclasses of the token-LM path.
 
 Copied from the JAX package's ``configs/base.py``: ``BloomConfig``,
-``MoEConfig`` and ``MambaConfig`` whole, ``ModelConfig`` with the fields
-the decoder-only families read (dense, moe, ssm and hybrid: the MoE FFN
-and its period, the Mamba-2 mixer, the hybrid's attention period and
-offset), its layer-role predicates and its ``param_count``, and
-``TrainConfig`` whole.  Left out: the encoder-decoder and frontend
-fields and ``param_dtype`` (the ``audio`` and ``vlm`` families raise
-where a model is built, ROADMAP A12 items 6-7); ``io_impl`` (the port's
-IO path follows the tensors' device: kernel on CUDA, plain version on
+``MoEConfig`` and ``MambaConfig`` whole; ``ModelConfig`` with the fields
+every model family reads (the MoE FFN and its period, the Mamba-2 mixer,
+the hybrid's attention period and offset, the encoder-decoder's
+``encoder_layers`` and the stub frontend's ``frontend`` and
+``frontend_frac``), its layer-role predicates and its ``param_count``;
+and ``TrainConfig`` whole.  Left out: ``param_dtype``; ``io_impl`` (the
+port's IO path follows the tensors' device: kernel on CUDA, plain version on
 the CPU); the XLA execution knobs (``scan_layers``, ``remat``,
 ``attn_chunk_*``, ``attn_impl``, ``causal_skip``, ``attn_bf16_scores``,
 ``unroll_for_analysis``) and ``moe_impl``: the port has the one
@@ -95,6 +94,11 @@ class ModelConfig:
     mamba: Optional[MambaConfig] = None
     attn_layer_period: int = 0    # hybrid: 1 attn layer per N (jamba: 8)
     attn_layer_offset: int = 4    # index of the attn layer inside a period
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0       # >0 => enc-dec; decoder uses num_layers
+    # --- modality frontend stubs ---
+    frontend: str = "none"        # none|vision_stub|audio_stub
+    frontend_frac: float = 0.25   # fraction of seq occupied by stub embeds
     # --- paper technique ---
     bloom: BloomConfig = dataclasses.field(default_factory=BloomConfig)
     table_dtype: str = "auto"     # Bloom table storage dtype: auto
@@ -152,7 +156,10 @@ class ModelConfig:
             elif not (self.family == "ssm"):
                 n += dense_ffn
             n += 2 * D  # two pre-norms
-        return n + D  # final norm
+        n += D  # final norm
+        if self.encoder_layers:
+            n += self.encoder_layers * (attn + dense_ffn + 2 * D) + D
+        return n
 
     def _layer_is_attention(self, li: int) -> bool:
         if self.family == "ssm":

@@ -14,6 +14,11 @@ prefilled together, then greedy decoding at one shared position until
 stores the Bloom tables narrow: the embedding table is quantized once at
 set-up and gathered by the quantized ``bloom_embed`` variant, and every
 Eq. 3 decode quantizes its logp rows and rehashes the vocab in the kernel.
+The encoder-decoder (``audio``, whisper-small) and the vision-frontend
+(``vlm``, pixtral-12b) archs serve only by ``--static``, as in the
+reference: their prefill carries the frontend's embeddings (zeros of
+``max(4, prompt_len // 4)`` rows in ``run``), which the engine does not
+schedule.
 
 ``--mode retrieval`` serves one-shot Bloom top-k retrieval requests (Zipf
 item lookups over a configs/retrieval.py catalog preset) through
@@ -36,6 +41,10 @@ Examples:
       --arch deepseek-moe-16b --full --static --batch 4 --gen 12
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --full --layers 8 --static --batch 4 --gen 12
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+      --full --static --batch 4 --prompt-len 32 --gen 12
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \\
+      --device cpu --static --batch 2 --prompt-len 8 --gen 5
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --device cpu --slots 3 --requests 10 --topk 4 [--table-dtype int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
@@ -53,6 +62,7 @@ from repro_torch import configs
 from repro_torch.kernels import common as kernels_common
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch import steps as steps_lib
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import io as io_lib
 from repro_torch.models import transformer as tf
 from repro_torch.serving import retrieval as retrieval_lib
@@ -92,15 +102,16 @@ def build_model(cfg, seed: int, device):
     """The serving model on ``device``: random weights drawn there from a
     generator of that device seeded with ``seed``, each block cast to the
     compute dtype (``transformer.compute_cast``) as soon as it is drawn
-    (``TransformerLM(cast=True)``), so neither the host nor the card ever
-    holds the whole model in f32: the peak is the cast model plus one f32
-    block.  The draws and the cast params are the same as a whole f32
-    model cast afterwards (``cast_params_for_compute``).  On the CPU this
+    (``TransformerLM(cast=True)``, or ``EncDec`` for the ``audio``
+    family), so neither the host nor the card ever holds the whole model
+    in f32: the peak is the cast model plus one f32 block.  The draws and
+    the cast params are the same as a whole f32 model cast afterwards
+    (``cast_params_for_compute``).  On the CPU this
     is the port's init (``steps.init_fn_for``); the card's generator
     draws other weights."""
     device = torch.device(device)
     with device:
-        model = tf.TransformerLM(
+        model = steps_lib.model_class_for(cfg)(
             cfg, torch.Generator(device).manual_seed(seed), cast=True)
     return model.eval().requires_grad_(False)
 
@@ -134,13 +145,36 @@ def pad_caches_to(caches_small, caches_template):
     return steps_lib.insert_cache_slot(caches_template, caches_small, 0)
 
 
-def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int):
+def decode_caches(cfg, batch: int, prompt_len: int, gen: int,
+                  embeds: torch.Tensor | None, device):
+    """(the zeroed decode-cache pool, the first decode position) of a
+    whole-batch generation of ``gen`` tokens after a ``prompt_len``-token
+    prefill with the frontend's ``embeds`` (B, S_emb, D) or None.  A
+    ``vlm`` prefix takes S_emb cache positions ahead of the prompt, so
+    decoding starts at S_emb + prompt_len.  (The reference's ``run``
+    decodes at ``prompt_len``: its first step overwrites a prompt token's
+    k/v and masks out the last S_emb - 1 of them.)  The ``audio`` family's
+    self-attention caches the decoder tokens alone, and its cross k/v
+    hold the S_emb frames."""
+    if cfg.family == "audio":
+        return encdec_lib.init_encdec_cache(
+            cfg, batch, prompt_len + gen, embeds.shape[1],
+            device=device), prompt_len
+    n_prefix = prompt_len + (0 if embeds is None else embeds.shape[1])
+    return tf.init_lm_cache(cfg, batch, n_prefix + gen,
+                            device=device), n_prefix
+
+
+def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int,
+             embeds: torch.Tensor | None = None):
     """Whole-batch greedy generation on a built model: prefill ``prompts``
-    (B, S) together, place the caches into (B, S + gen) buffers
-    (``pad_caches_to``), recover the first token from the last prefill
-    logits, then decode ``gen - 1`` steps, every row at position
-    S + t (``make_decode_step``).  Returns (ids (B, gen) int32 numpy,
-    prefill seconds, decode seconds); each window ends with the device
+    (B, S) together with the frontend's ``embeds`` (B, S_emb, D), if any,
+    place the caches into buffers of ``decode_caches`` (``pad_caches_to``),
+    recover the first token from the last prefill logits, then decode
+    ``gen - 1`` steps, every row at position n + t, n the first decode
+    position (S, or S_emb + S behind a ``vlm`` prefix;
+    ``make_decode_step``).  Returns (ids (B, gen) int32 numpy, prefill
+    seconds, decode seconds); each window ends with the device
     synchronised."""
     device = model.embed.device
     B, S = prompts.shape
@@ -152,9 +186,9 @@ def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int):
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    pre = prefill(model, torch.as_tensor(prompts, device=device))
-    caches = pad_caches_to(pre["caches"],
-                           tf.init_lm_cache(cfg, B, S + gen, device=device))
+    pre = prefill(model, torch.as_tensor(prompts, device=device), embeds)
+    template, n_prefix = decode_caches(cfg, B, S, gen, embeds, device)
+    caches = pad_caches_to(pre["caches"], template)
     sync()
     t_prefill = time.perf_counter() - t0
 
@@ -164,7 +198,7 @@ def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int):
     generated = [token.cpu()]
     t0 = time.perf_counter()
     for t in range(gen - 1):
-        out = decode(model, token, caches, S + t)
+        out = decode(model, token, caches, n_prefix + t)
         caches = out["caches"]
         token = out["topk_ids"][:, :1]
         generated.append(token.cpu())
@@ -178,18 +212,26 @@ def run(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         layers: int | None = None):
     """Static whole-batch serving (``--static``): ``batch`` seeded prompts
     of ``prompt_len`` tokens, ``gen`` greedy tokens each (``generate``),
-    with the depth cut to ``layers`` if given.  Prints the prefill and
-    decode times and the first sequence's ids; returns the (batch, gen)
-    ids."""
+    with the depth cut to ``layers`` if given.  The ``vlm`` and ``audio``
+    families get zero embeddings (frames) of ``max(4, prompt_len // 4)``
+    rows, as in the reference.  Prints the prefill and decode times and
+    the first sequence's ids; returns the (batch, gen) ids."""
     device, cfg, model = _setup(arch, full, table_dtype, seed, device,
                                 layers)
     steps_lib.warm_bloom_caches(cfg, model)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len),
                            dtype=np.int32)
-    ids, t_prefill, t_decode = generate(cfg, model, prompts, gen, topk)
+    embeds = None
+    if cfg.family in ("vlm", "audio"):
+        embeds = torch.zeros(batch, max(4, prompt_len // 4), cfg.d_model,
+                             dtype=getattr(torch, cfg.dtype), device=device)
+    ids, t_prefill, t_decode = generate(cfg, model, prompts, gen, topk,
+                                        embeds)
     print(f"whole-batch serving ({cfg.name} {cfg.num_layers}L d_model "
-          f"{cfg.d_model}, table_dtype {cfg.table_dtype}, {device})")
+          f"{cfg.d_model}, table_dtype {cfg.table_dtype}, {device}"
+          + ("" if embeds is None else
+             f", {embeds.shape[1]} zero {cfg.frontend} embeddings") + ")")
     print(f"prefill {prompt_len} toks x{batch}: {t_prefill * 1e3:.0f} ms")
     print(f"decode  {gen - 1} steps: {t_decode * 1e3:.0f} ms "
           f"({(gen - 1) * batch / max(t_decode, 1e-9):.0f} tok/s)")
@@ -207,7 +249,11 @@ def run_continuous(arch: str, slots: int = 4, requests: int = 16,
                    table_dtype: str | None = None, device=None):
     """Serve a seeded Poisson workload by continuous batching, with the
     Bloom tables stored as ``table_dtype`` (default: the config's,
-    "auto")."""
+    "auto").  The archs the Engine does not serve (``Engine.supports``)
+    exit before any model is built."""
+    if not Engine.supports(_config(arch, full, table_dtype)):
+        raise SystemExit(
+            f"{arch}: enc-dec / frontend-stub archs serve via --static")
     device, cfg, model = _setup(arch, full, table_dtype, seed, device)
     spec = LoadSpec(
         n_requests=requests, vocab=cfg.vocab, rate=rate,

@@ -14,8 +14,12 @@ end to end); ``init_caches_for`` allocates the decode caches,
 ``warm_bloom_caches`` pre-builds a quantized embedding table (and, for a
 differentiated decode, the CSR bins of the vocab hash matrix), and
 ``insert_cache_slot`` writes a prefill's caches into the slot pool.
-``loss_fn_for`` and ``apply_fn_for`` give the family's objective and
-forward; the encoder-decoder family (``audio``) is not ported.
+``loss_fn_for``, ``apply_fn_for``, ``init_fn_for`` and
+``init_caches_for`` dispatch on the family: the encoder-decoder
+(``audio``, ``models/encdec.py``) or the decoder-only LM
+(``models/transformer.py``, the ``vlm`` family's frontend among it).
+Prefill takes the frontend's ``embeds`` (the ``vlm`` image embeddings
+or the ``audio`` frames); decode takes tokens alone.
 """
 from __future__ import annotations
 
@@ -25,49 +29,55 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core import bloom as bloom_lib
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import io as io_lib
 from repro_torch.models import transformer as tf
 from repro_torch.train import trainer as trainer_lib
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family (audio) is not ported "
-            "yet (ROADMAP A12 item 6)")
-
-
 def loss_fn_for(cfg: ModelConfig):
-    """(model, batch) -> (loss, metrics): the LM objective
-    (``transformer.lm_loss_fn``)."""
-    _check_family(cfg)
-    return lambda model, batch: tf.lm_loss_fn(model, cfg, batch)
+    """(model, batch) -> (loss, metrics): the family's objective
+    (``encdec.encdec_loss_fn`` for ``audio``, else
+    ``transformer.lm_loss_fn``)."""
+    base = (encdec_lib.encdec_loss_fn if cfg.family == "audio"
+            else tf.lm_loss_fn)
+    return lambda model, batch: base(model, cfg, batch)
 
 
 def apply_fn_for(cfg: ModelConfig):
-    """The family's forward, ``transformer.lm_apply``."""
-    _check_family(cfg)
-    return tf.lm_apply
+    """The family's forward, ``encdec.encdec_apply`` for ``audio``, else
+    ``transformer.lm_apply``; both take (model, cfg, tokens, mode, caches,
+    pos, embeds)."""
+    return encdec_lib.encdec_apply if cfg.family == "audio" else tf.lm_apply
+
+
+def model_class_for(cfg: ModelConfig):
+    """The family's module: ``encdec.EncDec`` for ``audio``, else
+    ``transformer.TransformerLM``; both take (cfg, generator, cast)."""
+    return encdec_lib.EncDec if cfg.family == "audio" else tf.TransformerLM
 
 
 def init_fn_for(cfg: ModelConfig):
-    """seed -> a CPU f32 ``TransformerLM`` drawn from
+    """seed -> the family's CPU f32 model drawn from
     ``torch.Generator().manual_seed(seed)``."""
-    return lambda seed: tf.TransformerLM(
-        cfg, torch.Generator().manual_seed(seed))
+    cls = model_class_for(cfg)
+    return lambda seed: cls(cfg, torch.Generator().manual_seed(seed))
 
 
 def cast_params_for_compute(model: torch.nn.Module, cfg: ModelConfig):
     """One-shot f32 -> ``cfg.dtype`` cast of the params the reference
-    casts (``transformer.compute_cast``: every block param and the
-    embedding; the final norm's 1-D gain stays f32), for serving.  In
-    place (the serving model keeps no f32 copy); returns ``model``."""
+    casts (``transformer.compute_cast``: every block param, an
+    ``EncDec``'s encoder and decoder blocks alike, the embedding and
+    ``frontend_proj``; the 1-D final and encoder norms stay f32), for
+    serving.  In place (the serving model keeps no f32 copy); returns
+    ``model``."""
     tf.cast_for_compute(model, "", getattr(torch, cfg.dtype))
     return model
 
 
-def value_and_grad(model: tf.TransformerLM, cfg: ModelConfig, batch):
-    """(loss, metrics, grads) of ``lm_loss_fn`` on ``batch`` at the
+def value_and_grad(model: torch.nn.Module, cfg: ModelConfig, batch):
+    """(loss, metrics, grads) of the model's objective (its ``forward``:
+    ``lm_loss_fn`` or ``encdec_loss_fn``) on ``batch`` at the
     model's f32 master params, with the reference's compute cast taken
     inside, differentiably: each cast param is a ``.to(dtype)`` of its
     master, so its gradient flows back in f32.  ``grads`` maps each param
@@ -101,12 +111,15 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(model, tokens (B, S)) -> {last_logits (B, m_vocab), caches}: the
-    inference prefill."""
+    """(model, tokens (B, S), embeds (B, S_emb, D) or None) ->
+    {last_logits (B, m_vocab), caches}: the inference prefill, with the
+    frontend's embeddings (``vlm``: ahead of the tokens; ``audio``: the
+    encoder's frames)."""
+    apply_fn = apply_fn_for(cfg)
 
     @torch.inference_mode()
-    def step(model, tokens):
-        out = tf.lm_apply(model, cfg, tokens, mode="prefill")
+    def step(model, tokens, embeds=None):
+        out = apply_fn(model, cfg, tokens, mode="prefill", embeds=embeds)
         return {"last_logits": out["logits"][:, -1],
                 "caches": out["caches"]}
 
@@ -150,11 +163,12 @@ def make_slot_decode_step(cfg: ModelConfig, topk: int, device):
     if spec is not None and (io_lib.resolved_table_dtype(cfg) is None
                              or not spec.on_the_fly):
         bloom_lib.cached_hash_matrix(spec, device)
+    apply_fn = apply_fn_for(cfg)
 
     @torch.inference_mode()
     def step(model, token, caches, pos, active):
-        out = tf.lm_apply(model, cfg, token, mode="decode", caches=caches,
-                          pos=pos)
+        out = apply_fn(model, cfg, token, mode="decode", caches=caches,
+                       pos=pos)
         scores, ids = io_lib.recover_topk(cfg, out["logits"][:, 0],
                                           topk=topk, active=active)
         return {"logits": out["logits"], "caches": out["caches"],
@@ -193,8 +207,10 @@ def insert_cache_slot(pool, caches_small, slot: int):
     """Write a prefill's caches into rows [slot, slot + B) of the pool, in
     place, leaf by leaf by its role; returns the pool.  Attention k/v
     (prefill (B, S, KV, hd), pool (n_slots, T, KV, hd)) go to positions
-    [0, S); the Mamba leaves (ssm state and conv history) have no
-    sequence axis and are replaced whole.  One request is B = 1; a
+    [0, S); the Mamba leaves (ssm state and conv history) and the
+    encoder-decoder's cross k/v (``cross_k`` / ``cross_v``, one row per
+    encoder frame, which decode never grows) have no growing sequence
+    axis and are replaced whole.  One request is B = 1; a
     whole-batch prefill at slot 0 fills the pool
     (``serve.pad_caches_to``).  Stale k/v past S from an earlier occupant
     are never read: decode attends only to positions <= the slot's offset
@@ -211,8 +227,13 @@ def insert_cache_slot(pool, caches_small, slot: int):
 def init_caches_for(cfg: ModelConfig, shape: ShapeConfig):
     """``(dtype=..., device=...) -> caches``: zeroed decode caches of
     ``shape.global_batch`` rows of ``shape.seq_len`` positions
-    (``transformer.init_lm_cache``)."""
-    _check_family(cfg)
+    (``transformer.init_lm_cache``; for ``audio``
+    ``encdec.init_encdec_cache`` with the cross k/v of whisper's 1,500
+    frames, as the reference's)."""
+    if cfg.family == "audio":
+        return functools.partial(encdec_lib.init_encdec_cache, cfg,
+                                 shape.global_batch, shape.seq_len,
+                                 encdec_lib.ENC_LEN)
     return functools.partial(tf.init_lm_cache, cfg, shape.global_batch,
                              shape.seq_len)
 

@@ -9,7 +9,10 @@ backward, and the embedding's backward: the CSR scatter-add, or with
 ``--bwd-impl dense`` the dense m-tile sweep (``bloom_embed_bwd``).
 ``--table-dtype`` (int8, fp8_e4m3, bfloat16, float32) trains through a
 quantized embedding forward (the ``bloom_embed.<storage>`` variant) with
-the gradient straight-through into the master table.
+the gradient straight-through into the master table.  The ``vlm`` and
+``audio`` families (pixtral-12b, whisper-small) get zero frontend
+embeddings (frames) of ``max(4, seq // 4)`` rows in every batch, as in
+the reference.
 
 Fault tolerant as the reference's driver is:
 
@@ -30,6 +33,8 @@ Examples:
       --full --steps 20 [--bwd-impl dense]
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --device cpu --steps 16 [--ckpt /tmp/ckpt_qwen]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+      --full --steps 8
 """
 from __future__ import annotations
 
@@ -80,6 +85,15 @@ def run(arch: str, steps: int = 100, batch: int = 8, seq: int = 64,
         seed=seed)
     it = BatchIterator([lm_batches(stream, batch, seq)], batch, seed=seed)
 
+    def make_batch(arrays):
+        tokens = torch.as_tensor(arrays[0]).to(device)
+        b = {"tokens": tokens}
+        if cfg.family in ("vlm", "audio"):
+            b["embeds"] = torch.zeros(
+                tokens.shape[0], max(4, seq // 4), cfg.d_model,
+                dtype=getattr(torch, cfg.dtype), device=device)
+        return b
+
     step_fn, optimizer = steps_lib.make_train_step(cfg, tc)
     model = steps_lib.init_fn_for(cfg)(seed).to(device)
     opt_state = optimizer.init({n: p.detach()
@@ -117,10 +131,9 @@ def run(arch: str, steps: int = 100, batch: int = 8, seq: int = 64,
         for s in range(start_step, steps):
             if fault_hook is not None:
                 fault_hook(s)
-            tokens = torch.as_tensor(next(it)[0]).to(device)
+            b = make_batch(next(it))
             t0 = time.perf_counter()
-            opt_state, metrics = step_fn(model, opt_state,
-                                         {"tokens": tokens})
+            opt_state, metrics = step_fn(model, opt_state, b)
             if log_every and (s + 1) % log_every == 0:
                 loss = float(metrics["loss"])
                 dt = time.perf_counter() - t0

@@ -1,8 +1,11 @@
-"""Self-attention of the decoder LMs: q/k/v/o projections with the
-optional QKV bias and the optional per-head RMSNorm of q and k
-(``qk_norm``, qwen3-style), causal full-sequence attention for training, causal
-prefill that also emits the KV cache, and the single-token slot decode
-against that cache.
+"""Attention of the LMs: q/k/v/o projections with the optional QKV bias
+and the optional per-head RMSNorm of q and k (``qk_norm``, qwen3-style);
+causal self-attention for training, causal prefill that also emits the
+KV cache, and the single-token slot decode against that cache; and the
+encoder-decoder's cross attention (no RoPE, not causal, keys and values
+projected from the encoder output), whole or, at decode, from the cached
+cross k/v.  The encoder's own self-attention is ``self_attention`` with
+``causal=False``.
 
 The JAX package's ``models/attention.py`` computes attention in XLA,
 outside any Pallas kernel, so the port computes it in plain PyTorch
@@ -10,8 +13,7 @@ outside any Pallas kernel, so the port computes it in plain PyTorch
 where the reference has a chunked flash-style ``custom_vjp``.  Weights
 keep the reference's layout: ``wq`` (D, H, hd), ``wk`` / ``wv``
 (D, KV, hd), ``wo`` (H, hd, D), biases (H, hd) / (KV, hd), the q/k
-norm gains (hd,).  The
-reference's flash-style chunking, its cross attention and its
+norm gains (hd,).  The reference's flash-style chunking and its
 sharded-cache decode are not ported: they serve memory limits of long
 sequences and models this path does not run.
 """
@@ -53,22 +55,40 @@ class Attention(nn.Module):
             self.k_norm = nn.Parameter(torch.ones(hd))
 
 
+def _project_q(p: Attention, cfg: ModelConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) -> q (B, S, H, hd): biased, RMS-normed per head
+    (``qk_norm``); no RoPE."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p.bq.to(x.dtype)
+    if cfg.qk_norm:
+        q = layers.rms_norm(p.q_norm, q, cfg.norm_eps)
+    return q
+
+
+def project_kv(p: Attention, cfg: ModelConfig, x: torch.Tensor):
+    """x (B, T, D) -> k and v (B, T, KV, hd): biased, k RMS-normed per
+    head (``qk_norm``); no RoPE (the cross attention's keys and values
+    as the decode cache holds them)."""
+    dt = x.dtype
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(dt))
+    if cfg.qkv_bias:
+        k = k + p.bk.to(dt)
+        v = v + p.bv.to(dt)
+    if cfg.qk_norm:
+        k = layers.rms_norm(p.k_norm, k, cfg.norm_eps)
+    return k, v
+
+
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor):
     """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, KV, hd): biased,
     q and k RMS-normed per head (``qk_norm``), then RoPE'd, in the
     reference's order."""
-    dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(dt))
-    if cfg.qkv_bias:
-        q = q + p.bq.to(dt)
-        k = k + p.bk.to(dt)
-        v = v + p.bv.to(dt)
-    if cfg.qk_norm:
-        q = layers.rms_norm(p.q_norm, q, cfg.norm_eps)
-        k = layers.rms_norm(p.k_norm, k, cfg.norm_eps)
+    q = _project_q(p, cfg, x)
+    k, v = project_kv(p, cfg, x)
     if cfg.use_rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
@@ -76,17 +96,19 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            valid: torch.Tensor) -> torch.Tensor:
-    """q (B, S, H, hd), k/v (B, T, KV, hd), valid (B, S, T) bool ->
-    (B, S, H, hd).  Scores and softmax in f32, probabilities cast to q's
-    dtype for the value product; KV heads repeat to H (GQA)."""
+            valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """q (B, S, H, hd), k/v (B, T, KV, hd), valid (B, S, T) bool or None
+    (every key) -> (B, S, H, hd).  Scores and softmax in f32,
+    probabilities cast to q's dtype for the value product; KV heads
+    repeat to H (GQA)."""
     H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
     if H != KV:
         k = k.repeat_interleave(H // KV, dim=2)
         v = v.repeat_interleave(H // KV, dim=2)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # (B, H, ., hd)
     s = torch.matmul(qh, kh.transpose(-1, -2)).float() / math.sqrt(hd)
-    s = s.masked_fill(~valid[:, None], -math.inf)
+    if valid is not None:
+        s = s.masked_fill(~valid[:, None], -math.inf)
     w = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.matmul(w, vh).transpose(1, 2)
 
@@ -96,10 +118,15 @@ def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
 
 
 def self_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-    """Train: causal self-attention over x (B, S, D) at ``positions``
-    (B, S), no cache kept; returns (B, S, D)."""
-    return self_attention_with_cache(p, cfg, x, positions)[0]
+                   positions: torch.Tensor,
+                   causal: bool = True) -> torch.Tensor:
+    """Train: self-attention over x (B, S, D) at ``positions`` (B, S),
+    causal unless ``causal=False`` (the encoder), no cache kept; returns
+    (B, S, D)."""
+    if causal:
+        return self_attention_with_cache(p, cfg, x, positions)[0]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    return _out(p, _attend(q, k, v, None))
 
 
 def self_attention_with_cache(p: Attention, cfg: ModelConfig,
@@ -141,3 +168,23 @@ def decode_self_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     valid = torch.arange(T, device=x.device)[None, None, :] <= posb[:, :, None]
     o = _attend(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), valid)
     return _out(p, o)
+
+
+def cross_attention_kv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Cross attention of the decoder states x (B, S, D) over the encoder
+    frames' keys and values k / v (B, T, KV, hd), every frame (no mask,
+    no RoPE); returns (B, S, D).  At decode (S = 1) ``k`` and ``v`` are
+    the cached ones (the reference's ``encdec._dec_block`` decode
+    branch)."""
+    q = _project_q(p, cfg, x)
+    return _out(p, _attend(q, k.to(x.dtype), v.to(x.dtype), None))
+
+
+def cross_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    kv_x: torch.Tensor) -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper): queries from x
+    (B, S, D), keys and values projected from the encoder output kv_x
+    (B, T, D).  No RoPE, no causality; returns (B, S, D)."""
+    k, v = project_kv(p, cfg, kv_x)
+    return cross_attention_kv(p, cfg, x, k, v)

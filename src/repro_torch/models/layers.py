@@ -1,5 +1,5 @@
-"""Shared neural building blocks: initialisers, RMSNorm, RoPE, SwiGLU (the
-function and the module holding its weights).
+"""Shared neural building blocks: initialisers, RMSNorm, LayerNorm, RoPE,
+SwiGLU (the function and the module holding its weights).
 
 The JAX package's ``dense`` layer (``x @ w + b``) is ``nn.Linear`` here,
 whose weight is stored transposed, (d_out, d_in).  The transformer's
@@ -66,6 +66,18 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor,
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * scale).to(dt)
+
+
+def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis (mean and biased variance), computed
+    in f32 and cast back to x's dtype (``scale`` and ``bias`` are the f32
+    (D,) gain and shift; the reference's init is ones and zeros)."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * scale + bias).to(dt)
 
 
 def rope_frequencies(head_dim: int, theta: float,

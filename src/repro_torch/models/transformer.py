@@ -1,14 +1,17 @@
-"""Decoder-only LM assembly: the dense, MoE, SSM and hybrid families.
+"""Decoder-only LM assembly: the dense, MoE, SSM, hybrid and vlm families.
 
 A ``TransformerLM`` holds the Bloom (or dense) token embedding, a
 ``ModuleList`` of pre-norm blocks and the final norm; the LM head is the
-embedding transposed when tied.  Each block takes its roles from the
-reference's layer-role layout: layers are grouped into super-blocks of
-``period_of(cfg)`` sub-layers (1 for homogeneous stacks, 8 for jamba's
-1-attn : 7-mamba interleave), and layer i is sub-layer ``i % period`` of
-super-block ``i // period``, with the mixer (``attn`` or ``mamba``) and
-the FFN (``dense``, ``moe`` or ``none``) of ``sublayer_roles(cfg)[i %
-period]``.  A block is RMSNorm -> mixer -> residual, then, unless its FFN
+embedding transposed when tied.  A config with a stub ``frontend`` (the
+``vlm`` family) adds ``frontend_proj``, a bias-free D x D dense layer
+that projects precomputed image embeddings (B, S_emb, D) into S_emb
+positions ahead of the tokens (``lm_apply``'s ``embeds``).  Each block
+takes its roles from the reference's layer-role layout: layers are
+grouped into super-blocks of ``period_of(cfg)`` sub-layers (1 for
+homogeneous stacks, 8 for jamba's 1-attn : 7-mamba interleave), and
+layer i is sub-layer ``i % period`` of super-block ``i // period``, with
+the mixer (``attn`` or ``mamba``) and the FFN (``dense``, ``moe`` or
+``none``) of ``sublayer_roles(cfg)[i % period]``.  A block is RMSNorm -> mixer -> residual, then, unless its FFN
 is ``none``, RMSNorm -> FFN -> residual.  ``lm_apply`` runs it:
 
   train   — a full sequence from position 0, no caches; all-position
@@ -29,8 +32,7 @@ other parameters (the train step's compute-dtype copies).
 The JAX package stacks its super-blocks under a leading ``(n_super,
 ...)`` axis and scans them; here they are a Python loop over the
 ModuleList (PyTorch runs eagerly, so there is nothing to compile).  The
-vision-frontend and encoder-decoder families raise (ROADMAP A12 items
-6-7).
+encoder-decoder family (``audio``) is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -47,12 +49,10 @@ from repro_torch.models.layers import SwiGLU
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-            "port serves decoder-only LMs: dense, moe, ssm and hybrid "
-            "(the frontend and encoder-decoder models: ROADMAP A12 items "
-            "6-7)")
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the encoder-decoder family (audio) is "
+            "models.encdec.EncDec, not a decoder-only TransformerLM")
 
 
 # --------------------------------------------------------------------------
@@ -95,10 +95,12 @@ def compute_cast(name: str, p: torch.Tensor) -> bool:
     which each block param carries a leading layer axis.  So every block
     param (the per-layer RMSNorm gains, the (H, hd) QKV biases and the
     Mamba mixers' 1-D ``A_log``, ``D``, ``dt_bias``, conv biases and norm
-    too) and the embedding go to the compute dtype, and only the final
-    norm's 1-D gain stays f32."""
-    return p.is_floating_point() and (p.ndim >= 2
-                                      or name.startswith("blocks."))
+    too; an ``encdec.EncDec``'s ``encoder.*`` and ``decoder.*`` blocks
+    alike), the embedding and ``frontend_proj`` go to the compute dtype,
+    and only the 1-D final norm (and the encoder's ``enc_norm``) stays
+    f32."""
+    return p.is_floating_point() and (
+        p.ndim >= 2 or name.startswith(("blocks.", "encoder.", "decoder.")))
 
 
 def cast_for_compute(module: nn.Module, prefix: str, dtype) -> None:
@@ -155,6 +157,9 @@ class TransformerLM(nn.Module):
         p = io.io_init(cfg, generator)
         self.embed = nn.Parameter(p["embed"])
         self.head = nn.Parameter(p["head"]) if "head" in p else None
+        if cfg.frontend != "none":
+            self.frontend_proj = nn.Parameter(layers.truncated_normal(
+                (cfg.d_model, cfg.d_model), 1.0, generator))
         done("", self)
         roles = sublayer_roles(cfg)
         num_superblocks(cfg)
@@ -183,14 +188,30 @@ def init_lm_cache(cfg: ModelConfig, batch: int, cache_len: int,
             for i in range(cfg.num_layers)]
 
 
+def frontend_concat(model: TransformerLM, x_tokens: torch.Tensor,
+                    embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The stub frontend: ``embeds`` (B, S_emb, D) projected by
+    ``frontend_proj`` in the tokens' dtype, ahead of the token embeddings
+    x_tokens (B, S, D) -> (B, S_emb + S, D); x_tokens alone without
+    ``embeds``."""
+    if embeds is None:
+        return x_tokens
+    dt = x_tokens.dtype
+    pre = embeds.to(dt) @ model.frontend_proj.to(dt)
+    return torch.cat([pre, x_tokens], dim=1)
+
+
 def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
              mode: str = "prefill", caches=None,
-             pos: Optional[torch.Tensor] = None) -> dict:
-    """Run the LM on tokens (B, S).
+             pos: Optional[torch.Tensor] = None,
+             embeds: Optional[torch.Tensor] = None) -> dict:
+    """Run the LM on tokens (B, S), after the stub frontend's S_emb
+    positions when ``embeds`` (B, S_emb, D) are given (train and prefill;
+    positions then run over S_tot = S_emb + S).
 
-    train   -> {"logits" (B, S, m_vocab), "aux"};
-    prefill -> {"logits" (B, S, m_vocab), "aux", "caches": per layer
-               {"k","v"} (B, S, KV, hd) or the Mamba cache};
+    train   -> {"logits" (B, S_tot, m_vocab), "aux"};
+    prefill -> {"logits" (B, S_tot, m_vocab), "aux", "caches": per layer
+               {"k","v"} (B, S_tot, KV, hd) or the Mamba cache};
     decode  -> {"logits" (B, 1, m_vocab), "aux", "caches"}: needs
                ``caches`` (the per-layer pool of ``init_lm_cache``,
                updated in place and returned) and ``pos`` (B,) int, each
@@ -200,7 +221,9 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
     without MoE).
     """
     x = io.embed_tokens(model.embed, cfg, tokens)
-    B, S = tokens.shape
+    if mode != "decode":
+        x = frontend_concat(model, x, embeds)
+    B, S = x.shape[:2]
     if mode in ("train", "prefill"):
         positions = torch.arange(S, device=x.device).expand(B, S)
         caches = [] if mode == "prefill" else None
@@ -250,13 +273,15 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
 def lm_loss_fn(model: TransformerLM, cfg: ModelConfig,
                batch: Mapping[str, torch.Tensor]):
     """Next-token CE plus the MoE auxiliary loss.  batch: {"tokens"
-    (B, S)} and optionally {"loss_mask" (B, S - 1)}.  Returns (loss,
-    {"ce", "aux"}): ce is the mean over predicted tokens (or over the
+    (B, S)} and optionally {"embeds" (B, S_emb, D)} (the stub frontend's
+    prefix) and {"loss_mask" (B, S - 1)}.  Returns (loss, {"ce", "aux"}):
+    ce is the mean over predicted tokens of the text region (or over the
     mask), and loss = ce + aux_loss_weight * aux / num_superblocks, as
     in the reference (divided by the super-blocks, not the MoE layers)."""
     tokens = batch["tokens"]
-    out = lm_apply(model, cfg, tokens, mode="train")
-    logits = out["logits"]
+    out = lm_apply(model, cfg, tokens, mode="train",
+                   embeds=batch.get("embeds"))
+    logits = out["logits"][:, out["logits"].shape[1] - tokens.shape[1]:]
     valid = batch.get("loss_mask")
     loss_tok = io.lm_loss(cfg, logits[:, :-1], tokens[:, 1:], valid)
     if valid is None:
@@ -268,6 +293,38 @@ def lm_loss_fn(model: TransformerLM, cfg: ModelConfig,
     return total, {"ce": loss, "aux": out["aux"]}
 
 
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def io_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The reference tree's unstacked params as state-dict entries: the
+    embedding and head (``io``), ``final_norm``'s gain and, where the tree
+    has one, ``frontend_proj`` {"w"} as the port's (D, D) param."""
+    sd = {"embed": _f32(tree["io"]["embed"]),
+          "final_norm": _f32(tree["final_norm"]["scale"])}
+    if "head" in tree["io"]:
+        sd["head"] = _f32(tree["io"]["head"])
+    if "frontend_proj" in tree:
+        sd["frontend_proj"] = _f32(tree["frontend_proj"]["w"])
+    return sd
+
+
+def put_stacked(sd: Dict[str, torch.Tensor], prefix: str, node,
+                s: int) -> None:
+    """Entry ``s`` of the leading (stacked) axis of every leaf under
+    ``node`` into ``sd`` at ``prefix``: a norm's {"scale"} dict is the
+    port's one gain param, other nested dicts become sub-module names."""
+    if isinstance(node, Mapping):
+        if set(node) == {"scale"}:
+            sd[prefix] = _f32(node["scale"][s])
+            return
+        for name, child in node.items():
+            put_stacked(sd, f"{prefix}.{name}", child, s)
+    else:
+        sd[prefix] = _f32(node[s])
+
+
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig
                        ) -> Dict[str, torch.Tensor]:
     """The JAX package's ``lm_init`` tree (numpy arrays) as this module's
@@ -276,28 +333,11 @@ def lm_params_from_jax(tree: Mapping, cfg: ModelConfig
     axis; layer i is entry ``i // period`` of ``sub{i % period}``.  The
     weight layouts are the same on both sides; a norm's {"scale"} dict is
     the port's one gain param, and the nested dicts (the shared experts,
-    the Mamba convs) become sub-module names."""
+    the Mamba convs) become sub-module names (``put_stacked``); a
+    frontend's ``frontend_proj`` {"w"} is the port's (D, D) param."""
     _check_family(cfg)
-
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    sd = {"embed": t(tree["io"]["embed"]),
-          "final_norm": t(tree["final_norm"]["scale"])}
-    if "head" in tree["io"]:
-        sd["head"] = t(tree["io"]["head"])
-
-    def put(prefix: str, node, s: int) -> None:
-        if isinstance(node, Mapping):
-            if set(node) == {"scale"}:
-                sd[prefix] = t(node["scale"][s])
-                return
-            for name, child in node.items():
-                put(f"{prefix}.{name}", child, s)
-        else:
-            sd[prefix] = t(node[s])
-
+    sd = io_params_from_jax(tree)
     p = period_of(cfg)
     for i in range(cfg.num_layers):
-        put(f"blocks.{i}", tree["blocks"][f"sub{i % p}"], i // p)
+        put_stacked(sd, f"blocks.{i}", tree["blocks"][f"sub{i % p}"], i // p)
     return sd

@@ -571,11 +571,25 @@ class Engine:
     The pool lives on the params' device.
     """
 
+    @staticmethod
+    def supports(cfg: ModelConfig) -> bool:
+        """Continuous batching serves decoder-only token LMs; the
+        encoder-decoder (``audio``) and frontend-stub (``vlm``) archs
+        carry non-token prefill inputs the engine does not schedule, and
+        serve by the whole-batch ``launch/serve.run`` path.  The one place
+        of that rule (the CLI checks it before building a model)."""
+        return cfg.family != "audio" and cfg.frontend == "none"
+
     def __init__(self, cfg: ModelConfig, params: tf.TransformerLM, *,
                  n_slots: int, max_len: int, topk: int = 8,
                  eos_id: Optional[int] = None, prefill_workers: int = 1,
                  failpoints: Optional[FailPlan] = None,
                  admission_policy: Optional[AdmissionPolicy] = None):
+        if not Engine.supports(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: continuous batching serves decoder-only "
+                "token LMs (see Engine.supports); use the static "
+                "launch/serve.py path")
         self.cfg = cfg
         self.params = params
         self.n_slots = n_slots

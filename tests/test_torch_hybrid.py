@@ -252,14 +252,16 @@ def test_build_model_casts_block_by_block_to_the_same_params(arch):
     cfg = tconfigs.get_smoke_config(arch, dtype="bfloat16")
     got = t_serve.build_model(cfg, 5, "cpu")
     with torch.device("cpu"):
-        whole = t_tf.TransformerLM(cfg, torch.Generator("cpu").manual_seed(5))
+        whole = t_steps.model_class_for(cfg)(
+            cfg, torch.Generator("cpu").manual_seed(5))
     want = t_steps.cast_params_for_compute(whole, cfg)
     sd, wd = got.state_dict(), want.state_dict()
     assert list(sd) == list(wd)
     for name, a in sd.items():
         assert a.dtype == wd[name].dtype and torch.equal(a, wd[name]), name
     assert sd["final_norm"].dtype == torch.float32
-    assert sd["blocks.0.norm1"].dtype == torch.bfloat16
+    block = "decoder" if cfg.family == "audio" else "blocks"
+    assert sd[f"{block}.0.norm1"].dtype == torch.bfloat16
     assert not any(p.requires_grad for p in got.parameters())
 
 
@@ -322,5 +324,12 @@ def test_serve_cli_serves_the_new_families_on_cpu(capsys):
     with pytest.raises(SystemExit):
         t_serve.main(["--arch", "deepseek-moe-16b", "--device", "cpu",
                       "--layers", "1"])
-    with pytest.raises(NotImplementedError, match="A12 items 6-7"):
-        tconfigs.get_config("whisper-small")
+    # the encoder-decoder serves by the whole-batch path too, its decoder
+    # cut to one layer (the encoder keeps its depth)
+    t_serve.main(["--arch", "whisper-small", "--device", "cpu", "--static",
+                  "--layers", "1", "--batch", "2", "--prompt-len", "4",
+                  "--gen", "3"])
+    out = capsys.readouterr().out
+    assert "whole-batch serving (whisper-small 1L" in out
+    assert "generated ids (first seq):" in out
+    assert tconfigs.get_config("whisper-small").encoder_layers == 12

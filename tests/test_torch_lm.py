@@ -37,6 +37,7 @@ from repro_torch.kernels import bloom_decode_topk as dt
 from repro_torch.kernels import bloom_embed as be
 from repro_torch.kernels import common
 from repro_torch.launch import steps as t_steps
+from repro_torch.models import encdec as t_encdec
 from repro_torch.models import io as t_io
 from repro_torch.models import transformer as t_tf
 from repro_torch.serving.engine import Engine as TEngine
@@ -80,14 +81,19 @@ def test_config_matches_the_reference(models):
             assert getattr(t, f) == getattr(j, f), f
         assert dataclasses.asdict(t.bloom) == dataclasses.asdict(j.bloom)
         assert t.param_count() == j.param_count()
-    with pytest.raises(NotImplementedError, match="A12"):
-        tconfigs.get_config("whisper-small")
+    # every arch of the reference's registry builds, whisper-small too
+    assert tconfigs.ARCH_NAMES == jconfigs.ARCH_NAMES
+    assert tconfigs.get_config("whisper-small").param_count() == \
+        jconfigs.get_config("whisper-small").param_count()
     assert tconfigs.get_config(ARCH, table_dtype="int8").table_dtype == \
         "int8"
     with pytest.raises(ValueError, match="table_dtype must be one of"):
         tconfigs.get_config(ARCH, table_dtype="int4")
-    with pytest.raises(NotImplementedError, match="A12"):
-        t_tf.TransformerLM(dataclasses.replace(tcfg, family="audio"))
+    # the audio family is the encoder-decoder, not a decoder-only LM
+    audio = dataclasses.replace(tcfg, family="audio")
+    with pytest.raises(ValueError, match="EncDec"):
+        t_tf.TransformerLM(audio)
+    assert t_steps.model_class_for(audio) is t_encdec.EncDec
 
 
 def test_compute_cast_matches_the_reference_set():

@@ -26,6 +26,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels import common
 from repro_torch.launch import serve as t_serve
 from repro_torch.launch import steps as t_steps
+from repro_torch.models import encdec as t_encdec
 from repro_torch.models import transformer as t_tf
 
 BATCH, PROMPT, GEN, TOPK = 3, 8, 6, 4
@@ -197,12 +198,22 @@ def test_loss_and_apply_fns_for_the_dense_family(smoke):
     want, _ = t_tf.lm_loss_fn(model, tcfg, batch)
     assert torch.equal(loss, want) and set(metrics) == {"ce", "aux"}
     assert t_steps.apply_fn_for(tcfg) is t_tf.lm_apply
-    audio = tconfigs.get_smoke_config("qwen3-4b", family="audio")
-    for fn in (t_steps.loss_fn_for, t_steps.apply_fn_for):
-        with pytest.raises(NotImplementedError, match="A12 item 6"):
-            fn(audio)
-    with pytest.raises(NotImplementedError, match="A12 item 6"):
-        t_steps.init_caches_for(audio, ShapeConfig("c", 8, 1, "decode"))
+    # the audio family's: the encoder-decoder's objective, forward and
+    # caches (the cross k/v of the reference's 1,500 frames)
+    audio = tconfigs.get_smoke_config("whisper-small")
+    enc = t_steps.init_fn_for(audio)(0)
+    frames = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 5, audio.d_model)).astype(np.float32))
+    abatch = {"tokens": torch.from_numpy(_tokens((2, 6), audio.vocab)),
+              "embeds": frames}
+    loss, metrics = t_steps.loss_fn_for(audio)(enc, abatch)
+    want, _ = t_encdec.encdec_loss_fn(enc, audio, abatch)
+    assert torch.equal(loss, want) and set(metrics) == {"ce", "aux"}
+    assert t_steps.apply_fn_for(audio) is t_encdec.encdec_apply
+    caches = t_steps.init_caches_for(audio, ShapeConfig("c", 8, 1,
+                                                        "decode"))()
+    assert caches[0]["k"].shape[:2] == (1, 8)
+    assert caches[0]["cross_k"].shape[:2] == (1, 1500)
 
 
 def test_static_cli_serves_the_whole_batch_on_cpu_with_no_kernel(capsys):
