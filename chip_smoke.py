@@ -269,6 +269,43 @@ Phases, one line of numbers each:
                 token entry, CSR binning and scatter, bloom_ce forward and
                 backward, once a step each) held to its plain version and
                 once timed, the losses finite and equal (rtol 1e-6);
+ 15d. serve-sharded — data-axis-sharded serving (serving/sharded_pool.py)
+                at full width: qwen1.5-0.5b (24 layers, d_model 1024, MHA
+                16 x 64, vocab 151,936, m 30,208, k 4, bf16, drawn on the
+                card from seed 0) through the in-process multi-host sim's
+                matrix (serving.sim_multihost.run: 8 hosts x 2 slots on
+                the one card, max_len 40, topk 4, gossip delay 1, 2
+                prefill workers, LoadSpec(2 requests a host, rate 1.0,
+                prompts 6-10, gens 3/6/12, seed 0); ONE ShardedEngine over
+                {sim, collective} x {plain, compaction 0.25}, then the
+                single-host Engine at 16 slots and each request alone
+                through solo static serving), counts reset just before
+                and read just after, every launch held against its plain
+                version: one bloom_embed.hash and one bloom_decode_topk
+                launch per prefill and per pool decode step; every request
+                done; tokens bit-equal across the four runs, the
+                single-host Engine and solo serving (a difference would
+                print the request and its top-2 Eq. 3 gap, and fail);
+                each log equal to simulate_sharded_schedule's integer for
+                integer (COMPACT included), sim == collective; the compact
+                runs compacted; both prefill workers used; slot logs sound
+                and linearizable; one decode step object and every pool
+                leaf's storage kept; then the chaos drill (4 hosts,
+                kill_host:1@3) and the overload drill (surge:3@1,
+                slow_decode:3@2, the committed policy) with the
+                reference's verifiers, counted and held the same way; one
+                pool step walked by hand with 3 of 16 rows live, its
+                embedding and top-k ids and scores bit-equal to the plain
+                versions, then its wall and device time by kernel (3 and
+                16 rows live); the matrix's workload timed unheld in turns
+                (sharded collective compact, single-host Engine, sharded
+                sim plain: wall, tok/s, wall per decode step) and one
+                collective exchange round; serve.run_sharded as the CLI
+                calls it (--full --hosts 8 --slots-per-host 2 --transport
+                collective --compact-threshold 0.25: 128 requests);
+                mamba2-1.3b at full width (48 layers, d_model 2048, vocab
+                50,280, m 9,984) through one compacting collective run,
+                its tokens equal to the single-host Engine's;
  16. bench-serving — the serving bench twin's 16 rows
                 (repro_torch.benchmarks.bench_serving; the mamba2-1.3b
                 rows since the SSM family's port) on the card, held to
@@ -2930,6 +2967,379 @@ def phase_serve_frontends(torch, be, dt, common, train_names):
     return totals, errs
 
 
+# qwen1.5-0.5b at full width (hf:Qwen/Qwen1.5-0.5B), the widths the
+# serve-sharded phase must see: layers, d_model, (heads, kv heads,
+# head_dim), vocab, m, k, compute dtype; and mamba2-1.3b's (arXiv:
+# 2405.21060): layers, d_model, vocab, m, k, dtype
+SHARDED_QWEN = (24, 1024, (16, 16, 64), 151936, 30208, 4, "bfloat16")
+SHARDED_MAMBA = (48, 2048, 50280, 9984, 4, "bfloat16")
+
+
+def _counted_sharded(torch, be, dt, common, label, cfg, totals, errs, fn):
+    """Run ``fn`` (which returns its model steps, prefills plus decode
+    steps, and a result) with the counts reset just before and read just
+    after, every launch held against its plain version
+    (``held_to_plain``): it must launch the embed kernel's token entry and
+    bloom_decode_topk once per model step each, and nothing else.  Adds
+    the counts to ``totals``; returns the result."""
+    from repro_torch.models import io as io_lib
+    embed_name = be.token_variant_name(io_lib.vocab_spec(cfg))
+    torch.cuda.synchronize()
+    common.reset_launches()
+    with held_to_plain(torch, common, f"serve-sharded: {label}", errs):
+        steps, out = fn()
+        torch.cuda.synchronize()
+    counts = dict(common.LAUNCHES)
+    _check(counts == {embed_name: steps, dt.NAME: steps},
+           f"serve-sharded: {label}: launched {counts} for {steps} "
+           f"prefills + decode steps")
+    for n, c in counts.items():
+        totals[n] = totals.get(n, 0) + c
+    print(f"serve-sharded: {label}: {steps} prefills + pool decode steps, "
+          f"launches {counts}, each held against its plain version",
+          flush=True)
+    return out
+
+
+def _solo_gaps(torch, dt, cfg, model, report):
+    """Print, for every request whose pool tokens differ from solo B = 1
+    serving, the first differing token and the top-2 gap of the Eq. 3
+    scores there (the plain decode of a B = 1 prefill of the prompt and
+    the tokens before it).  Returns the differing rids."""
+    import numpy as np
+    from repro_torch.core import bloom
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import io as io_lib
+    from repro_torch.serving.loadgen import LoadSpec, sharded_workload
+    from repro_torch.serving import sim_multihost as sim
+    pool = report["single"]["tokens"]
+    bad = sorted(rid for rid in pool if pool[rid] != report["solo"][rid])
+    if not bad:
+        return bad
+    dev = model.embed.device
+    spec = io_lib.vocab_spec(cfg)
+    H = bloom.cached_hash_matrix(spec, dev)
+    prompts = {r.rid: r.prompt for reqs in sharded_workload(LoadSpec(
+        n_requests=2, vocab=cfg.vocab, rate=1.0, prompt_lens=(6, 10),
+        gen_lens=(3, 6, 12), seed=0), sim.N_HOSTS) for r in reqs}
+    prefill = steps_lib.make_prefill_step(cfg)
+    for rid in bad:
+        a, b = pool[rid], report["solo"][rid]
+        i = next(j for j in range(len(a)) if a[j] != b[j])
+        seq = np.concatenate([prompts[rid], np.asarray(a[:i], np.int32)])
+        last = prefill(model, torch.as_tensor(seq, device=dev)[None])[
+            "last_logits"]
+        sc, ids = dt.bloom_decode_topk_plain(
+            torch.log_softmax(last.float(), -1), H, 2)
+        print(f"serve-sharded: NEAR-TIE rid {rid} token {i}: pool "
+              f"{a[i]}, solo {b[i]}; plain top-2 ids {ids[0].tolist()} "
+              f"scores {sc[0].tolist()}, gap "
+              f"{float(sc[0, 0] - sc[0, 1]):.6g}", flush=True)
+    return bad
+
+
+def _walk_pool_step(torch, be, dt, cfg, engine):
+    """One pool decode step of ``engine`` walked by hand: three requests
+    prefilled into slots of hosts 0, 2 and 5 (the other 13 rows dead),
+    then the stage-0 step: its embedding bit-equal to the plain
+    gather-sum, its top-k ids and scores, active mask included, bit-equal
+    to bloom_decode_topk_plain on the same logp.  Then the step's wall
+    (host clock, synchronised) and device time by kernel, with the 3 rows
+    live and with all 16.  Returns (wall ms, busy ms) of the 3-live
+    step."""
+    from repro_torch.core import bloom
+    from repro_torch.kernels import ops
+    from repro_torch.models import io as io_lib
+    from repro_torch.serving.loadgen import LoadSpec, sharded_workload
+    from repro_torch.serving.scheduler import ShardedScheduler
+    from repro_torch.serving.sharded_pool import _PoolClient
+    dev = engine.mesh.device
+    spec = io_lib.vocab_spec(cfg)
+    H = bloom.cached_hash_matrix(spec, dev)
+    model = engine.params
+    client = _PoolClient(engine, ShardedScheduler(engine.n_hosts,
+                                                  engine.slots_per_host))
+    wl = sharded_workload(LoadSpec(n_requests=1, vocab=cfg.vocab,
+                                   prompt_lens=(6, 10), gen_lens=(8,),
+                                   seed=7), engine.n_hosts)
+    reqs = [wl[h][0] for h in (0, 2, 5)]
+    for h, r in zip((0, 2, 5), reqs):
+        r.slot = h * engine.slots_per_host + h % engine.slots_per_host
+    for r, first in zip(reqs, client.prefill(reqs)):
+        client.start_slot(r, first)
+    tok = torch.from_numpy(client.tokens).to(dev)
+    pos = torch.from_numpy(client.pos).to(dev)
+    active = torch.from_numpy(client.active).to(dev)
+    step = lambda: engine._decode(  # noqa: E731
+        model, tok, client.caches, pos, active)
+    with torch.inference_mode():
+        got = ops.bloom_embed(model.embed, tok, spec)
+        want, _ = be.bloom_embed_tokens_plain(
+            model.embed, None, tok.reshape(-1), spec, model.embed.dtype)
+        _check(torch.equal(got.reshape(want.shape), want),
+               "serve-sharded: walked pool step: embedding kernel != plain "
+               "gather-sum")
+        out = step()
+        logits = out["logits"][:, 0]
+        _check(bool(torch.isfinite(logits[active]).all()),
+               "serve-sharded: walked pool step: non-finite logits")
+        pv, pi = dt.bloom_decode_topk_plain(
+            torch.log_softmax(logits.float(), -1), H, engine.topk, active)
+        _check(torch.equal(out["topk_ids"], pi)
+               and torch.equal(out["topk_scores"], pv),
+               "serve-sharded: walked pool step (3 of 16 rows live): "
+               "decode-top-k kernel != plain version")
+    live = client.active.nonzero()[0].tolist()
+    print(f"serve-sharded: walked pool step, rows {live} of "
+          f"{engine.n_slots} live: embedding and top-k ids "
+          f"and scores bit-equal to the plain versions; live ids "
+          f"{out['topk_ids'][active, 0].tolist()}", flush=True)
+    res = {}
+    for label, act in (("3 of 16 live", active),
+                       ("16 of 16 live", torch.ones_like(active))):
+        fn = lambda: engine._decode(  # noqa: E731
+            model, tok, client.caches, pos, act)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 10 * 1e3
+        split = _device_split(torch, fn, calls=5)
+        busy = sum(split.values()) / 1e3
+        top = dict(sorted(split.items(), key=lambda kv: -kv[1])[:5])
+        print(f"serve-sharded: {cfg.name} pool decode step (B = 16, "
+              f"{label}): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+              f"({busy / wall:.4f}), top kernels: {_split_line(top)}",
+              flush=True)
+        res.setdefault("walls", []).append((wall, busy))
+    return res["walls"][0]
+
+
+def _time_sharded(torch, cfg, model, report):
+    """The sim's workload served unheld, three turns of (sharded
+    collective compact, sharded sim plain, single-host Engine at 16
+    slots), alternating the order: each run's wall, tok/s and wall per
+    model pass (prefill or pool decode step); then the collective
+    gather's cost per round on the card."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import sim_multihost as sim
+    from repro_torch.serving.control import DELTA_FIELDS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.loadgen import (LoadSpec, merge_workloads,
+                                             sharded_workload)
+    from repro_torch.serving.sharded_pool import (COLLECTIVE_CAPACITY,
+                                                  ShardedEngine)
+    spec = LoadSpec(n_requests=2, vocab=cfg.vocab, rate=1.0,
+                    prompt_lens=(6, 10), gen_lens=(3, 6, 12), seed=0)
+    sharded = ShardedEngine(
+        cfg, model, mesh=make_serving_mesh(sim.N_HOSTS, device="cuda"),
+        slots_per_host=sim.SLOTS_PER_HOST, max_len=sim.MAX_LEN,
+        topk=sim.TOPK, prefill_workers=sim.PREFILL_WORKERS)
+    single = Engine(cfg, model, n_slots=sim.N_HOSTS * sim.SLOTS_PER_HOST,
+                    max_len=sim.MAX_LEN, topk=sim.TOPK)
+    runs = {
+        "sharded collective compact": lambda: sharded.run(
+            sharded_workload(spec, sim.N_HOSTS), transport="collective",
+            compact_threshold=sim.COMPACT_THRESHOLD),
+        "sharded sim plain": lambda: sharded.run(
+            sharded_workload(spec, sim.N_HOSTS), transport="sim",
+            compact_threshold=None),
+        "single-host Engine": lambda: single.run(
+            merge_workloads(sharded_workload(spec, sim.N_HOSTS)))}
+    labels = list(runs)
+    order = labels + labels[::-1] + labels     # three turns each
+    got = {}
+    for label in order:
+        torch.cuda.synchronize()
+        res, st = runs[label]()
+        torch.cuda.synchronize()
+        _check(all(r.done for r in res.values()),
+               f"serve-sharded: timed {label}: a request was not served")
+        toks = {rid: r.tokens for rid, r in res.items()}
+        _check(toks == report["single"]["tokens"],
+               f"serve-sharded: timed {label}: tokens differ from the held "
+               "runs'")
+        passes = st.prefills + st.decode_steps
+        got.setdefault(label, []).append(
+            (st.wall_s * 1e3, st.tokens_out / st.wall_s,
+             st.wall_s * 1e3 / passes, passes))
+    for label, rows in got.items():
+        print(f"serve-sharded: timed {label}: wall "
+              f"{[round(r[0], 3) for r in rows]} ms, "
+              f"{[round(r[1], 1) for r in rows]} tok/s, wall per model "
+              f"pass {[round(r[2], 3) for r in rows]} ms ({rows[0][3]} "
+              f"passes: 16 B = 1 prefills and 14 pool decode steps)",
+              flush=True)
+    g = sharded._gather
+    buf = np.zeros((sim.N_HOSTS, COLLECTIVE_CAPACITY + 1,
+                    DELTA_FIELDS), np.int32)
+    g(buf)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        g(buf)
+    ms = (time.perf_counter() - t0) / 50 * 1e3
+    coll = [report["runs"][n]["stats"]["decode_steps"]
+            for n in ("collective_plain", "collective_compact")]
+    print(f"serve-sharded: collective transport: one exchange round "
+          f"(commit {sim.N_HOSTS} host buffers of "
+          f"{tuple(buf.shape[1:])} int32, {sim.N_HOSTS} gathers on the "
+          f"card, one copy back) {ms:.4f} ms on the host clock; the "
+          f"matrix's two collective runs ran {report['collective_rounds']} "
+          f"rounds over {sum(coll)} decode steps", flush=True)
+    return got
+
+
+def phase_serve_sharded(torch, be, dt, common):
+    """Data-axis-sharded serving at full width: qwen1.5-0.5b through the
+    reference sim's matrix (serving.sim_multihost.run, 8 hosts x 2 slots,
+    {sim, collective} x {plain, compact 0.25}, the single-host Engine and
+    solo serving), its chaos and overload drills, a walked pool step,
+    mamba2-1.3b through one compact run, serve.run_sharded as the CLI
+    calls it, and the timed runs.  Every counted run's launches held
+    against their plain versions.  Returns (launches by kernel, max abs
+    error by kernel)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import sim_multihost as sim
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.loadgen import (LoadSpec, merge_workloads,
+                                             sharded_workload)
+    from repro_torch.serving.sharded_pool import ShardedEngine
+    dev = torch.device("cuda")
+    totals, errs = {}, {}
+    cfg = configs.get_config("qwen1.5-0.5b")
+    shape = (cfg.num_layers, cfg.d_model, (cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim), cfg.vocab, cfg.m_vocab, cfg.bloom.k,
+             cfg.dtype)
+    _check(shape == SHARDED_QWEN, f"serve-sharded: qwen config {shape}")
+    t0 = time.perf_counter()
+    model = serve.build_model(cfg, 0, dev)
+    torch.cuda.synchronize()
+    print(f"serve-sharded: {cfg.name} {cfg.num_layers}L d_model "
+          f"{cfg.d_model} vocab {cfg.vocab} m {cfg.m_vocab} k {cfg.bloom.k} "
+          f"bf16 drawn on the card from seed 0, set-up "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    def matrix():
+        report = sim.run(cfg=cfg, model=model)
+        return report["model_steps"], report
+
+    report = _counted_sharded(torch, be, dt, common, "matrix", cfg, totals,
+                              errs, matrix)
+    for name in sim.RUNS:
+        r = report["runs"][name]
+        print(f"serve-sharded: {name}: {json.dumps(r['stats'])}, wall "
+              f"{r['wall_s']:.3f} s", flush=True)
+    print(f"serve-sharded: single-host Engine (16 slots): "
+          f"{json.dumps(report['single']['stats'])}; prefill pool "
+          f"{json.dumps(report['prefill_stats'])}; invariants "
+          f"{json.dumps(report['invariants'])}", flush=True)
+    bad = _solo_gaps(torch, dt, cfg, model, report)
+    _check(not bad, f"serve-sharded: rids {bad}: the pool's tokens differ "
+           "from solo B = 1 serving (near-tie lines above)")
+    sim.verify_run(report)
+    print(f"serve-sharded: matrix verified: {len(report['solo'])} requests "
+          "done, tokens bit-equal across the four runs, the single-host "
+          "Engine and solo static serving; every log equal to the "
+          "model-free sim's (COMPACT included), sim == collective; "
+          "compactions "
+          f"{[report['runs'][n]['stats']['compactions'] for n in sim.RUNS]}"
+          "; both prefill workers used; slot logs sound and linearizable; "
+          "one decode step object, pool storage kept", flush=True)
+
+    for drill, fn in (("chaos", sim.run_chaos),
+                      ("overload", sim.run_overload)):
+        def go(fn=fn):
+            d = fn(cfg=cfg, model=model)
+            return d["model_steps"], d
+        d = _counted_sharded(torch, be, dt, common, f"{drill} drill", cfg,
+                             totals, errs, go)
+        _check(d.get("verified") is True, f"serve-sharded: {drill} drill "
+               "did not verify")
+        runs = d["kill_runs"] if drill == "chaos" else d["surge_runs"]
+        print(f"serve-sharded: {drill} drill verified ({d['failpoints']}): "
+              f"{json.dumps({t: r['stats'] for t, r in runs.items()})}; "
+              f"invariants {json.dumps(d['invariants'])}", flush=True)
+
+    engine = ShardedEngine(cfg, model,
+                           mesh=make_serving_mesh(sim.N_HOSTS, device=dev),
+                           slots_per_host=sim.SLOTS_PER_HOST,
+                           max_len=sim.MAX_LEN, topk=sim.TOPK)
+    wall, busy = _walk_pool_step(torch, be, dt, cfg, engine)
+    del engine
+    _time_sharded(torch, cfg, model, report)
+
+    def cli():
+        common_kw = dict(slots_per_host=2, requests=16, rate=1.0,
+                         prompt_len=32, gen=16, topk=8, seed=0, full=True,
+                         gossip_delay=1, transport="collective",
+                         prefill_workers=1, compact_threshold=0.25,
+                         hosts=8, device=dev)
+        res, st = serve.run_sharded("qwen1.5-0.5b", **common_kw)
+        _check(len(res) == 128 and all(r.done and len(r.tokens) == r.max_gen
+                                       for r in res.values()),
+               "serve-sharded: run_sharded left a request unserved")
+        _check(st.compactions > 0, "serve-sharded: run_sharded never "
+               "compacted")
+        return st.prefills + st.decode_steps, st
+    _counted_sharded(torch, be, dt, common, "serve.run_sharded (--hosts 8 "
+                     "--slots-per-host 2 --transport collective "
+                     "--compact-threshold 0.25 --full)", cfg, totals, errs,
+                     cli)
+    del model
+    torch.cuda.empty_cache()
+
+    mcfg = configs.get_config("mamba2-1.3b")
+    mshape = (mcfg.num_layers, mcfg.d_model, mcfg.vocab, mcfg.m_vocab,
+              mcfg.bloom.k, mcfg.dtype)
+    _check(mshape == SHARDED_MAMBA, f"serve-sharded: mamba2 config {mshape}")
+    mamba = serve.build_model(mcfg, 0, dev)
+    spec = LoadSpec(n_requests=2, vocab=mcfg.vocab, rate=1.0,
+                    prompt_lens=(6, 10), gen_lens=(3, 6, 12), seed=0)
+
+    def mamba_runs():
+        eng = ShardedEngine(mcfg, mamba,
+                            mesh=make_serving_mesh(sim.N_HOSTS, device=dev),
+                            slots_per_host=sim.SLOTS_PER_HOST,
+                            max_len=sim.MAX_LEN, topk=sim.TOPK,
+                            transport="collective",
+                            compact_threshold=sim.COMPACT_THRESHOLD,
+                            prefill_workers=sim.PREFILL_WORKERS)
+        res, st = eng.run(sharded_workload(spec, sim.N_HOSTS))
+        _check(st.compactions > 0 and "ssm" in eng._pool[0],
+               "serve-sharded: mamba2's compact run never compacted")
+        inv = sim.invariants(eng)
+        _check(inv["decode_steps_built"] == 1 and inv["pool_storage_kept"],
+               f"serve-sharded: mamba2 invariants {inv}")
+        sres, sst = Engine(mcfg, mamba, n_slots=eng.n_slots,
+                           max_len=sim.MAX_LEN, topk=sim.TOPK).run(
+            merge_workloads(sharded_workload(spec, sim.N_HOSTS)))
+        got = {rid: r.tokens for rid, r in res.items()}
+        _check(all(r.done for r in res.values())
+               and got == {rid: r.tokens for rid, r in sres.items()},
+               "serve-sharded: mamba2's compact run != the single-host "
+               "Engine's tokens")
+        print(f"serve-sharded: {mcfg.name} {mcfg.num_layers}L d_model "
+              f"{mcfg.d_model}: compact collective run "
+              f"{json.dumps(st.as_row())}, wall {st.wall_s:.3f} s, tokens "
+              f"equal to the single-host Engine's (wall {sst.wall_s:.3f} s)",
+              flush=True)
+        return st.prefills + st.decode_steps + sst.prefills + \
+            sst.decode_steps, None
+    _counted_sharded(torch, be, dt, common, f"{mcfg.name} compact run",
+                     mcfg, totals, errs, mamba_runs)
+    del mamba
+    torch.cuda.empty_cache()
+    print(f"serve-sharded: every counted launch held against its plain "
+          f"version, max abs err by kernel {errs}; launches {totals}",
+          flush=True)
+    return totals, errs
+
+
 def _plain_checks(torch):
     """(module, wrapper, check) for every kernel wrapper that counts a
     launch.  ``check(out, *args, **kwargs)`` recomputes the wrapper's
@@ -3418,6 +3828,7 @@ def main() -> int:
                          phase_serve_frontends(torch, be, dt, common, [
                              embed_row["name"], csr.BIN, csr.NAME, ce.FWD,
                              ce.BWD]),
+                         phase_serve_sharded(torch, be, dt, common),
                          phase_bench_serving(torch, common),
                          phase_examples(torch, common, [
                              embed_row["name"], csr.BIN, csr.NAME, ce.FWD,

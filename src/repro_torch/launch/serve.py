@@ -20,6 +20,15 @@ reference: their prefill carries the frontend's embeddings (zeros of
 ``max(4, prompt_len // 4)`` rows in ``run``), which the engine does not
 schedule.
 
+``--sharded`` serves per-host Poisson streams (``--requests`` each)
+through ``serving.sharded_pool.ShardedEngine`` (``run_sharded``):
+``--hosts`` simulated hosts (default: the device count), each a data
+shard of ``--slots-per-host`` slots of one pool on the device, admission
+by the replicated control plane over ``--transport`` (``sim`` gossip, or
+``collective``, gathered on the device) after ``--gossip-delay`` steps,
+and slot compaction above ``--compact-threshold``; ``kill_host``
+failpoints need it.  Shards on several cards wait for ROADMAP A13b.
+
 ``--mode retrieval`` serves one-shot Bloom top-k retrieval requests (Zipf
 item lookups over a configs/retrieval.py catalog preset) through
 ``serving.retrieval.RetrievalEngine`` — the same slot loop, so
@@ -47,6 +56,9 @@ Examples:
       --device cpu --static --batch 2 --prompt-len 8 --gen 5
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --device cpu --slots 3 --requests 10 --topk 4 [--table-dtype int8]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+      --device cpu --sharded --hosts 8 --slots-per-host 2 \\
+      --transport collective --compact-threshold 0.25
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
       --retrieval-config smoke --device cpu --requests 16
 """
@@ -62,6 +74,7 @@ from repro_torch import configs
 from repro_torch.kernels import common as kernels_common
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import io as io_lib
 from repro_torch.models import transformer as tf
@@ -70,7 +83,9 @@ from repro_torch.serving.admission import AdmissionPolicy
 from repro_torch.serving.engine import Engine, mean_latency
 from repro_torch.serving.failpoints import FailPlan
 from repro_torch.serving.loadgen import (LoadSpec, RetrievalLoadSpec,
-                                         make_workload, retrieval_workload)
+                                         make_workload, retrieval_workload,
+                                         sharded_workload)
+from repro_torch.serving.sharded_pool import ShardedEngine
 
 
 def _overload_policy(deadline_slack, max_queue_depth):
@@ -285,6 +300,75 @@ def run_continuous(arch: str, slots: int = 4, requests: int = 16,
     return results, stats
 
 
+def run_sharded(arch: str, slots_per_host: int = 1, requests: int = 8,
+                rate: float = 1.0, prompt_len: int = 32, gen: int = 16,
+                topk: int = 8, seed: int = 0, full: bool = False,
+                eos_id: int | None = None, gossip_delay: int = 1,
+                transport: str = "sim", prefill_workers: int = 1,
+                compact_threshold: float | None = None,
+                table_dtype: str | None = None,
+                failpoints: str | None = None,
+                deadline_slack: int | None = None,
+                max_queue_depth: int | None = None,
+                hosts: int | None = None, device=None):
+    """Data-axis-sharded serving over per-host arrival streams
+    (``--sharded``): ``hosts`` simulated hosts (default: the device
+    count, as the reference's mesh of every device), each a data shard
+    of ``slots_per_host`` slots of one pool on ``device``
+    (serving/sharded_pool.py).  ``requests`` is PER HOST.  Defaults (sim
+    transport, one prefill worker, no compaction) are the transported
+    pool at its plainest.  ``failpoints`` replays a deterministic failure
+    schedule (serving/failpoints.py grammar) against the run, e.g.
+    ``kill_host:1@3``: survivors reclaim the dead host's slots and finish
+    every request."""
+    if not Engine.supports(_config(arch, full, table_dtype)):
+        raise SystemExit(
+            f"{arch}: enc-dec / frontend-stub archs serve via --static")
+    device, cfg, model = _setup(arch, full, table_dtype, seed, device)
+    mesh = make_serving_mesh(n_hosts=hosts, device=device)
+    n_hosts = mesh.shape["data"]
+    spec = LoadSpec(
+        n_requests=requests, vocab=cfg.vocab, rate=rate,
+        prompt_lens=(max(prompt_len // 2, 2), prompt_len),
+        gen_lens=(max(gen // 4, 1), gen // 2 or 1, gen), seed=seed)
+    per_host = sharded_workload(spec, n_hosts)
+    for reqs in per_host:
+        _tag_deadlines(reqs, deadline_slack)
+    max_len = max(r.prompt_len + r.max_gen
+                  for reqs in per_host for r in reqs)
+
+    engine = ShardedEngine(cfg, model, mesh=mesh,
+                           slots_per_host=slots_per_host, max_len=max_len,
+                           topk=topk, eos_id=eos_id,
+                           gossip_delay=gossip_delay, transport=transport,
+                           prefill_workers=prefill_workers,
+                           compact_threshold=compact_threshold,
+                           failpoints=FailPlan.parse(failpoints),
+                           admission_policy=_overload_policy(
+                               deadline_slack, max_queue_depth))
+    results, stats = engine.run(per_host)
+
+    row = stats.as_row()
+    print(f"served {len(results)} requests on {n_hosts} hosts x "
+          f"{slots_per_host} slots (gossip_delay={gossip_delay}, "
+          f"transport={transport}, prefill_workers={prefill_workers}, "
+          f"compact={compact_threshold}; {cfg.name} {cfg.num_layers}L "
+          f"d_model {cfg.d_model}, table_dtype {cfg.table_dtype}, "
+          f"{device}): {row['decode_steps']} decode steps, "
+          f"{row['compactions']} compactions, "
+          f"utilization {row['utilization']:.2f}, "
+          f"mean latency {mean_latency(results):.1f} steps")
+    if failpoints:
+        print(f"failpoints {failpoints!r}: {stats.host_downs} host_downs, "
+              f"{stats.requeued} requeued, {stats.rejects} rejects")
+    if stats.sheds or stats.degrades:
+        print(f"overload policy: {stats.sheds} shed, "
+              f"{stats.degrades} degrade transitions")
+    print(f"wall {stats.wall_s * 1e3:.0f} ms "
+          f"({stats.tokens_out / max(stats.wall_s, 1e-9):.0f} tok/s)")
+    return results, stats
+
+
 def run_retrieval(preset: str = "smoke", slots: int = 4,
                   requests: int = 16, rate: float = 2.0, seed: int = 0,
                   prefill_workers: int = 1, failpoints: str | None = None,
@@ -361,7 +445,8 @@ def main(argv=None):
     ap.add_argument("--failpoints", default=None,
                     help="deterministic fault schedule "
                          "(serving/failpoints.py grammar), e.g. "
-                         "'fail_prefill:2:3,surge:3@1'")
+                         "'kill_host:1@3,fail_prefill:2:3,surge:3@1'; "
+                         "host kills need --sharded")
     ap.add_argument("--deadline-slack", type=int, default=None,
                     help="tag every request with deadline = arrival + "
                          "SLACK and enable the admission policy")
@@ -371,27 +456,48 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--sharded", action="store_true",
-                    help="not ported yet (ROADMAP A13)")
+                    help="data-axis-sharded pool: one simulated host per "
+                         "data shard, all on the one device")
+    ap.add_argument("--hosts", type=int, default=None,
+                    help="simulated hosts of --sharded (default: the "
+                         "device count)")
+    ap.add_argument("--slots-per-host", type=int, default=1,
+                    help="cache-pool slots per host shard (--sharded)")
+    ap.add_argument("--gossip-delay", type=int, default=1,
+                    help="steps before arrivals/releases become globally "
+                         "visible (--sharded)")
     ap.add_argument("--transport", choices=("sim", "collective"),
-                    default="sim", help="not ported yet (ROADMAP A13)")
+                    default="sim",
+                    help="control-plane delta transport (--sharded): "
+                         "'sim' = in-process gossip (default), "
+                         "'collective' = fixed-size padded exchange "
+                         "gathered on the device")
+    ap.add_argument("--compact-threshold", type=float, default=None,
+                    help="per-host fragmentation (dead-slot fraction "
+                         "below the highest live slot) above which the "
+                         "slot pool compacts; default off (--sharded)")
     ap.add_argument("--table-dtype", default=None,
                     help="Bloom table storage dtype of LM serving: auto "
                          "(default), float32, bfloat16, int8 or fp8_e4m3 "
                          "(not read by --mode retrieval, as in the "
                          "reference)")
     args = ap.parse_args(argv)
-    if args.sharded or args.transport != "sim":
-        raise NotImplementedError(
-            "--sharded / --transport collective: sharded serving is not "
-            "ported yet (ROADMAP A13)")
     common = dict(slots=args.slots, requests=args.requests, seed=args.seed,
                   prefill_workers=args.prefill_workers,
                   failpoints=args.failpoints,
                   deadline_slack=args.deadline_slack,
                   max_queue_depth=args.max_queue_depth, device=args.device)
+    if FailPlan.parse(args.failpoints).kill_steps() and not args.sharded:
+        raise SystemExit("kill_host failpoints need --sharded: only the "
+                         "sharded pool has hosts to kill")
     if args.mode == "retrieval":
-        if args.static:
-            ap.error("--mode retrieval has no --static path")
+        if args.static or args.sharded:
+            raise SystemExit("--mode retrieval is its own serve path: "
+                             "drop --static/--sharded (the retrieval "
+                             "pool is single-host)")
+        if args.transport != "sim":
+            raise SystemExit("--mode retrieval has no control-plane "
+                             "transport: the pool is single-host")
         run_retrieval(args.retrieval_config,
                       rate=2.0 if args.rate is None else args.rate, **common)
         return
@@ -404,6 +510,22 @@ def main(argv=None):
             gen=args.gen, topk=args.topk, seed=args.seed, full=args.full,
             table_dtype=args.table_dtype, device=args.device,
             layers=args.layers)
+        return
+    if args.sharded:
+        run_sharded(args.arch, slots_per_host=args.slots_per_host,
+                    requests=args.requests,
+                    rate=1.0 if args.rate is None else args.rate,
+                    prompt_len=args.prompt_len, gen=args.gen,
+                    topk=args.topk, seed=args.seed, full=args.full,
+                    eos_id=args.eos_id, gossip_delay=args.gossip_delay,
+                    transport=args.transport,
+                    prefill_workers=args.prefill_workers,
+                    compact_threshold=args.compact_threshold,
+                    table_dtype=args.table_dtype,
+                    failpoints=args.failpoints,
+                    deadline_slack=args.deadline_slack,
+                    max_queue_depth=args.max_queue_depth,
+                    hosts=args.hosts, device=args.device)
         return
     run_continuous(args.arch, rate=1.0 if args.rate is None else args.rate,
                    prompt_len=args.prompt_len, gen=args.gen, topk=args.topk,

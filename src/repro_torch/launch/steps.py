@@ -13,7 +13,9 @@ token (both include the paper's Eq. 3 top-k recovery, so serving cost is
 end to end); ``init_caches_for`` allocates the decode caches,
 ``warm_bloom_caches`` pre-builds a quantized embedding table (and, for a
 differentiated decode, the CSR bins of the vocab hash matrix), and
-``insert_cache_slot`` writes a prefill's caches into the slot pool.
+``insert_cache_slot`` writes a prefill's caches into the slot pool;
+``make_sharded_insert`` and ``make_compact_pool`` write and permute the
+rows of one data shard of a sharded pool (serving/sharded_pool.py).
 ``loss_fn_for``, ``apply_fn_for``, ``init_fn_for`` and
 ``init_caches_for`` dispatch on the family: the encoder-decoder
 (``audio``, ``models/encdec.py``) or the decoder-only LM
@@ -222,6 +224,99 @@ def insert_cache_slot(pool, caches_small, slot: int):
                 rows = rows[:, :s.shape[1]]
             rows.copy_(s)
     return pool
+
+
+def _check_pool_layout(pool, pool_specs, dist, slots_per_shard: int):
+    """The pool's leaves must be the layout's, slot axis first and
+    ``dist.n_batch * slots_per_shard`` rows long."""
+    n_slots = dist.n_batch * slots_per_shard
+    if [set(layer) for layer in pool] != [set(s) for s in pool_specs]:
+        raise ValueError("pool leaves do not match the pool layout")
+    for layer, specs in zip(pool, pool_specs):
+        for name, buf in layer.items():
+            if buf.shape[0] != n_slots or len(specs[name]) != buf.dim():
+                raise ValueError(
+                    f"pool leaf {name} {tuple(buf.shape)}: want slot axis "
+                    f"0 of {n_slots} rows and spec {specs[name]}")
+
+
+def _shard_rows(pool, lo: int, hi: int):
+    """Views of rows [lo, hi) of every pool leaf (the same storage)."""
+    return [{name: buf[lo:hi] for name, buf in layer.items()}
+            for layer in pool]
+
+
+def make_sharded_insert(pool_specs, dist, slots_per_shard: int):
+    """``insert_cache_slot`` into a data-axis-sharded slot pool.
+
+    The pool's slot axis is split over ``dist``'s data shards
+    (``sharding.slot_pool_pspecs``): shard h owns rows ``[h * sps,
+    (h + 1) * sps)``.  ``insert(pool, caches_small, slot, host)`` moves a
+    B = 1 prefill's caches from the prefill worker's device to the pool's
+    device (the device-to-device transfer of the reference's replicated
+    broadcast), asserts that ``slot`` lies in the range of ``host``, the
+    shard executing the admission, and writes them through ``insert_cache_slot``'s role rules into views
+    of that shard's rows only: every other row of the pool is untouched
+    and no leaf is reallocated.  On one card every shard lives on the
+    same device; shards on several cards wait for ROADMAP A13b.  Returns
+    the pool."""
+    n_slots = dist.n_batch * slots_per_shard
+
+    @torch.inference_mode()
+    def insert(pool, caches_small, slot: int, host: int):
+        _check_pool_layout(pool, pool_specs, dist, slots_per_shard)
+        slot, host = int(slot), int(host)
+        lo = host * slots_per_shard
+        rows = {s.shape[0] for layer in caches_small for s in layer.values()}
+        assert rows == {1}, f"a sharded insert takes one request, got {rows}"
+        assert 0 <= slot < n_slots and slot // slots_per_shard == host, (
+            f"slot {slot} outside shard {host}'s rows [{lo}, "
+            f"{lo + slots_per_shard})")
+        device = pool[0][next(iter(pool[0]))].device
+        small = [{name: s.to(device) for name, s in layer.items()}
+                 for layer in caches_small]
+        insert_cache_slot(_shard_rows(pool, lo, lo + slots_per_shard),
+                          small, slot - lo)
+        return pool
+
+    return insert
+
+
+def make_compact_pool(pool_specs, dist, slots_per_shard: int):
+    """Slot-compaction remap of the sharded pool.
+
+    ``compact(pool, perm)`` applies the control plane's (n_slots,) gather
+    permutation (``perm[new_slot] = old_slot``) to every leaf's slot axis,
+    in place, within each data shard's rows: a shard whose window of
+    ``perm`` is the identity is not touched.  ``control.plan_compaction``
+    promises that no entry crosses a shard boundary; one that does
+    raises, before any row moves.  Returns the pool."""
+    n_slots = dist.n_batch * slots_per_shard
+
+    @torch.inference_mode()
+    def compact(pool, perm):
+        _check_pool_layout(pool, pool_specs, dist, slots_per_shard)
+        perm = [int(p) for p in perm]
+        if sorted(perm) != list(range(n_slots)):
+            raise ValueError(f"not a permutation of {n_slots} slots: {perm}")
+        for new, old in enumerate(perm):
+            if new // slots_per_shard != old // slots_per_shard:
+                raise ValueError(
+                    f"compaction moves slot {old} to {new}, across the "
+                    f"boundary of shards of {slots_per_shard} slots")
+        device = pool[0][next(iter(pool[0]))].device
+        for host in range(dist.n_batch):
+            lo = host * slots_per_shard
+            local = [p - lo for p in perm[lo:lo + slots_per_shard]]
+            if local == list(range(slots_per_shard)):
+                continue
+            idx = torch.tensor(local, dtype=torch.long, device=device)
+            for layer in _shard_rows(pool, lo, lo + slots_per_shard):
+                for buf in layer.values():
+                    buf.copy_(buf.index_select(0, idx))
+        return pool
+
+    return compact
 
 
 def init_caches_for(cfg: ModelConfig, shape: ShapeConfig):

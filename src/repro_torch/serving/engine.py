@@ -17,8 +17,8 @@ tokens are the same on both paths where every decode op is
 row-independent (dense and SSM layers; prefill is B = 1 at the exact
 prompt length).  An MoE layer is not: the slots' tokens, dead slots'
 among them, share each expert's capacity, so which copies are dropped
-depends on the pool, as in the reference.  The JAX package's sharded
-serving (``dist``) waits for ROADMAP A13.
+depends on the pool, as in the reference.  The data-axis-sharded pool is
+serving/sharded_pool.py's ``ShardedEngine``.
 
 Time is counted in decode steps (deterministic); wall-clock is recorded
 but never asserted on.

@@ -335,8 +335,12 @@ def test_serve_cli_serves_every_request_on_cpu(capsys):
                 "--requests", "10", "--topk", "4"])
     assert "served 10 requests on 3 slots (continuous" in \
         capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A13"):
-        serve.main(["--arch", ARCH, "--device", "cpu", "--sharded"])
+    serve.main(["--arch", ARCH, "--device", "cpu", "--sharded", "--hosts",
+                "4", "--slots-per-host", "2", "--transport", "collective"])
+    assert "served 64 requests on 4 hosts x 2 slots (gossip_delay=1, " \
+        "transport=collective" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="drop --static/--sharded"):
+        serve.main(["--mode", "retrieval", "--device", "cpu", "--sharded"])
     with pytest.raises(ValueError, match="table_dtype must be one of"):
         serve.main(["--arch", ARCH, "--device", "cpu",
                     "--table-dtype", "int4"])
