@@ -2,6 +2,9 @@
 """Drive the PyTorch/CUDA port on one GPU and check it.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --phase train-parallel [--transport nccl]
+        # build, then that phase alone (a quick check of the parallel
+        # step; no result line); nccl needs four cards on one host
     python3 chip_smoke.py --parent DIR   # also time the parent commit's
         # csrc/bloom_embed.cu and bloom_decode.cu (copied into DIR with the
         # headers they include, and its core/hashing.py) beside this
@@ -321,6 +324,28 @@ Phases, one line of numbers each:
                 and train_lm_100m --steps 4 into a temporary checkpoint
                 directory under build/, each with its launches, and each
                 launch held against its plain version as in phase 16;
+ 17b. train-parallel — the tensor-, expert- and data-parallel training
+                step on four ranks sharing the one card over gloo
+                (launch/train.spawn; the kernels built here first).  In
+                this process: the ranged kernels (one rank's rows of the
+                vocab: the embed token entry, the CSR binning, the dense
+                embed backward, the Bloom CE forward and backward) at
+                lo = 0 over every row bit-identical to the unranged
+                kernels and, at every range, to their plain versions (CE
+                within 1e-6), and timed at the full and at the half range
+                beside the unranged kernel.  Then (a) qwen1.5-0.5b at full
+                width, f32, mesh 2x2, 3 steps at batch 8 x seq 64 from the
+                weights rank 0 draws on the card, whose losses must equal
+                a single-rank run here from the same draw within rtol
+                1e-5, and the same in bf16 (its loss gap printed); (b)
+                olmoe-1b-7b at full width and 2 of 16 layers (memory
+                below), mesh 1x4, moe_impl="ep": one prefill and 2 steps
+                against the single-rank dense-MoE path.  Each rank resets
+                its counts before its runs and reads them after; its
+                ranged embed, binning, scatter and CE launches are held
+                against their plain versions on its own shard; it prints
+                its step walls, its collective seconds per step and each
+                collective's branch (device buffer or host-staged);
  18. parent (only with --parent DIR) — the parent commit's embed and decode
                 kernels built from DIR beside this tree's, bit-identical,
                 timed in turns (parent, change, change, parent): embed at
@@ -3388,25 +3413,26 @@ def _plain_checks(torch):
         return equal(out, be.bloom_embed_quantized_plain(
             qtable, scales, idx, out_dtype), "bloom_embed (stored table)")
 
-    def tokens(out, want_idx, qtable, scales, toks, spec, out_dtype, what):
+    def tokens(out, want_idx, qtable, scales, toks, spec, out_dtype, what,
+               lo=None):
         want, idx = be.bloom_embed_tokens_plain(qtable, scales, toks, spec,
-                                                out_dtype)
+                                                out_dtype, lo)
         if want_idx:
             equal(out[1], idx, f"{what} indices")
         return equal(out[0], want, what)
 
-    def embed_tok(out, table, toks, spec, want_idx=False):
+    def embed_tok(out, table, toks, spec, want_idx=False, lo=None):
         return tokens(out, want_idx, table, None, toks, spec, table.dtype,
-                      "bloom_embed token entry")
+                      "bloom_embed token entry", lo)
 
     def embed_tok_q(out, qtable, scales, toks, spec,
                     out_dtype=torch.float32, want_idx=False):
         return tokens(out, want_idx, qtable, scales, toks, spec, out_dtype,
                       "bloom_embed token entry (stored table)")
 
-    def embed_bwd(out, g, idx, m):
+    def embed_bwd(out, g, idx, m, lo=None):
         return equal(out.cpu(), be.bloom_embed_bwd_plain(g.cpu(), idx.cpu(),
-                                                         m),
+                                                         m, lo),
                      "bloom_embed_bwd (plain on a CPU copy)")
 
     def ce_fwd(out, z, h):
@@ -3414,12 +3440,17 @@ def _plain_checks(torch):
         return max(close(out[0], loss, "bloom_ce loss", 1e-6, 1e-5),
                    close(out[1], lse, "bloom_ce lse", 1e-6, 1e-5))
 
-    def ce_bwd(out, g, z, h, lse):
-        return close(out, ce.bloom_ce_bwd_plain(g, z, h, lse),
+    def ce_shard(out, z, h, lo):
+        lse, hits = ce.bloom_ce_shard_plain(z, h, lo)
+        return max(close(out[0], lse, "bloom_ce lse (range)", 1e-6, 0.0),
+                   close(out[1], hits, "bloom_ce hits (range)", 1e-6, 0.0))
+
+    def ce_bwd(out, g, z, h, lse, lo=None):
+        return close(out, ce.bloom_ce_bwd_plain(g, z, h, lse, lo),
                      "bloom_ce dz", 0.0, 1e-7)
 
-    def bins(out, idx, m):
-        want = csr.bin_csr_plain(idx.cpu(), m)
+    def bins(out, idx, m, lo=None):
+        want = csr.bin_csr_plain(idx.cpu(), m, lo)
         _check(all(torch.equal(x.cpu(), w) for x, w in zip(out, want)),
                f"bloom_csr.bin {tuple(idx.shape)} m={m}: device bins != "
                "bin_csr_plain's on a CPU copy")
@@ -3439,6 +3470,7 @@ def _plain_checks(torch):
             (be, "bloom_embed_tokens_quantized_cuda", embed_tok_q),
             (be, "bloom_embed_bwd_cuda", embed_bwd),
             (ce, "bloom_ce_cuda", ce_fwd),
+            (ce, "bloom_ce_shard_cuda", ce_shard),
             (ce, "bloom_ce_bwd_cuda", ce_bwd),
             (csr, "bin_csr_cuda", bins),
             (csr, "csr_scatter_add_cuda", scatter)]
@@ -3576,6 +3608,477 @@ def phase_examples(torch, common, names):
     return totals, errs
 
 
+
+
+# --------------------------------------------------------------------------
+# phase 17b: train-parallel
+# --------------------------------------------------------------------------
+
+def _draw(torch, cfg, seed: int, device):
+    """The f32 model drawn on ``device`` by its generator seeded with
+    ``seed``: the same bits in every process on the card."""
+    from repro_torch.launch import steps as steps_lib
+    with device:
+        return steps_lib.model_class_for(cfg)(
+            cfg, torch.Generator(device).manual_seed(seed))
+
+
+def _parallel_batches(cfg, B: int, S: int, n: int, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [{"tokens": rng.integers(0, cfg.vocab, (B, S + 1)).astype(
+        np.int32)} for _ in range(n)]
+
+
+def _single_rank(torch, cfg, tc, batches, seed, prefill=None):
+    """The single-rank run here from the same draw: its losses and, with
+    ``prefill`` tokens, the prefill's last logits and aux (the dense MoE
+    path: no mesh)."""
+    from repro_torch.launch import steps as steps_lib
+    dev = torch.device("cuda")
+    model = _draw(torch, cfg, seed, dev)
+    out = {}
+    if prefill is not None:
+        p = steps_lib.make_prefill_step(cfg)(model,
+                                             torch.as_tensor(prefill).to(dev))
+        out["last_logits"], out["aux"] = p["last_logits"].float().cpu(), \
+            float(p["aux"])
+    step, opt = steps_lib.make_train_step(cfg, tc)
+    state = opt.init({n: p.detach() for n, p in model.named_parameters()})
+    out["losses"] = []
+    t0 = time.perf_counter()
+    for b in batches:
+        state, m = step(model, state,
+                        {"tokens": torch.as_tensor(b["tokens"]).to(dev)})
+        out["losses"].append(float(m["loss"]))
+    torch.cuda.synchronize()
+    out["step_s"] = (time.perf_counter() - t0) / len(batches)
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_twins(torch, be, ce, csr, cfg, model, batch, dist_ctx):
+    """This rank's ranged embed, binning, scatter and CE launches on its own
+    shard (its vocab rows, its batch rows) held against their plain
+    versions: the embed and the bins bit for bit, the scatter bit for bit
+    against the plain version on a CPU copy, the CE within 1e-6 (lse and
+    hit sum rtol 1e-6, dz atol 1e-7).  Returns the largest abs errors."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import io as io_lib
+    dev = model.embed.device
+    spec, dt = io_lib.vocab_spec(cfg), getattr(torch, cfg.dtype)
+    table = model.embed.detach().to(dt).contiguous()
+    rows = table.shape[0]
+    lo = io_lib.vocab_lo(rows, cfg, dist_ctx)
+    _check(lo is not None, "train-parallel: the vocab is not sharded")
+    tokens = sharding.local_batch(
+        {"tokens": torch.as_tensor(batch["tokens"]).to(dev)},
+        dist_ctx)["tokens"]
+    flat = tokens.reshape(-1).contiguous()
+    out, idx = be.bloom_embed_tokens_cuda(table, flat, spec, True, lo)
+    pout, pidx = be.bloom_embed_tokens_plain(table, None, flat, spec, dt, lo)
+    bins = csr.bin_csr_cuda(idx, rows, lo)
+    gen = torch.Generator().manual_seed(11 + dist_ctx.mesh.rank)
+    g = torch.randn(flat.shape[0], table.shape[1], generator=gen).to(dt)
+    got = csr.csr_scatter_add_cuda(g.to(dev), bins, rows)
+    labels = tokens[:, 1:].reshape(-1)
+    h = spec.indices_for(labels).contiguous()
+    z = (3.0 * torch.randn(h.shape[0], rows, generator=gen)).to(dev)
+    lse, hits = ce.bloom_ce_shard_cuda(z, h, lo)
+    gy = torch.rand(h.shape[0], generator=gen).to(dev)
+    dz = ce.bloom_ce_bwd_cuda(gy, z, h, lse, lo)
+    torch.cuda.synchronize()
+    _check(torch.equal(out, pout) and torch.equal(idx, pidx),
+           "train-parallel: ranged embed != its plain version")
+    _check(all(torch.equal(a.cpu(), b) for a, b in
+               zip(bins, csr.bin_csr_plain(idx.cpu(), rows, lo))),
+           "train-parallel: ranged bins != bin_csr_plain's")
+    _check(torch.equal(got.cpu(), csr.csr_scatter_add(g, idx.cpu(), rows,
+                                                      lo)),
+           "train-parallel: scatter on the ranged bins != plain version")
+    plse, phits = ce.bloom_ce_shard_plain(z, h, lo)
+    pdz = ce.bloom_ce_bwd_plain(gy, z, h, lse, lo)
+    torch.testing.assert_close(lse, plse, rtol=1e-6, atol=0)
+    torch.testing.assert_close(hits, phits, rtol=1e-6, atol=0)
+    torch.testing.assert_close(dz, pdz, rtol=0, atol=1e-7)
+    return {"ce_fwd": max(_max_abs_err(lse, plse),
+                          _max_abs_err(hits, phits)),
+            "ce_bwd": _max_abs_err(dz, pdz)}
+
+
+def _rank_parallel(mesh, jobs):
+    """One rank of phase train-parallel: each job ({shape, cfg, tc, seed,
+    batches, prefill}) in turn on a (data, model) mesh of its shape over
+    the same four ranks, from weights rank 0 draws on the card and
+    broadcasts.  Returns per job its losses, step walls, collective
+    seconds per step, the transport's branches, its launch counts (reset
+    just before the job's prefill and steps, read just after), the twin
+    checks' errors and its peak memory."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import bloom_ce as ce
+    from repro_torch.kernels import bloom_csr as csr
+    from repro_torch.kernels import bloom_embed as be
+    from repro_torch.kernels import common
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    tr, dev = mesh.transport, mesh.device
+    results = []
+    for job in jobs:
+        cfg, tc = job["cfg"], job["tc"]
+        dist_ctx = sharding.DistContext(
+            mesh if job["shape"] == mesh.sizes else mesh_lib.world_mesh(
+                job["shape"], mesh.axis_names, dev, tr))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step, optimizer = steps_lib.make_train_step(cfg, tc, dist_ctx)
+        full = (dict(_draw(torch, cfg, job["seed"], dev).named_parameters())
+                if mesh.rank == 0 else None)
+        model, opt_state, _, _, _, _ = train.parallel_state(
+            cfg, optimizer, job["seed"], None, dist_ctx, full)
+        del full
+        torch.cuda.synchronize()
+        r = {"setup_s": time.perf_counter() - t0}
+        common.reset_launches()
+        tr.branches.clear()
+        tr.seconds, tr.timed = 0.0, True
+        if job["prefill"] is not None:
+            out = steps_lib.make_prefill_step(cfg, dist_ctx)(
+                model, torch.as_tensor(job["prefill"]).to(dev))
+            r["last_logits"] = out["last_logits"].float().cpu().numpy()
+            r["aux"] = float(out["aux"])
+        r.update(losses=[], walls=[], coll=[])
+        for b in job["batches"]:
+            batch = {"tokens": torch.as_tensor(b["tokens"]).to(dev)}
+            torch.cuda.synchronize()
+            c0, t1 = tr.seconds, time.perf_counter()
+            opt_state, m = step(model, opt_state, batch)
+            torch.cuda.synchronize()
+            r["walls"].append(time.perf_counter() - t1)
+            r["coll"].append(tr.seconds - c0)
+            r["losses"].append(float(m["loss"]))
+        r["counts"] = dict(common.LAUNCHES)
+        r["branches"] = {f"{op} {b}": n for (op, b), n in
+                         sorted(tr.branches.items())}
+        tr.timed = False
+        r["twins"] = _rank_twins(torch, be, ce, csr, cfg, model,
+                                 job["batches"][0], dist_ctx)
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model, opt_state
+        torch.cuda.empty_cache()
+        results.append(r)
+    return results
+
+
+def _ranged_kernels(torch, be, ce, csr, common):
+    """The ranged kernels in this process: bit-identical checks and the
+    times at the full range (lo = 0) and the half range beside the
+    unranged kernel; returns {name: row} of the kernels line."""
+    from repro_torch import configs
+    from repro_torch.models import io as io_lib
+    dev = torch.device("cuda")
+    cfg = configs.get_config("qwen1.5-0.5b")
+    spec = io_lib.vocab_spec(cfg)
+    m, D, k = spec.m, cfg.d_model, spec.k
+    gen = torch.Generator().manual_seed(21)
+    base = torch.randn(m, D, generator=gen)
+    # embed token entry: lo = 0 over every row == the unranged kernel and
+    # the plain version; each range == its plain version
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, Dc in ((1, D), (8, D), (260, D), (260, 1000)):
+            table = base[:, :Dc].to(dtype).contiguous().to(dev)
+            tok = torch.randint(-1, spec.d, (T,), generator=gen).to(dev)
+            whole, _ = be.bloom_embed_tokens_cuda(table, tok, spec)
+            for lo, rows in ((0, m), (m // 2, m // 2), (m // 4, m // 4),
+                             (3 * m // 4, m // 4)):
+                shard = table[lo:lo + rows].contiguous()
+                got, idx = be.bloom_embed_tokens_cuda(shard, tok, spec, True,
+                                                      lo)
+                want, pidx = be.bloom_embed_tokens_plain(shard, None, tok,
+                                                         spec, dtype, lo)
+                torch.cuda.synchronize()
+                _check(torch.equal(got, want) and torch.equal(idx, pidx),
+                       f"bloom_embed.hash.range {dtype} T={T} D={Dc} "
+                       f"lo={lo}: kernel != plain version")
+                if lo == 0:
+                    _check(torch.equal(got, whole), f"bloom_embed.hash."
+                           f"range lo=0 {dtype} T={T} D={Dc} != unranged")
+    # the CSR binning, the scatter on its bins and the dense backward
+    T = 520
+    idx = torch.randint(-1, m, (T, k), generator=gen, dtype=torch.int32)
+    g = torch.randn(T, D, generator=gen).to(torch.bfloat16)
+    whole = csr.csr_scatter_add(g, idx, m)
+    for lo, rows in ((0, m), (m // 2, m // 2), (m // 4, m // 4)):
+        bins = csr.bin_csr_cuda(idx.to(dev), rows, lo)
+        got = csr.csr_scatter_add_cuda(g.to(dev), bins, rows)
+        dense = be.bloom_embed_bwd_cuda(g.to(dev), idx.to(dev), rows, lo)
+        torch.cuda.synchronize()
+        _check(all(torch.equal(a.cpu(), b) for a, b in
+                   zip(bins, csr.bin_csr_plain(idx, rows, lo))),
+               f"bloom_csr.bin.range lo={lo}: bins != bin_csr_plain's")
+        _check(torch.equal(got.cpu(), whole[lo:lo + rows])
+               and torch.equal(dense, got),
+               f"ranged CSR / dense backward lo={lo} != the whole table's "
+               "rows")
+        if lo == 0:
+            _check(all(torch.equal(a, b) for a, b in zip(
+                bins, csr.bin_csr_cuda(idx.to(dev), m))),
+                "bloom_csr.bin.range lo=0 != the unranged binning")
+    # the CE: lo = 0 == the unranged kernels; every range == plain (1e-6)
+    T = 512
+    z = (3.0 * torch.randn(T, m, generator=gen)).to(dev)
+    h = torch.randint(0, m, (T, k), generator=gen, dtype=torch.int32)
+    h[::2, 1] = h[::2, 0]
+    h = h.to(dev)
+    gy = torch.randn(T, generator=gen).to(dev)
+    loss, lse = ce.bloom_ce_cuda(z, h)
+    dz = ce.bloom_ce_bwd_cuda(gy, z, h, lse)
+    l0, hits0 = ce.bloom_ce_shard_cuda(z, h, 0)
+    dz0 = ce.bloom_ce_bwd_cuda(gy, z, h, lse, 0)
+    torch.cuda.synchronize()
+    _check(torch.equal(l0, lse) and torch.equal(dz0, dz)
+           and torch.equal(lse - hits0 / k, loss),
+           "bloom_ce ranged at lo=0 != the unranged kernels")
+    err_f = err_b = 0.0
+    for lo, rows in ((0, m), (m // 2, m // 2), (m // 4, m // 4)):
+        zs = z[:, lo:lo + rows].contiguous()
+        l_, s_ = ce.bloom_ce_shard_cuda(zs, h, lo)
+        d_ = ce.bloom_ce_bwd_cuda(gy, zs, h, lse, lo)
+        torch.cuda.synchronize()
+        pl, ps = ce.bloom_ce_shard_plain(zs, h, lo)
+        pd = ce.bloom_ce_bwd_plain(gy, zs, h, lse, lo)
+        torch.testing.assert_close(l_, pl, rtol=1e-6, atol=0)
+        torch.testing.assert_close(s_, ps, rtol=1e-6, atol=0)
+        torch.testing.assert_close(d_, pd, rtol=0, atol=1e-7)
+        err_f = max(err_f, _max_abs_err(l_, pl), _max_abs_err(s_, ps))
+        err_b = max(err_b, _max_abs_err(d_, pd))
+    print("train-parallel: ranged kernels: bloom_embed.hash.range (f32, "
+          "bf16; T = 1, 8, 260; D = 1024, 1000) and the CSR binning and "
+          "both embed backwards (T = 520) at lo = 0 over every row "
+          "bit-identical to the unranged kernels, and at the half and "
+          "quarter ranges to their plain versions (the backwards to the "
+          "whole table's rows); bloom_ce's ranged forward and backward at "
+          f"lo = 0 bit-identical to the unranged ones, every range within "
+          f"1e-6 of the plain versions (max abs err fwd {err_f}, bwd "
+          f"{err_b})", flush=True)
+
+    rows_out = {}
+    half = m // 2
+    table = base.to(torch.bfloat16).to(dev)
+    tok = torch.randint(0, spec.d, (520,), generator=gen).to(dev)
+    idx_c = spec.indices_for(tok).contiguous()
+    shard = table[half:].contiguous()
+    rel = idx_c.long() - half
+    inside = (rel >= 0) & (rel < half)
+    relc = rel.clamp(0, half - 1)
+    times = _times_kernels(common, {
+        "unranged": lambda: be.bloom_embed_tokens_cuda(table, tok, spec),
+        "full": lambda: be.bloom_embed_tokens_cuda(table, tok, spec, False,
+                                                   0),
+        "kernel": lambda: be.bloom_embed_tokens_cuda(shard, tok, spec,
+                                                     False, half)}, {
+        "plain": lambda: be.bloom_embed_tokens_plain(
+            shard, None, tok, spec, torch.bfloat16, half),
+        "library": lambda: torch.nn.functional.embedding_bag(
+            relc, shard, mode="sum",
+            per_sample_weights=inside.to(torch.bfloat16))})
+    n_rows = int(torch.unique(rel[inside]).numel())
+    nbytes = be.min_bytes(n_rows, 520, k, D, 2, token_itemsize=8)
+    bound_ms, by = _bound(nbytes, 520 * k * D)
+    print(f"train-parallel: bloom_embed.hash.range bf16 T=520 D={D} k={k}: "
+          f"the half range (rows [{half}, {m})) and the full range (lo = "
+          f"0) beside the unranged kernel, device ms (graph) / back-to-back "
+          f"ms (events): {_times_line(times)}, bound {bound_ms * 1e3:.3f} us "
+          f"({by}, {nbytes} bytes) at the half range", flush=True)
+    name = be.token_variant_name(spec) + be.RANGE
+    rows_out[name] = {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bloom_embed.cu",
+        "replaces": "src/repro/kernels/bloom_embed.py:294",
+        "launches": 0, "max_abs_err": 0.0, "ms": times["kernel"][0],
+        "plain_ms": times["plain"][0], "bound_ms": bound_ms,
+        "bound_by": by, "library_ms": times["library"][0]}
+
+    T = 520
+    idx_b = torch.randint(0, m, (T, k), generator=gen,
+                          dtype=torch.int32).to(dev)
+    times = _times_kernels(common, {
+        "unranged": lambda: csr.bin_csr_cuda(idx_b, m),
+        "full": lambda: csr.bin_csr_cuda(idx_b, m, 0),
+        "kernel": lambda: csr.bin_csr_cuda(idx_b, half, half)}, {
+        "plain": lambda: csr.bin_csr_plain(idx_b, half, half)})
+    g_b = torch.randn(T, D, generator=gen).to(torch.bfloat16).to(dev)
+    dense = _times_kernels(common, {
+        "unranged": lambda: be.bloom_embed_bwd_cuda(g_b, idx_b, m),
+        "full": lambda: be.bloom_embed_bwd_cuda(g_b, idx_b, m, 0),
+        "kernel": lambda: be.bloom_embed_bwd_cuda(g_b, idx_b, half, half)},
+        {"plain": lambda: be.bloom_embed_bwd_plain(g_b, idx_b, half, half)})
+    print(f"train-parallel: bloom_embed_bwd (dense, off the main path) bf16 "
+          f"T={T} k={k} D={D}: the half range and the full range beside the "
+          f"unranged kernel: {_times_line(dense)}", flush=True)
+    nbytes = csr.bin_min_bytes(T * k, half)
+    bound_ms, by = _bound_int(nbytes, T * k + half)
+    print(f"train-parallel: bloom_csr.bin.range T={T} k={k}: the half "
+          f"range (m = {half}, lo = {half}) and the full range beside the "
+          f"unranged binning (m = {m}): {_times_line(times)}, bound "
+          f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes) at the half "
+          "range", flush=True)
+    rows_out[csr.BIN_RANGE] = {
+        "name": csr.BIN_RANGE, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bloom_csr.cu",
+        "replaces": "src/repro/kernels/bloom_csr.py:110",
+        "launches": 0, "max_abs_err": 0.0, "ms": times["kernel"][0],
+        "plain_ms": times["plain"][0], "bound_ms": bound_ms,
+        "bound_by": by, "library_ms": None}
+
+    T = 512
+    zh = z[:, half:].contiguous()
+    col = (h.long() - half).clamp(0, half - 1)
+    ins = (h.long() >= half)
+    neg = torch.where(ins, -1.0 / k, 0.0)
+    fwd = _times(common, {
+        "unranged": lambda: ce.bloom_ce_cuda(z, h),
+        "full": lambda: ce.bloom_ce_shard_cuda(z, h, 0),
+        "kernel": lambda: ce.bloom_ce_shard_cuda(zh, h, half),
+        "plain": lambda: ce.bloom_ce_shard_plain(zh, h, half),
+        "library": lambda: (torch.logsumexp(zh, -1),
+                            (zh.gather(1, col) * ins).sum(-1))})
+    bwd = _times(common, {
+        "unranged": lambda: ce.bloom_ce_bwd_cuda(gy, z, h, lse),
+        "full": lambda: ce.bloom_ce_bwd_cuda(gy, z, h, lse, 0),
+        "kernel": lambda: ce.bloom_ce_bwd_cuda(gy, zh, h, lse, half),
+        "plain": lambda: ce.bloom_ce_bwd_plain(gy, zh, h, lse, half),
+        "library": lambda: torch.exp(zh - lse[:, None]).scatter_add_(
+            1, col, neg) * gy[:, None]})
+    for label, name, times, nbytes, ops, err, line in (
+            ("forward", ce.FWD_RANGE, fwd,
+             T * half * 4 + T * k * 4 + 2 * T * 4, 4 * T * half, err_f, 145),
+            ("backward", ce.BWD_RANGE, bwd,
+             ce.min_bytes(T, half, k, backward=True),
+             5 * T * half + T * half * k, err_b, 87)):
+        bound_ms, by = _bound(nbytes, ops)
+        print(f"train-parallel: bloom_ce {label} ranged T={T} k={k}: the "
+              f"half range (m = {half}, lo = {half}) and the full range "
+              f"beside the unranged kernel (m = {m}), device ms (graph) / "
+              f"back-to-back ms (events): {_times_line(times)}, bound "
+              f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes) at the half "
+              "range", flush=True)
+        rows_out[name] = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bloom_ce.cu",
+            "replaces": f"src/repro/kernels/bloom_ce.py:{line}",
+            "launches": 0, "max_abs_err": err, "ms": times["kernel"][0],
+            "plain_ms": times["plain"][0], "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": times["library"][0]}
+    return rows_out
+
+
+def phase_train_parallel(torch, be, ce, csr, common, transport="gloo"):
+    """Phase 17b (the module's docstring), the ranks exchanging over
+    ``transport`` (gloo: four ranks on one card; nccl: a card each).
+    Returns (the ranged kernels' rows, each with the ranks' launches, and
+    the ranks' launches of the other kernels)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train
+    rows = _ranged_kernels(torch, be, ce, csr, common)
+    tc = TrainConfig(optimizer="adamw", learning_rate=3e-3,
+                     grad_clip_norm=1.0, warmup_steps=0)
+    q32 = configs.get_config("qwen1.5-0.5b", dtype="float32")
+    q16 = configs.get_config("qwen1.5-0.5b")
+    qb = _parallel_batches(q32, 8, 64, 3, seed=5)
+    # olmoe at 2 of its 16 layers: 0.88B params (2 x 420M: attention 16.8M
+    # and 64 experts x 6.3M a layer; embed and head 20.4M each); the
+    # single-rank f32 master + grads + adam state is 16 B/param = 14.1 GB;
+    # an EP rank holds 16 of the 64 experts, a quarter of the heads and of
+    # the vocab: 0.22B params, 3.5 GB, plus the broadcast f32 copy (3.5
+    # GB) while it takes its shards
+    o32 = dataclasses.replace(configs.get_config(
+        "olmoe-1b-7b", dtype="float32", moe_impl="ep"), num_layers=2)
+    ob = _parallel_batches(o32, 8, 64, 2, seed=6)
+    prefill = ob[0]["tokens"][:4, :64]
+    print(f"train-parallel: olmoe-1b-7b at {o32.num_layers} of 16 layers: "
+          f"{o32.param_count():,} params, f32 master + grads + Adam at 16 "
+          f"B/param = {16 * o32.param_count() / 1e9:.1f} GB on one rank; "
+          "an EP rank of 1x4 holds a quarter of the experts, heads and "
+          "vocab rows (and the broadcast f32 copy while it shards)",
+          flush=True)
+    t0 = time.perf_counter()
+    ref = {"q32": _single_rank(torch, q32, tc, qb, 0),
+           "q16": dict(_single_rank(torch, q16, tc, qb, 0), dtype="bf16"),
+           "o32": _single_rank(torch, o32, tc, ob, 0, prefill)}
+    ref_s = time.perf_counter() - t0
+    jobs = [{"shape": (2, 2), "cfg": c, "tc": tc, "seed": 0, "batches": qb,
+             "prefill": None} for c in (q32, q16)]
+    jobs.append({"shape": (1, 4), "cfg": o32, "tc": tc, "seed": 0,
+                 "batches": ob, "prefill": prefill})
+    t0 = time.perf_counter()
+    out = train.spawn(_rank_parallel, (2, 2), transport, "cuda", (jobs,),
+                      timeout=600)
+    dense, ep = [r[:2] for r in out], [r[2:] for r in out]
+    print(f"train-parallel: single-rank runs {ref_s:.3f} s; the four "
+          f"ranks over {transport} {time.perf_counter() - t0:.3f} s "
+          "(start, and per job: draw, broadcast, shard, steps, checks)",
+          flush=True)
+
+    counts, errs = {}, {}
+    for label, results, wants in (("qwen1.5-0.5b 2x2", dense,
+                                   [ref["q32"], ref["q16"]]),
+                                  ("olmoe-1b-7b 1x4 ep", ep, [ref["o32"]])):
+        for rank, per_job in enumerate(results):
+            for job, (r, want) in enumerate(zip(per_job, wants)):
+                for n, c in r["counts"].items():
+                    counts[n] = counts.get(n, 0) + c
+                for n, e in r["twins"].items():
+                    errs[n] = max(errs.get(n, 0.0), e)
+                dtype = want.get("dtype", "f32")
+                print(f"train-parallel: {label} {dtype} rank {rank}: losses "
+                      f"{r['losses']} (single rank {want['losses']}), step "
+                      f"walls {[round(w * 1e3, 3) for w in r['walls']]} ms "
+                      f"(single rank {want['step_s'] * 1e3:.3f} ms), "
+                      f"collective time per step "
+                      f"{[round(c * 1e3, 3) for c in r['coll']]} ms, set-up "
+                      f"{r['setup_s']:.3f} s, peak {r['peak_gib']:.3f} GiB, "
+                      f"branches {r['branches']}, launches {r['counts']}, "
+                      f"twins {r['twins']}", flush=True)
+    for r in dense:
+        np.testing.assert_allclose(r[0]["losses"], ref["q32"]["losses"],
+                                   rtol=1e-5)
+    gap = max(abs(a - b) / abs(b) for r in dense for a, b in
+              zip(r[1]["losses"], ref["q16"]["losses"]))
+    print(f"train-parallel: qwen1.5-0.5b 2x2 f32 losses equal the single "
+          f"rank's within rtol 1e-5; bf16 relative loss gap {gap:.3e} "
+          "(not held: bf16 partial sums round where one rank's do not)",
+          flush=True)
+    want = ref["o32"]
+    scale = float(want["last_logits"].abs().max())
+    for r in ep:
+        r = r[0]
+        err = float(np.abs(r["last_logits"] - want["last_logits"].numpy())
+                    .max())
+        _check(err <= 1e-4 * max(scale, 1.0),
+               f"train-parallel: EP prefill logits off by {err} (max "
+               f"|logit| {scale})")
+        _check(abs(r["aux"] - want["aux"]) <= 1e-4 * abs(want["aux"]),
+               f"train-parallel: EP aux {r['aux']} vs {want['aux']}")
+        np.testing.assert_allclose(r["losses"], want["losses"], rtol=1e-5)
+    print(f"train-parallel: olmoe-1b-7b 2 layers 1x4 ep: prefill last "
+          f"logits within 1e-4 x max |logit| ({scale:.3f}), aux within "
+          f"rtol 1e-4 ({want['aux']}), losses within rtol 1e-5 of the "
+          "single-rank dense-MoE path", flush=True)
+    for name, row in rows.items():
+        row["launches"] = counts.pop(name, 0)
+    rows[ce.FWD_RANGE]["max_abs_err"] = max(
+        rows[ce.FWD_RANGE]["max_abs_err"], errs.get("ce_fwd", 0.0))
+    rows[ce.BWD_RANGE]["max_abs_err"] = max(
+        rows[ce.BWD_RANGE]["max_abs_err"], errs.get("ce_bwd", 0.0))
+    return list(rows.values()), counts
 
 
 def start_parent_build(common, parent: Path):
@@ -3736,14 +4239,20 @@ def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: the port is not at {SRC}", file=sys.stderr)
         return 2
-    parent = None
-    if sys.argv[1:2] == ["--parent"]:
+    parent = phase_only = None
+    transport = "gloo"
+    if sys.argv[1:3] == ["--phase", "train-parallel"] and sys.argv[3:] in (
+            [], ["--transport", "gloo"], ["--transport", "nccl"]):
+        phase_only = "train-parallel"
+        transport = sys.argv[4] if sys.argv[3:] else transport
+    elif sys.argv[1:2] == ["--parent"]:
         # a directory holding the parent commit's csrc/bloom_embed.cu and
         # bloom_decode.cu with the headers they include, to time them
         # beside this tree's (phase "parent")
         parent = Path(sys.argv[2]).resolve()
     elif sys.argv[1:]:
-        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--parent DIR | --phase "
+              "train-parallel [--transport gloo|nccl]]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3767,6 +4276,11 @@ def main() -> int:
     _check(set(built) == {dt.NAME, be.NAME, ce.NAME, csr.NAME, bd.NAME},
            f"unexpected kernels {sorted(built)}")
 
+    if phase_only:
+        prows, pcounts = phase_train_parallel(torch, be, ce, csr, common,
+                                              transport)
+        print(json.dumps({"kernels": prows, "other_launches": pcounts}))
+        return 0
     from repro_torch.core import quant
     row = phase_kernels(torch, dt, common, bloom, get_retrieval_config)
     lm_decode_topk(torch, dt, common, bloom)
@@ -3840,6 +4354,12 @@ def main() -> int:
             by_name[name]["launches"] += c
             by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
                                                errs.get(name, 0.0))
+    prows, pcounts = phase_train_parallel(torch, be, ce, csr, common)
+    _check(set(pcounts) <= set(by_name), f"train-parallel launched "
+           f"{sorted(set(pcounts) - set(by_name))}, which no kernel row names")
+    for name, c in pcounts.items():
+        by_name[name]["launches"] += c
+    rows += prows
     _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")
     if procs is not None:

@@ -10,23 +10,26 @@ and ``TrainConfig`` whole.  Left out: ``param_dtype``; ``io_impl`` (the
 port's IO path follows the tensors' device: kernel on CUDA, plain version on
 the CPU); the XLA execution knobs (``scan_layers``, ``remat``,
 ``attn_chunk_*``, ``attn_impl``, ``causal_skip``, ``attn_bf16_scores``,
-``unroll_for_analysis``) and ``moe_impl``: the port has the one
-single-device MoE path, the one the reference takes whenever it runs
-without a mesh, and expert parallelism waits for ROADMAP A13, as do the
-mesh config and the reference's ``SHAPES`` cells.  ``ShapeConfig`` is
-copied whole (``launch/steps.init_caches_for`` reads it).  ``bwd_impl``
-picks the Bloom embedding's backward, "csr" (the CSR scatter-add) or
-"dense" (the dense m-tile sweep), as in the reference.  ``table_dtype``
-and ``bwd_impl`` are validated when the config is made: an unknown value
-raises ``ValueError``.
+``unroll_for_analysis``).  ``moe_impl`` picks the MoE path as in the
+reference: "dense" (every expert on the rank, the single-device path) or
+"ep" (expert parallelism over the mesh's ``model`` axis,
+``models/moe.py``).  ``ShapeConfig``, the four ``SHAPES`` cells and
+``MeshConfig`` (the production mesh's shape and axes) are copied whole.
+``bwd_impl`` picks the Bloom embedding's backward, "csr" (the CSR
+scatter-add) or "dense" (the dense m-tile sweep), as in the reference.
+``table_dtype``, ``bwd_impl`` and ``moe_impl`` are validated when the
+config is made: an unknown value raises ``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core import quant
 from repro_torch.kernels.common import resolve_bwd_impl
+
+
+MOE_IMPLS = ("dense", "ep")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,10 +111,15 @@ class ModelConfig:
                                   # of truth; grads are straight-through
     bwd_impl: str = "csr"         # Bloom embedding backward: csr (CSR
                                   # scatter-add) | dense (m-tile sweep)
+    moe_impl: str = "dense"       # dense (every expert local) | ep
+                                  # (experts over the `model` axis)
 
     def __post_init__(self):
         quant.resolve_table_dtype(self.table_dtype, allow_auto=True)
         resolve_bwd_impl(self.bwd_impl)
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
+                             f"{self.moe_impl!r}")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -120,6 +128,11 @@ class ModelConfig:
     @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def has_full_attention(self) -> bool:
+        """True when context cost is quadratic => long_500k must be skipped."""
+        return self.family not in ("ssm", "hybrid")
 
     @property
     def m_vocab(self) -> int:
@@ -187,6 +200,16 @@ class ShapeConfig:
         return self.kind == "train"
 
 
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 1e-3
@@ -208,3 +231,17 @@ class TrainConfig:
     checkpoint_every: int = 50
     keep_checkpoints: int = 3
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+
+    @property
+    def shape(self):
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self):
+        return ("pod", "data", "model") if self.multi_pod \
+            else ("data", "model")

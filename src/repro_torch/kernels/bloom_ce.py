@@ -10,6 +10,15 @@ where a label hashed twice to one column counts twice.  The forward keeps
 ``lse`` as the backward's residual, so each direction reads the (T, m) row
 once.
 
+A row range serves the vocab-parallel loss of a tensor-parallel step: z
+is then the columns [lo, lo + m) of the full logits (one rank's shard) and
+h the global labels.  The ranged forward returns the shard's local lse and
+its local hit sum (the picked logits of the labels that fall in the shard,
+added in j order); the caller combines the ranks' values into the global
+lse and hit sum, and the ranged backward takes that global lse, so its dz
+is exact on the shard.  ``lo = 0`` over the whole row is the unranged
+function, bit for bit.
+
 Functions, each pair with one signature:
 
 * ``bloom_ce_cuda`` / ``bloom_ce_bwd_cuda`` launch the hand-written Hopper
@@ -19,6 +28,12 @@ Functions, each pair with one signature:
 * ``bloom_ce_plain`` / ``bloom_ce_bwd_plain`` are the same functions in
   plain PyTorch on any device: the CPU path, and what the kernels are held
   against on the card.
+* ``bloom_ce_shard_cuda`` / ``bloom_ce_shard_plain`` are the ranged
+  forward (local lse and hit sum), the kernel counted as
+  ``bloom_ce_fwd.range``; ``bloom_ce_bwd_cuda`` / ``bloom_ce_bwd_plain``
+  take the range as ``lo`` (the kernel counted as ``bloom_ce_bwd.range``
+  when ``lo`` is given).  ``kernels.ops.bloom_ce_sharded`` is the
+  differentiable vocab-parallel loss over them.
 * ``bloom_ce`` is the differentiable entry: an ``autograd.Function`` that
   takes the kernels for CUDA tensors and the plain versions for CPU
   tensors (``common.resolve_impl``), saves ``(z, h, lse)`` and returns
@@ -35,6 +50,7 @@ from repro_torch.kernels import common
 
 NAME = "bloom_ce"
 FWD, BWD = "bloom_ce_fwd", "bloom_ce_bwd"
+FWD_RANGE, BWD_RANGE = f"{FWD}.range", f"{BWD}.range"
 
 
 def min_bytes(T: int, m: int, k: int, backward: bool = False) -> int:
@@ -68,12 +84,41 @@ def bloom_ce_plain(z: torch.Tensor, h: torch.Tensor):
     return lse - s / h.shape[1], lse
 
 
-def bloom_ce_bwd_plain(g: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
-                       lse: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch backward: dz (T, m) f32."""
+def _in_shard(h: torch.Tensor, lo: int, m: int):
+    """(column in the shard clamped into it, whether it lies there)."""
+    rel = h.long() - lo
+    inside = (rel >= 0) & (rel < m)
+    return rel.clamp(0, max(m - 1, 0)), inside
+
+
+def bloom_ce_shard_plain(z: torch.Tensor, h: torch.Tensor, lo: int):
+    """The ranged forward in plain PyTorch: z (T, m) the columns [lo,
+    lo + m) of the logits, h (T, k) the global labels -> (lse (T,), hits
+    (T,)) f32, the shard's local lse and the sum of its picked logits (the
+    labels in the shard, added in j order from 0.0, as the kernel adds
+    them)."""
     _check(z, h)
+    z = z.float()
+    zmax = z.max(dim=-1, keepdim=True).values
+    lse = torch.log(torch.exp(z - zmax).sum(dim=-1)) + zmax[:, 0]
+    col, inside = _in_shard(h, lo, z.shape[1])
+    picked = torch.where(inside, z.gather(1, col), 0.0)
+    s = torch.zeros_like(lse)
+    for j in range(h.shape[1]):
+        s = s + picked[:, j]
+    return lse, s
+
+
+def bloom_ce_bwd_plain(g: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
+                       lse: torch.Tensor, lo: int | None = None
+                       ) -> torch.Tensor:
+    """The plain PyTorch backward: dz (T, m) f32.  With ``lo`` z is the
+    columns [lo, lo + m) and h the global labels; only the labels in the
+    shard count, and ``lse`` is the global one."""
+    _check(z, h)
+    col, inside = _in_shard(h, lo or 0, z.shape[1])
     counts = torch.zeros_like(z, dtype=torch.float32)
-    counts.scatter_add_(1, h.long(), torch.ones(h.shape, device=z.device))
+    counts.scatter_add_(1, col, inside.float())
     p = torch.exp(z.float() - lse[:, None])
     return g[:, None] * (p - counts / h.shape[1])
 
@@ -111,28 +156,60 @@ def bloom_ce_cuda(z: torch.Tensor, h: torch.Tensor):
         return loss, lse
     lib = _library()
     err = lib.bloom_ce_fwd(z.data_ptr(), h.data_ptr(), loss.data_ptr(),
-                           lse.data_ptr(), T, m, k, _stream(z))
+                           lse.data_ptr(), None, T, m, k, 0, _stream(z))
     _raise_on(lib, err, FWD)
     common.count_launch(FWD)
     return loss, lse
 
 
+def _check_lo(lo: int) -> None:
+    if not 0 <= lo < 2 ** 31:
+        raise ValueError(f"need 0 <= lo < 2**31, got {lo}")
+
+
+def bloom_ce_shard_cuda(z: torch.Tensor, h: torch.Tensor, lo: int):
+    """Launch the ranged forward kernel on PyTorch's current stream (no
+    sync), counted as ``bloom_ce_fwd.range``: z (T, m) float32 the columns
+    [lo, lo + m) of the logits, h (T, k) int32 global labels ->
+    (lse (T,), hits (T,)) f32 (``bloom_ce_shard_plain``)."""
+    _check(z, h)
+    _check_cuda(z, h)
+    _check_lo(lo)
+    (T, m), k = z.shape, h.shape[1]
+    lse = torch.empty(T, dtype=torch.float32, device=z.device)
+    hits = torch.empty_like(lse)
+    if T == 0:
+        return lse, hits
+    lib = _library()
+    err = lib.bloom_ce_fwd(z.data_ptr(), h.data_ptr(), None, lse.data_ptr(),
+                           hits.data_ptr(), T, m, k, lo, _stream(z))
+    _raise_on(lib, err, FWD_RANGE)
+    common.count_launch(FWD_RANGE)
+    return lse, hits
+
+
 def bloom_ce_bwd_cuda(g: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
-                      lse: torch.Tensor) -> torch.Tensor:
+                      lse: torch.Tensor, lo: int | None = None
+                      ) -> torch.Tensor:
     """Launch the backward kernel on PyTorch's current stream (no sync):
-    dz (T, m) f32 from the cotangent g (T,) and the forward's lse (T,)."""
+    dz (T, m) f32 from the cotangent g (T,) and the forward's lse (T,).
+    With ``lo`` (counted as ``bloom_ce_bwd.range``) z is the columns
+    [lo, lo + m), h the global labels and ``lse`` the global one."""
     _check(z, h)
     _check_cuda(z, h, g, lse)
+    if lo is not None:
+        _check_lo(lo)
     (T, m), k = z.shape, h.shape[1]
     dz = torch.empty((T, m), dtype=torch.float32, device=z.device)
     if T == 0 or m == 0:
         return dz
+    name = BWD if lo is None else BWD_RANGE
     lib = _library()
     err = lib.bloom_ce_bwd(g.data_ptr(), z.data_ptr(), h.data_ptr(),
-                           lse.data_ptr(), dz.data_ptr(), T, m, k,
+                           lse.data_ptr(), dz.data_ptr(), T, m, k, lo or 0,
                            _stream(z))
-    _raise_on(lib, err, BWD)
-    common.count_launch(BWD)
+    _raise_on(lib, err, name)
+    common.count_launch(name)
     return dz
 
 
@@ -180,8 +257,8 @@ def _raise_on(lib, err: int, name: str) -> None:
 def _library() -> ctypes.CDLL:
     lib = common.load_library(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bloom_ce_fwd.argtypes = [p, p, p, p, i, i, i, p]
-    lib.bloom_ce_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.bloom_ce_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.bloom_ce_bwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
     for fn in (lib.bloom_ce_fwd, lib.bloom_ce_bwd):
         fn.restype = i
     lib.bloom_ce_error_string.argtypes = [i]

@@ -20,6 +20,12 @@ float atomics anywhere.
   ``bin_csr_plain`` is the same binning with ``torch.sort`` (stable) and
   ``searchsorted``, and the two give equal bins; ``bin_csr`` picks one by
   idx's device.
+* A row range (``lo``: the backward of one rank's shard of a
+  vocab-parallel embedding, the rows [lo, lo + m) of the table) bins
+  v - lo instead of v, so the entries of other shards' rows fall outside
+  every segment like the pads; the card's ranged binning is counted as
+  ``bloom_csr.bin.range``.  The scatter is unchanged: it sums the shard's
+  m rows.
 * ``csr_scatter_add_cuda`` launches the hand-written Hopper kernel
   (``csrc/bloom_csr.cu``, which replaces the JAX package's Pallas
   ``csr_scatter_add_pallas``, reached through
@@ -51,6 +57,7 @@ from repro_torch.kernels import common
 NAME = "bloom_csr"
 DECODE = f"{NAME}.decode"    # launches from the decode backward
 BIN = f"{NAME}.bin"          # launches of the binning
+BIN_RANGE = f"{BIN}.range"   # ... over a row range
 DTYPES = (torch.float32, torch.bfloat16)
 # the scatter kernel's block, the most rows a block owns, and the
 # (row, chunk) pairs a block aims at (8 a thread)
@@ -75,12 +82,14 @@ class CSRBins(NamedTuple):
     src: torch.Tensor       # (T * k,) int32 token row of each sorted entry
 
 
-def bin_csr_plain(idx: torch.Tensor, m: int) -> CSRBins:
-    """Bin idx (T, k) into m row segments with torch ops on idx's device.
-    The row pointers come from a search over the sorted values, not from
+def bin_csr_plain(idx: torch.Tensor, m: int,
+                  lo: int | None = None) -> CSRBins:
+    """Bin idx (T, k) into m row segments with torch ops on idx's device
+    (with ``lo``: the rows [lo, lo + m), entry v in row v - lo).  The row
+    pointers come from a search over the sorted values, not from
     ``bincount``, which would cost a device sync on CUDA."""
     T, k = idx.shape
-    keys = idx.reshape(-1).long().clamp(-1, m)
+    keys = (idx.reshape(-1).long() - (lo or 0)).clamp(-1, m)
     keys, order = torch.sort(keys, stable=True)
     bounds = torch.arange(m + 1, device=idx.device)
     row_ptr = torch.searchsorted(keys, bounds).to(torch.int32)
@@ -100,10 +109,12 @@ def bin_plan(n_entries: int, m: int) -> tuple:
     return chunk, n_entries + groups * (-(-n_entries // chunk) + 1)
 
 
-def bin_csr_cuda(idx: torch.Tensor, m: int) -> CSRBins:
+def bin_csr_cuda(idx: torch.Tensor, m: int,
+                 lo: int | None = None) -> CSRBins:
     """Bin on the card (PyTorch's current stream, no sync), counted as
-    ``bloom_csr.bin``.  idx (T, k) int32, contiguous, on a CUDA device.
-    Raises on anything the kernels do not take."""
+    ``bloom_csr.bin`` (with ``lo``, the rows [lo, lo + m):
+    ``bloom_csr.bin.range``).  idx (T, k) int32, contiguous, on a CUDA
+    device.  Raises on anything the kernels do not take."""
     if not idx.is_cuda:
         raise ValueError("idx must lie on a CUDA device")
     if idx.ndim != 2 or idx.dtype != torch.int32:
@@ -115,6 +126,8 @@ def bin_csr_cuda(idx: torch.Tensor, m: int) -> CSRBins:
     if n >= 2 ** 30 or not 0 <= m < 2 ** 30:
         raise ValueError(f"need T*k < 2**30 and 0 <= m < 2**30, got "
                          f"T*k={n} m={m}")
+    if lo is not None and not 0 <= lo < 2 ** 30:
+        raise ValueError(f"need 0 <= lo < 2**30, got {lo}")
     if n > SMALL_ENTRIES and (m + 2 > GROUP * MAX_GROUPS
                               or n > MAX_GROUPED_ENTRIES):
         raise ValueError(f"more than {SMALL_ENTRIES} entries need m <= "
@@ -125,21 +138,22 @@ def bin_csr_cuda(idx: torch.Tensor, m: int) -> CSRBins:
     src = torch.empty(n, dtype=torch.int32, device=idx.device)
     scratch = torch.empty(n_scratch, dtype=torch.int32, device=idx.device)
     lib = _library()
-    err = lib.bloom_csr_bin(idx.data_ptr(), n, max(k, 1), m, chunk,
+    err = lib.bloom_csr_bin(idx.data_ptr(), n, max(k, 1), m, lo or 0, chunk,
                             row_ptr.data_ptr(), src.data_ptr(),
                             scratch.data_ptr(),
                             torch.cuda.current_stream(idx.device).cuda_stream)
     _raise_on(lib, err)
-    common.count_launch(BIN)
+    common.count_launch(BIN if lo is None else BIN_RANGE)
     return CSRBins(row_ptr, src)
 
 
-def bin_csr(idx: torch.Tensor, m: int) -> CSRBins:
-    """The bins of idx (T, k) over m rows: on the card for a CUDA tensor,
-    with torch ops for a CPU tensor."""
+def bin_csr(idx: torch.Tensor, m: int, lo: int | None = None) -> CSRBins:
+    """The bins of idx (T, k) over m rows (with ``lo``: the rows [lo,
+    lo + m)): on the card for a CUDA tensor, with torch ops for a CPU
+    tensor."""
     if common.resolve_impl(idx) == "kernel":
-        return bin_csr_cuda(idx, m)
-    return bin_csr_plain(idx, m)
+        return bin_csr_cuda(idx, m, lo)
+    return bin_csr_plain(idx, m, lo)
 
 
 def rows_per_block(m: int, D: int, vec: bool, n_sm: int) -> int:
@@ -232,12 +246,13 @@ def csr_scatter_add_cuda(g: torch.Tensor, bins: CSRBins,
 
 
 def csr_scatter_add(g: torch.Tensor, idx: torch.Tensor,
-                    m: int) -> torch.Tensor:
+                    m: int, lo: int | None = None) -> torch.Tensor:
     """Bin ``idx`` and scatter-add ``g``: the kernel for CUDA tensors, the
-    plain version for CPU tensors.  (m, D) f32."""
+    plain version for CPU tensors.  (m, D) f32, with ``lo`` the rows
+    [lo, lo + m) of the table."""
     _check_shapes(g, idx)
     impl = common.resolve_impl(g, idx)
-    bins = bin_csr(idx, m)
+    bins = bin_csr(idx, m, lo)
     if impl == "kernel":
         return csr_scatter_add_cuda(g, bins, m)
     return csr_scatter_add_plain(g, bins, m)
@@ -276,7 +291,7 @@ def _library() -> ctypes.CDLL:
     for fn in (lib.bloom_csr_f32, lib.bloom_csr_bf16):
         fn.argtypes = [p, p, p, p, i, i, i, p]
         fn.restype = i
-    lib.bloom_csr_bin.argtypes = [p, i, i, i, i, p, p, p, p]
+    lib.bloom_csr_bin.argtypes = [p, i, i, i, i, i, p, p, p, p]
     lib.bloom_csr_bin.restype = i
     lib.bloom_csr_error_string.argtypes = [i]
     lib.bloom_csr_error_string.restype = ctypes.c_char_p

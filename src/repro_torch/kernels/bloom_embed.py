@@ -43,6 +43,16 @@ the reference's custom VJP does.
   same sum as ``zeros(m, D).index_add_`` over the entries in (t, j) order
   (the kernel's order on the CPU, where ``index_add_`` adds in index
   order); ``bloom_embed_bwd`` picks one by the tensors' device.
+* A row range, for one rank's shard of a vocab-parallel embedding (the
+  tensor-parallel training step): the table holds the rows [lo, lo + rows)
+  of the full (m, D) table, the indices are the full table's (hashed from
+  the spec as ever), and an index outside the range adds 0.0, so each
+  rank's output is its part of the sum (the caller all-reduces the
+  parts).  The token entry takes it (``lo``, f32 or bf16 tables read as
+  they are; counted as ``token_variant_name(spec) + ".range"``), and so do
+  both backwards (the CSR binning, ``bloom_csr.bin.range``, and the dense
+  sweep, ``bloom_embed_bwd.range``), which sum into the shard's rows only.
+  ``lo = 0`` over the whole table is the unranged function, bit for bit.
 * ``bloom_embed`` is the differentiable entry: an ``autograd.Function``
   over (T, k) indices, or with ``spec`` over (T,) token ids, whose forward
   picks kernel or plain version by the tensors' device
@@ -66,6 +76,7 @@ from repro_torch.kernels import bloom_csr, common
 
 NAME = "bloom_embed"
 BWD = "bloom_embed_bwd"
+RANGE = ".range"    # the launch-count suffix of a ranged call
 DTYPES = (torch.float32, torch.bfloat16)     # also the output dtypes
 # the storage dtype codes of csrc/bloom_embed.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -177,24 +188,55 @@ def bloom_embed_plain(table: torch.Tensor, idx: torch.Tensor
 def bloom_embed_tokens_plain(qtable: torch.Tensor,
                              scales: Optional[torch.Tensor],
                              tokens: torch.Tensor, spec: BloomSpec,
-                             out_dtype: torch.dtype = torch.float32):
+                             out_dtype: torch.dtype = torch.float32,
+                             lo: Optional[int] = None):
     """The token entry in plain PyTorch: ``spec.indices_for(tokens)`` and
     the gather-sum over the stored table.  Returns ((T, D) in
-    ``out_dtype``, the (T, k) int32 indices)."""
+    ``out_dtype``, the (T, k) int32 indices).  With ``lo`` the table holds
+    the rows [lo, lo + rows) of the spec's m: an index outside them adds
+    0.0, one inside reads row index - lo (the kernel's order: j order
+    from row 0)."""
     idx = spec.indices_for(tokens).contiguous()
-    return bloom_embed_quantized_plain(qtable, scales, idx, out_dtype), idx
+    if lo is None:
+        return (bloom_embed_quantized_plain(qtable, scales, idx, out_dtype),
+                idx)
+    _check_range(lo, qtable.shape[0], spec.m)
+    _check_storage(qtable, scales, out_dtype)
+    rows = qtable.shape[0]
+    rel = idx.long() - lo
+    inside = (rel >= 0) & (rel < rows)
+    rel = rel.clamp(0, max(rows - 1, 0))
+
+    def row(j):
+        r = qtable[rel[:, j]].float()
+        if scales is not None:
+            r = r * scales[rel[:, j]][:, None]
+        return torch.where(inside[:, j, None], r, 0.0)
+
+    acc = row(0)
+    for j in range(1, idx.shape[1]):
+        acc = acc + row(j)
+    return acc.to(out_dtype), idx
+
+
+def _check_range(lo: int, rows: int, m: int) -> None:
+    if not (0 <= lo and lo + rows <= m):
+        raise ValueError(f"the rows [{lo}, {lo + rows}) are not a range of "
+                         f"the spec's m={m} rows")
 
 
 def _launch(qtable: torch.Tensor, scales: Optional[torch.Tensor],
             ids: torch.Tensor, out_dtype: torch.dtype, name: str,
             spec: Optional[BloomSpec] = None, want_idx: bool = False,
-            defines: tuple = ()):
+            defines: tuple = (), lo: Optional[int] = None):
     """Check the tensors, allocate the output and launch on the current
     stream (no sync), counting the launch as ``name``; an empty output
     (T or D zero) launches and counts nothing.  ``ids`` is (T, k) int32
     indices, or with ``spec`` the (T,) int32 or int64 token ids;
-    ``defines`` picks a build of the kernel (``_library``).  Returns (out,
-    the (T, k) int32 indices when ``want_idx``, else None)."""
+    ``defines`` picks a build of the kernel (``_library``); ``lo`` (with
+    ``spec``) says the table holds the rows [lo, lo + rows) of the spec's
+    m.  Returns (out, the (T, k) int32 indices when ``want_idx``, else
+    None)."""
     tensors = (qtable, ids) if scales is None else (qtable, ids, scales)
     if not all(t.is_cuda and t.device == qtable.device for t in tensors):
         raise ValueError("table, scales and idx must lie on one CUDA device")
@@ -210,13 +252,15 @@ def _launch(qtable: torch.Tensor, scales: Optional[torch.Tensor],
         if ids.ndim != 1 or ids.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"need (T,) int32 or int64 token ids, got "
                             f"{tuple(ids.shape)} {ids.dtype}")
-        if spec.m != m:
+        if lo is None and spec.m != m:
             raise ValueError(f"the spec's m={spec.m} is not the table's "
                              f"{m} rows")
+        if lo is not None:
+            _check_range(lo, m, spec.m)
         T, k, kind = ids.shape[0], spec.k, spec_kind(spec)
         src = _SRC[kind]
         H = cached_hash_matrix(spec, dev) if kind == "H" else None
-        consts = common.hash_constants(m, spec.seed)
+        consts = common.hash_constants(spec.m, spec.seed)
     if T * k >= 2 ** 31 or D >= 2 ** 31:
         raise ValueError(f"need T*k, D < 2**31, got T*k={T * k} D={D}")
     out = torch.empty((T, D), dtype=out_dtype, device=dev)
@@ -231,8 +275,9 @@ def _launch(qtable: torch.Tensor, scales: Optional[torch.Tensor],
         qtable.data_ptr(), None if scales is None else scales.data_ptr(),
         ids.data_ptr(), int(ids.dtype == torch.int64), src,
         None if H is None else H.data_ptr(),
-        None if idx is None else idx.data_ptr(), out.data_ptr(), T, D, k, m,
-        0 if spec is None else spec.d, *consts, _CODES[qtable.dtype],
+        None if idx is None else idx.data_ptr(), out.data_ptr(), T, D, k,
+        m if spec is None else spec.m, 0 if spec is None else spec.d,
+        lo or 0, m, *consts, _CODES[qtable.dtype],
         _CODES[out_dtype], common.sm_count(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -277,20 +322,24 @@ def bloom_embed_quantized_cuda(qtable: torch.Tensor,
 
 
 def bloom_embed_tokens_cuda(table: torch.Tensor, tokens: torch.Tensor,
-                            spec: BloomSpec, want_idx: bool = False):
+                            spec: BloomSpec, want_idx: bool = False,
+                            lo: Optional[int] = None):
     """The token entry on a table read as it is (float32 or bfloat16,
     output in its dtype): one launch from the (T,) int32 or int64 token
     ids, hashed in the kernel as ``spec.indices_for`` does; counted as
-    ``token_variant_name(spec)``.  Returns (out, the (T, k) int32 indices
-    of ``spec.indices_for`` when ``want_idx``, else None).  Raises on
-    anything the kernel does not take."""
+    ``token_variant_name(spec)``.  With ``lo`` the table holds the rows
+    [lo, lo + rows) of the spec's m (``bloom_embed_tokens_plain``),
+    counted as ``token_variant_name(spec) + ".range"``.  Returns (out, the
+    (T, k) int32 indices of ``spec.indices_for`` when ``want_idx``, else
+    None).  Raises on anything the kernel does not take."""
     if table.ndim != 2:
         raise ValueError(f"need table (m, D), got {tuple(table.shape)}")
     if table.dtype not in DTYPES:
         raise TypeError(f"need a float32 or bfloat16 table, got "
                         f"{table.dtype}")
-    return _launch(table, None, tokens, table.dtype,
-                   token_variant_name(spec), spec, want_idx)
+    name = token_variant_name(spec) + ("" if lo is None else RANGE)
+    return _launch(table, None, tokens, table.dtype, name, spec, want_idx,
+                   lo=lo)
 
 
 def bloom_embed_tokens_quantized_cuda(qtable: torch.Tensor,
@@ -354,14 +403,16 @@ def _check_bwd(g: torch.Tensor, idx: torch.Tensor) -> None:
 
 
 def bloom_embed_bwd_plain(g: torch.Tensor, idx: torch.Tensor,
-                          m: int) -> torch.Tensor:
+                          m: int, lo: Optional[int] = None) -> torch.Tensor:
     """The plain PyTorch dense backward: (m, D) f32 on g's device, each row
     summed over the entries in (t, j) order (on the CPU; on a CUDA tensor
     ``index_add_`` adds with atomics).  Entries outside [0, m) never
-    match (they add into a spare row m that is cut off)."""
+    match (they add into a spare row m that is cut off).  With ``lo`` the
+    output is the rows [lo, lo + m) of the table: entry v adds into row
+    v - lo."""
     _check_bwd(g, idx)
     T, k = idx.shape
-    flat = idx.reshape(-1).long()
+    flat = idx.reshape(-1).long() - (lo or 0)
     flat = torch.where((flat >= 0) & (flat < m), flat, m)
     src = torch.arange(T, device=g.device).repeat_interleave(k)
     out = torch.zeros(m + 1, g.shape[1], dtype=torch.float32,
@@ -370,11 +421,12 @@ def bloom_embed_bwd_plain(g: torch.Tensor, idx: torch.Tensor,
 
 
 def bloom_embed_bwd_cuda(g: torch.Tensor, idx: torch.Tensor,
-                         m: int) -> torch.Tensor:
+                         m: int, lo: Optional[int] = None) -> torch.Tensor:
     """Launch the dense backward kernel on PyTorch's current stream (no
     sync).  g (T, D) float32 or bfloat16 and idx (T, k) int32, contiguous,
-    on one CUDA device; (m, D) f32.  Raises on anything the kernel does not
-    take."""
+    on one CUDA device; (m, D) f32, with ``lo`` the rows [lo, lo + m)
+    (counted as ``bloom_embed_bwd.range``).  Raises on anything the kernel
+    does not take."""
     _check_bwd(g, idx)
     if not (g.is_cuda and idx.device == g.device):
         raise ValueError("g and idx must lie on one CUDA device")
@@ -387,33 +439,42 @@ def bloom_embed_bwd_cuda(g: torch.Tensor, idx: torch.Tensor,
     if T * k >= 2 ** 31 or T * D >= 2 ** 31 or m >= 2 ** 31:
         raise ValueError(f"need T*k, T*D, m < 2**31, got T*k={T * k} "
                          f"T*D={T * D} m={m}")
+    if lo is not None and not 0 <= lo < 2 ** 31 - m:
+        raise ValueError(f"need 0 <= lo and lo + m < 2**31, got lo={lo}")
     out = torch.empty((m, D), dtype=torch.float32, device=g.device)
     if m and D:
+        name = BWD + ("" if lo is None else RANGE)
         lib = _library()
         err = lib.bloom_embed_bwd_dense(
             g.data_ptr(), _CODES[g.dtype], idx.data_ptr(), out.data_ptr(),
-            T, D, m, k, torch.cuda.current_stream(g.device).cuda_stream)
+            T, D, m, k, lo or 0,
+            torch.cuda.current_stream(g.device).cuda_stream)
         if err != 0:
             msg = lib.bloom_embed_error_string(err).decode()
-            raise RuntimeError(f"{BWD} kernel launch failed: CUDA error "
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                                f"{err} ({msg})")
-        common.count_launch(BWD)
+        common.count_launch(name)
     return out
 
 
 def bloom_embed_bwd(g: torch.Tensor, idx: torch.Tensor,
-                    m: int) -> torch.Tensor:
+                    m: int, lo: Optional[int] = None) -> torch.Tensor:
     """The dense backward: the kernel for CUDA tensors, the plain version
-    for CPU tensors.  (m, D) f32."""
+    for CPU tensors.  (m, D) f32, with ``lo`` the rows [lo, lo + m)."""
     if common.resolve_impl(g, idx) == "kernel":
-        return bloom_embed_bwd_cuda(g, idx, m)
-    return bloom_embed_bwd_plain(g, idx, m)
+        return bloom_embed_bwd_cuda(g, idx, m, lo)
+    return bloom_embed_bwd_plain(g, idx, m, lo)
 
 
-def _forward(table, ids, spec, table_dtype, out_dtype, want_idx):
+def _forward(table, ids, spec, table_dtype, out_dtype, want_idx, lo=None):
     """The forward of ``bloom_embed``: (out, the indices its backward
     reads, or None for the token entry without ``want_idx``)."""
     kernel = common.resolve_impl(table, ids) == "kernel"
+    if lo is not None:
+        if not kernel:
+            return bloom_embed_tokens_plain(table, None, ids, spec,
+                                            table.dtype, lo)
+        return bloom_embed_tokens_cuda(table, ids, spec, want_idx, lo)
     if table_dtype is None:
         q, scales, od = table, None, table.dtype
     else:
@@ -439,10 +500,12 @@ class _BloomEmbed(torch.autograd.Function):
     (straight-through when the forward was quantized)."""
 
     @staticmethod
-    def forward(ctx, table, ids, spec, table_dtype, out_dtype, bwd_impl):
-        out, idx = _forward(table, ids, spec, table_dtype, out_dtype, True)
+    def forward(ctx, table, ids, spec, table_dtype, out_dtype, bwd_impl, lo):
+        out, idx = _forward(table, ids, spec, table_dtype, out_dtype, True,
+                            lo)
         ctx.save_for_backward(idx)
         ctx.m, ctx.dtype, ctx.bwd_impl = table.shape[0], table.dtype, bwd_impl
+        ctx.lo = lo
         return out
 
     @staticmethod
@@ -450,15 +513,16 @@ class _BloomEmbed(torch.autograd.Function):
         idx, = ctx.saved_tensors
         scatter = (bloom_csr.csr_scatter_add if ctx.bwd_impl == "csr"
                    else bloom_embed_bwd)
-        dtable = scatter(g.contiguous(), idx, ctx.m)
-        return dtable.to(ctx.dtype), None, None, None, None, None
+        dtable = scatter(g.contiguous(), idx, ctx.m, ctx.lo)
+        return dtable.to(ctx.dtype), None, None, None, None, None, None
 
 
 def bloom_embed(table: torch.Tensor, idx: torch.Tensor,
                 table_dtype: Optional[str] = None,
                 out_dtype: Optional[torch.dtype] = None,
                 bwd_impl: str = "csr",
-                spec: Optional[BloomSpec] = None) -> torch.Tensor:
+                spec: Optional[BloomSpec] = None,
+                lo: Optional[int] = None) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version for CPU tensors;
     differentiable in ``table`` through the CSR scatter-add
     (``bwd_impl="csr"``) or the dense backward (``"dense"``).
@@ -469,15 +533,21 @@ def bloom_embed(table: torch.Tensor, idx: torch.Tensor,
     gradient is wanted: grad mode on and ``table`` requiring it).
     ``table_dtype`` (core/quant.py) quantizes the table in the graph and
     gathers the stored rows (straight-through gradient into ``table``);
-    ``out_dtype`` sets the output dtype (default ``default_out_dtype``)."""
+    ``out_dtype`` sets the output dtype (default ``default_out_dtype``).
+    ``lo`` (the token entry, a table read as it is) says the table holds
+    the rows [lo, lo + rows) of the spec's m: the output is this shard's
+    part of the sum, and the gradient lands on the shard's rows."""
     td = quant.resolve_table_dtype(table_dtype)
     common.resolve_bwd_impl(bwd_impl)
     if td is None and out_dtype not in (None, table.dtype):
         raise ValueError("out_dtype other than the table's needs a "
                          "table_dtype")
+    if lo is not None and (spec is None or td is not None):
+        raise ValueError("a row range needs the token entry (spec) and a "
+                         "table read as it is (no table_dtype)")
     if not (torch.is_grad_enabled() and table.requires_grad):
-        return _forward(table, idx, spec, td, out_dtype, False)[0]
-    return _BloomEmbed.apply(table, idx, spec, td, out_dtype, bwd_impl)
+        return _forward(table, idx, spec, td, out_dtype, False, lo)[0]
+    return _BloomEmbed.apply(table, idx, spec, td, out_dtype, bwd_impl, lo)
 
 
 @functools.lru_cache(maxsize=None)
@@ -488,11 +558,11 @@ def _library(defines: tuple = ()) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     u = ctypes.c_uint
     lib.bloom_embed_fwd.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, i,
-                                    u, u, u, u, u, u, i, i, i, p]
+                                    i, i, u, u, u, u, u, u, i, i, i, p]
     lib.bloom_embed_fwd.restype = i
     lib.bloom_embed_launch_floor.argtypes = [p]
     lib.bloom_embed_launch_floor.restype = i
-    lib.bloom_embed_bwd_dense.argtypes = [p, i, p, p, i, i, i, i, p]
+    lib.bloom_embed_bwd_dense.argtypes = [p, i, p, p, i, i, i, i, i, p]
     lib.bloom_embed_bwd_dense.restype = i
     lib.bloom_embed_error_string.argtypes = [i]
     lib.bloom_embed_error_string.restype = ctypes.c_char_p

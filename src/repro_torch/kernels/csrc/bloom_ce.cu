@@ -5,6 +5,17 @@
 // [0, m). A label hashed twice to one column counts twice, as the reference's
 // onehot_count does.
 //
+// Row range (the vocab-parallel loss of a tensor-parallel step): z may be
+// the columns [lo, lo + m) of the full (T, m_full) logits, one rank's shard,
+// with h the global labels in [0, m_full). Only the labels that fall in the
+// shard are picked (relative to lo) and counted; the forward then also
+// writes the local hit sum hits[t] = sum over those labels of z[t, h - lo]
+// (the caller all-reduces it, and combines the ranks' local lse into the
+// global one), and the backward takes the GLOBAL lse, so that
+//     dz[t, c] = g[t] * (exp(z[t, c] - lse[t]) - count_j(h[t, j] == lo + c) / k)
+// is exact on the shard. lo = 0 with every label in [0, m) is the unsharded
+// loss, bit for bit: the picked sum starts at 0.0 and 0.0 + x == x.
+//
 // Replaces the Pallas TPU kernels src/repro/kernels/bloom_ce.py ::
 // bloom_ce_pallas (_ce_fwd -> _fwd_kernel) and bloom_ce_bwd_pallas
 // (_bwd_kernel). The TPU kernels hold a (t_tile, m) block of rows in VMEM
@@ -73,7 +84,8 @@ __device__ __forceinline__ MaxSum warp_merge(MaxSum a) {
 template <bool kVec>
 __global__ void __launch_bounds__(kFwdThreads)
     ce_fwd(const float* __restrict__ z, const int* __restrict__ h,
-           float* __restrict__ loss, float* __restrict__ lse, int m, int k) {
+           float* __restrict__ loss, float* __restrict__ lse,
+           float* __restrict__ hits, int m, int k, int lo) {
   const int t = blockIdx.x;
   const float* row = z + (size_t)t * m;
   MaxSum acc{-INFINITY, 0.0f};
@@ -107,13 +119,18 @@ __global__ void __launch_bounds__(kFwdThreads)
   if (lane == 0) {
     const float l = acc.m + logf(acc.s);
     const int* hr = h + (size_t)t * k;
-    float picked = row[hr[0]];
-    for (int j = 1; j < k; ++j) picked += row[hr[j]];
+    float picked = 0.0f;   // the labels in [lo, lo + m), in j order
+    for (int j = 0; j < k; ++j) {
+      const unsigned c = (unsigned)(hr[j] - lo);
+      if (c < (unsigned)m) picked += row[c];
+    }
     lse[t] = l;
-    loss[t] = l - picked / (float)k;
+    if (loss != nullptr) loss[t] = l - picked / (float)k;
+    if (hits != nullptr) hits[t] = picked;
   }
 }
 
+// c is the GLOBAL column (lo + the shard's column)
 __device__ __forceinline__ float ce_grad(float x, int c, const int* hr, int k,
                                          float l, float g, float kf) {
   int cnt = 0;
@@ -125,7 +142,7 @@ template <bool kVec>
 __global__ void __launch_bounds__(kBwdThreads)
     ce_bwd(const float* __restrict__ g, const float* __restrict__ z,
            const int* __restrict__ h, const float* __restrict__ lse,
-           float* __restrict__ dz, int m, int k) {
+           float* __restrict__ dz, int m, int k, int lo) {
   const int t = blockIdx.x;
   const float gt = g[t], l = lse[t], kf = (float)k;
   const int* hr = h + (size_t)t * k;
@@ -139,7 +156,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     float4* dz4 = reinterpret_cast<float4*>(dz + base);
     for (int i = i0 + (int)threadIdx.x; i < i1; i += kBwdThreads) {
       const float4 v = __ldcs(z4 + i);
-      const int c = 4 * i;
+      const int c = lo + 4 * i;
       float4 o;
       o.x = ce_grad(v.x, c, hr, k, l, gt, kf);
       o.y = ce_grad(v.y, c + 1, hr, k, l, gt, kf);
@@ -149,7 +166,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     }
   } else {
     for (int c = i0 + (int)threadIdx.x; c < i1; c += kBwdThreads)
-      dz[base + c] = ce_grad(__ldcs(z + base + c), c, hr, k, l, gt, kf);
+      dz[base + c] = ce_grad(__ldcs(z + base + c), lo + c, hr, k, l, gt, kf);
   }
 }
 
@@ -161,32 +178,35 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-// z (T, m) f32, h (T, k) int32 in [0, m), loss and lse (T,) f32, all
-// contiguous on one device. Launches on `stream` without synchronising;
+// z (T, m) f32: the logits' columns [lo, lo + m); h (T, k) int32 global
+// labels (those outside [lo, lo + m) are not picked); lse (T,) f32 out;
+// loss (T,) f32 out or null; hits (T,) f32 out (the local hit sum) or null;
+// all contiguous on one device. Launches on `stream` without synchronising;
 // returns the CUDA error code of the launch (0 on success).
-int bloom_ce_fwd(const float* z, const int* h, float* loss, float* lse, int T,
-                 int m, int k, void* stream) {
+int bloom_ce_fwd(const float* z, const int* h, float* loss, float* lse,
+                 float* hits, int T, int m, int k, int lo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m % 4 == 0 && aligned16(z))
-    ce_fwd<true><<<T, kFwdThreads, 0, s>>>(z, h, loss, lse, m, k);
+    ce_fwd<true><<<T, kFwdThreads, 0, s>>>(z, h, loss, lse, hits, m, k, lo);
   else
-    ce_fwd<false><<<T, kFwdThreads, 0, s>>>(z, h, loss, lse, m, k);
+    ce_fwd<false><<<T, kFwdThreads, 0, s>>>(z, h, loss, lse, hits, m, k, lo);
   return (int)cudaGetLastError();
 }
 
-// g (T,) f32 cotangent of loss, z (T, m) f32, h (T, k) int32, lse (T,) f32
-// from the forward, dz (T, m) f32 out.
+// g (T,) f32 cotangent of loss, z (T, m) f32 (columns [lo, lo + m)), h
+// (T, k) int32 global labels, lse (T,) f32 (the global one), dz (T, m) f32
+// out.
 int bloom_ce_bwd(const float* g, const float* z, const int* h,
-                 const float* lse, float* dz, int T, int m, int k,
+                 const float* lse, float* dz, int T, int m, int k, int lo,
                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int per_block = kBwdThreads * kBwdIters;
   if (m % 4 == 0 && aligned16(z) && aligned16(dz)) {
     const dim3 grid(T, (m / 4 + per_block - 1) / per_block);
-    ce_bwd<true><<<grid, kBwdThreads, 0, s>>>(g, z, h, lse, dz, m, k);
+    ce_bwd<true><<<grid, kBwdThreads, 0, s>>>(g, z, h, lse, dz, m, k, lo);
   } else {
     const dim3 grid(T, (m + per_block - 1) / per_block);
-    ce_bwd<false><<<grid, kBwdThreads, 0, s>>>(g, z, h, lse, dz, m, k);
+    ce_bwd<false><<<grid, kBwdThreads, 0, s>>>(g, z, h, lse, dz, m, k, lo);
   }
   return (int)cudaGetLastError();
 }

@@ -48,7 +48,10 @@
 // Binning design (bloom_csr_bin): entries are bucketed by value, bucket 0
 // for values below 0, v + 1 for v in [0, m), m + 1 for values from m up (so
 // out-of-range entries, such as -1 pads, fall outside every row's segment
-// and keep their entry order among themselves). row_ptr[r] is the start of
+// and keep their entry order among themselves). A row range (the backward of
+// one rank's shard of a vocab-parallel embedding: rows [row0, row0 + m) of
+// the full table) bins v - row0 instead, so the entries of other shards'
+// rows drop out the same way; row0 = 0 is the unranged binning. row_ptr[r] is the start of
 // bucket r + 1. Integer atomics count the buckets and give each entry a
 // place in its bucket, an exclusive scan turns the counts into starts, and
 // the entries of each bucket, placed in no fixed order, are put back into
@@ -60,7 +63,8 @@
 // - n <= 8,192 (the train step: n = 2,080, m = 30,208): one launch. Block j
 //   owns 1,024 buckets; it reads all n entries, counts those below its
 //   buckets and its own, scans its counts, writes its row pointers, and
-//   places and ranks its own entries in a shared list.
+//   places and ranks its own entries in a shared list; the two
+//   out-of-range buckets are put in entry order by an ordered scan.
 // - more entries (the decode's d * k = 607,744): four launches, two levels.
 //   The entries are cut into chunks of 2,048 or more (at most 1,024 chunks)
 //   and the buckets into groups of 64. part_count counts each chunk's
@@ -255,7 +259,7 @@ __device__ __forceinline__ void write_starts(const int (&c)[4], int run,
 // pointers; then it places its own entries in a shared list by integer
 // atomics and puts each at its rank in its bucket.
 __global__ void __launch_bounds__(kBinThreads)
-    bin_ranges(const int* __restrict__ vals, int n, int k, int m,
+    bin_ranges(const int* __restrict__ vals, int n, int k, int m, int row0,
                int* __restrict__ row_ptr, int* __restrict__ src) {
   __shared__ __align__(16) int cnt[kRange];
   __shared__ int red[kWarps];
@@ -265,7 +269,7 @@ __global__ void __launch_bounds__(kBinThreads)
   __syncthreads();
   int below = 0;
   for (int e = threadIdx.x; e < n; e += kBinThreads) {
-    const int b = bucket(__ldg(vals + e), m);
+    const int b = bucket(__ldg(vals + e) - row0, m);
     if (b < lo)
       ++below;
     else if (b < hi)
@@ -284,16 +288,35 @@ __global__ void __launch_bounds__(kBinThreads)
       make_int4(run, run + c[0], run + c[0] + c[1], run + c[0] + c[1] + c[2]);
   __syncthreads();
   for (int e = threadIdx.x; e < n; e += kBinThreads) {
-    const int b = bucket(__ldg(vals + e), m);
+    const int b = bucket(__ldg(vals + e) - row0, m);
     if (b >= lo && b < hi) list[atomicAdd(&cnt[b - lo], 1)] = e;
   }
   __syncthreads();
   // cnt[x] is now the end of bucket lo + x, so its start is cnt[x - 1]
   for (int p = threadIdx.x; p < total; p += kBinThreads) {
     const int e = list[p];
-    const int x = bucket(__ldg(vals + e), m) - lo;
+    const int b = bucket(__ldg(vals + e) - row0, m);
+    if (b == 0 || b == m + 1) continue;
+    const int x = b - lo;
     const int s = x ? cnt[x - 1] : 0;
     src[below + s + rank_in(list, s, cnt[x], e)] = e / k;
+  }
+  // The two out-of-range buckets (0: values below the rows, m + 1: from
+  // their end up) keep entry order by an ordered pass over the entries, a
+  // block-wide scan a round: with a row range they hold most entries, and
+  // ranking by comparison costs a bucket's length squared.
+  for (int ob = 0; ob < 2; ++ob) {
+    const int b = ob ? m + 1 : 0;
+    if (b < lo || b >= hi) continue;   // the same in every thread
+    int at = below + (b > lo ? cnt[b - lo - 1] : 0);
+    for (int e0 = 0; e0 < n; e0 += kBinThreads) {
+      const int e = e0 + (int)threadIdx.x;
+      const int in = e < n && bucket(__ldg(vals + e) - row0, m) == b;
+      int tot;
+      const int before = block_excl_scan(in, red, tot);
+      if (in) src[at + before] = e / k;
+      at += tot;
+    }
   }
 }
 
@@ -320,7 +343,8 @@ __device__ void smem_scan(int* c, int len, int* red) {
 // block. Step 1, grid (nc chunks): table[g * nc + j] = the entries of chunk
 // j in group g (shared-memory atomics).
 __global__ void __launch_bounds__(kBinThreads)
-    part_count(const int* __restrict__ vals, int n, int m, int chunk, int nc,
+    part_count(const int* __restrict__ vals, int n, int m, int row0,
+               int chunk, int nc,
                int* __restrict__ table) {
   extern __shared__ int cnt[];
   const int G = (m + 2 + kGroup - 1) / kGroup;
@@ -329,7 +353,7 @@ __global__ void __launch_bounds__(kBinThreads)
   const int j = blockIdx.x;
   const int e1 = min(n, (j + 1) * chunk);
   for (int e = j * chunk + (int)threadIdx.x; e < e1; e += kBinThreads)
-    atomicAdd(&cnt[bucket(__ldg(vals + e), m) / kGroup], 1);
+    atomicAdd(&cnt[bucket(__ldg(vals + e) - row0, m) / kGroup], 1);
   __syncthreads();
   for (int g = threadIdx.x; g < G; g += kBinThreads)
     table[g * nc + j] = cnt[g];
@@ -363,11 +387,12 @@ __global__ void __launch_bounds__(kBinThreads)
 // t (thread t), or -1 past e1.
 __device__ __forceinline__ void load_round(const int* __restrict__ vals,
                                            int base, int e1, int m,
-                                           int (&ev)[8], int (&bv)[8]) {
+                                           int row0, int (&ev)[8],
+                                           int (&bv)[8]) {
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
     ev[q] = base + q * kBinThreads + (int)threadIdx.x;
-    bv[q] = ev[q] < e1 ? bucket(__ldg(vals + ev[q]), m) : 0;
+    bv[q] = ev[q] < e1 ? bucket(__ldg(vals + ev[q]) - row0, m) : 0;
     if (ev[q] >= e1) ev[q] = -1;
   }
 }
@@ -381,7 +406,8 @@ __device__ __forceinline__ void load_round(const int* __restrict__ vals,
 // the round in group order in shared memory, and writes each group's run
 // out contiguously.
 __global__ void __launch_bounds__(kBinThreads)
-    part_place(const int* __restrict__ vals, int n, int m, int chunk, int nc,
+    part_place(const int* __restrict__ vals, int n, int m, int row0,
+               int chunk, int nc,
                const int* __restrict__ table, const int* __restrict__ totals,
                int* __restrict__ part) {
   extern __shared__ int sm[];
@@ -395,7 +421,7 @@ __global__ void __launch_bounds__(kBinThreads)
   const int j = blockIdx.x;
   const int e1 = min(n, (j + 1) * chunk);
   int ev[8], bv[8];
-  load_round(vals, j * chunk, e1, m, ev, bv);
+  load_round(vals, j * chunk, e1, m, row0, ev, bv);
   for (int g = threadIdx.x; g < G; g += kBinThreads) {
     next[g] = totals[g];
     cnt[g] = table[g * nc + j];
@@ -426,7 +452,8 @@ __global__ void __launch_bounds__(kBinThreads)
       stage_g[at] = g;
     }
     __syncthreads();
-    if (base + kSub < e1) load_round(vals, base + kSub, e1, m, ev, bv);
+    if (base + kSub < e1)
+      load_round(vals, base + kSub, e1, m, row0, ev, bv);
     for (int p = threadIdx.x; p < cnt[G - 1]; p += kBinThreads) {
       const int g = stage_g[p];
       part[next[g] + p - (g ? cnt[g - 1] : 0)] = stage[p];
@@ -524,12 +551,14 @@ __global__ void __launch_bounds__(kBinThreads)
   }
 }
 
-int bin(const int* vals, int n, int k, int m, int chunk, int* row_ptr,
+int bin(const int* vals, int n, int k, int m, int row0, int chunk,
+        int* row_ptr,
         int* src, int* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chunk == 0) {
     bin_ranges<<<(m + 2 + kRange - 1) / kRange, kBinThreads,
-                 (size_t)n * sizeof(int), s>>>(vals, n, k, m, row_ptr, src);
+                 (size_t)n * sizeof(int), s>>>(vals, n, k, m, row0, row_ptr,
+                                               src);
     return (int)cudaGetLastError();
   }
   const int G = (m + 2 + kGroup - 1) / kGroup;
@@ -543,10 +572,10 @@ int bin(const int* vals, int n, int k, int m, int chunk, int* row_ptr,
   int* table = part + n;
   int* totals = table + G * nc;
   part_count<<<nc, kBinThreads, (size_t)G * sizeof(int), s>>>(
-      vals, n, m, chunk, nc, table);
+      vals, n, m, row0, chunk, nc, table);
   scan_rows<<<G, kBinThreads, 0, s>>>(table, nc, totals);
   part_place<<<nc, kBinThreads, (2 * (size_t)G + 3 * kSub) * sizeof(int),
-               s>>>(vals, n, m, chunk, nc, table, totals, part);
+               s>>>(vals, n, m, row0, chunk, nc, table, totals, part);
   group_bin<<<G, kBinThreads, 0, s>>>(part, k, m, totals, row_ptr, src);
   return (int)cudaGetLastError();
 }
@@ -573,14 +602,15 @@ int bloom_csr_bf16(const void* g, const int* row_ptr, const int* src,
                                src, out, m, D, rows_per_block, stream);
 }
 
-// vals (n,) int32 (the flat (T, k) indices, any values), out row_ptr
-// (m + 1,) and src (n,) int32, and `chunk` and the int32 scratch (16-byte
-// aligned) as bloom_csr.py :: bin_plan gives them (chunk 0: the one-launch
-// path, no scratch), all contiguous on one device. Launches on `stream`
-// without synchronising; returns the CUDA error code (0 on success).
-int bloom_csr_bin(const int* vals, int n, int k, int m, int chunk,
+// vals (n,) int32 (the flat (T, k) indices, any values), binned over the
+// rows [row0, row0 + m) (row0 = 0: the whole table), out row_ptr (m + 1,)
+// and src (n,) int32, and `chunk` and the int32 scratch (16-byte aligned) as
+// bloom_csr.py :: bin_plan gives them (chunk 0: the one-launch path, no
+// scratch), all contiguous on one device. Launches on `stream` without
+// synchronising; returns the CUDA error code (0 on success).
+int bloom_csr_bin(const int* vals, int n, int k, int m, int row0, int chunk,
                   int* row_ptr, int* src, int* scratch, void* stream) {
-  return bin(vals, n, k, m, chunk, row_ptr, src, scratch, stream);
+  return bin(vals, n, k, m, row0, chunk, row_ptr, src, scratch, stream);
 }
 
 const char* bloom_csr_error_string(int err) {

@@ -18,6 +18,14 @@
 //     needs them, the same launch writes the (T, k) int32 indices that
 //     indices_for returns, which the backward (CSR or dense) reads.
 //
+// Row range (one rank's shard of a vocab-parallel embedding): the table may
+// hold only the rows [lo, lo + rows) of the full (m, D) table. The indices
+// are hashed (or read) as ever, in [0, m); an index outside the range adds
+// 0.0 and one inside reads table row index - lo. Each rank's output is then
+// its part of the sum, and the caller all-reduces the parts. lo = 0, rows =
+// m is the unranged gather-sum, bit for bit (every index lies inside). The
+// dense backward takes the same range: it sums into the shard's rows only.
+//
 // Replaces the Pallas TPU kernels src/repro/kernels/bloom_embed.py ::
 // bloom_embed_pallas (_embed_fwd -> _fwd_kernel, the table_dtype=None path)
 // and its quantized variants (_fwd_kernel_scaled via _embed_fwd_quant and
@@ -125,13 +133,13 @@ __device__ __forceinline__ float row_scale(const float* scales, int r) {
 }
 
 struct Fwd {
-  const void* table;     // (m, D) stored as S
+  const void* table;     // (rows, D) stored as S: rows [lo, lo + rows)
   const float* scales;   // (m,) f32 for int8, else null
   const void* ids;       // kIdx: (T, k) int32; else (T,) tokens
   const int* H;          // kHMat: (d, k) int32, else null
   int* idx_out;          // null, or (T, k) int32: indices_for's indices
   void* out;             // (T, D) as O
-  int T, D, k, m, d, src, tok64;
+  int T, D, k, m, d, src, tok64, lo, rows;
   bloom_hash::Spec hs;
 };
 
@@ -242,8 +250,11 @@ __global__ void __launch_bounds__(kMaxThreads) embed_fwd_scalar(const Fwd p) {
     const int r = row_j(p, t, j, tok, h1, h2);
     if (write_idx) p.idx_out[(size_t)t * p.k + j] = index_out(p, r, tok);
     if (c < p.D) {
-      const float x = load_scaled(table[(size_t)r * p.D + c],
-                                  row_scale<S>(p.scales, r));
+      const unsigned rl = (unsigned)(r - p.lo);   // the row in the shard
+      const float x = rl < (unsigned)p.rows
+                          ? load_scaled(table[(size_t)rl * p.D + c],
+                                        row_scale<S>(p.scales, (int)rl))
+                          : 0.0f;
       acc = j == 0 ? x : __fadd_rn(acc, x);
     }
   }
@@ -278,12 +289,20 @@ __global__ void __launch_bounds__(kMaxThreads) embed_fwd_vec(const Fwd p) {
   const S* table = static_cast<const S*>(p.table);
   uint4 raw[K];
   float s[K];
+  bool in[K];   // the row lies in the shard; if not it adds 0.0
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    r[j] -= p.lo;
+    in[j] = (unsigned)r[j] < (unsigned)p.rows;
+  }
 #pragma unroll
   for (int j = 0; j < K; ++j)
-    raw[j] = __ldg(reinterpret_cast<const uint4*>(table + (size_t)r[j] * p.D)
-                   + chunk);
+    raw[j] = in[j] ? __ldg(reinterpret_cast<const uint4*>(
+                               table + (size_t)r[j] * p.D) + chunk)
+                   : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-  for (int j = 0; j < K; ++j) s[j] = row_scale<S>(p.scales, r[j]);
+  for (int j = 0; j < K; ++j)
+    s[j] = in[j] ? row_scale<S>(p.scales, r[j]) : 0.0f;
   float acc[kVec];
 #pragma unroll
   for (int j = 0; j < K; ++j) {
@@ -377,7 +396,8 @@ constexpr size_t kBwdSmem = (size_t)kBwdRows * kBwdCols * sizeof(float);
 template <typename G>
 __global__ void __launch_bounds__(kBwdThreads)
     embed_bwd_dense(const G* __restrict__ g, const int* __restrict__ idx,
-                    float* __restrict__ out, int T, int D, int m, int k) {
+                    float* __restrict__ out, int T, int D, int m, int k,
+                    int lo) {
   extern __shared__ float acc[];   // (kBwdRows, kBwdCols)
   __shared__ int list[kBwdStep];
   __shared__ int warp_tot[kBwdWarps];
@@ -390,7 +410,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const long long n = (long long)T * k;
   for (long long e0 = 0; e0 < n; e0 += kBwdStep) {
     const int hits = bloom_compact::compact<kBwdPer>(
-        idx, e0, n, base, kBwdRows, list, warp_tot);
+        idx, e0, n, lo + base, kBwdRows, list, warp_tot);
     for (int q = 0; q < hits; ++q) {
       const int p = list[q];
       const G* gt = g + (size_t)((e0 + (p >> bloom_compact::kOffBits)) / k) *
@@ -416,7 +436,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 
 template <typename G>
 int launch_bwd(const G* g, const int* idx, float* out, int T, int D, int m,
-               int k, cudaStream_t s) {
+               int k, int lo, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       embed_bwd_dense<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kBwdSmem);
@@ -424,7 +444,7 @@ int launch_bwd(const G* g, const int* idx, float* out, int T, int D, int m,
   const dim3 grid((m + kBwdRows - 1) / kBwdRows,
                   (D + kBwdCols - 1) / kBwdCols);
   embed_bwd_dense<G><<<grid, kBwdThreads, kBwdSmem, s>>>(g, idx, out, T, D,
-                                                          m, k);
+                                                          m, k, lo);
   return (int)cudaGetLastError();
 }
 
@@ -433,26 +453,28 @@ int launch_bwd(const G* g, const int* idx, float* out, int T, int D, int m,
 extern "C" {
 
 // The dense backward: g (T, D) as `g_dtype` (kF32 or kBF16), idx (T, k)
-// int32 (entries outside [0, m), such as -1 pads, never match), out (m, D)
-// f32, all contiguous on one device. Launches on `stream` without
-// synchronising; returns the CUDA error code of the launch (0 on success).
+// int32 (entries outside [lo, lo + m), such as -1 pads, never match), out
+// (m, D) f32 for the rows [lo, lo + m) (lo = 0: the whole table), all
+// contiguous on one device. Launches on `stream` without synchronising;
+// returns the CUDA error code of the launch (0 on success).
 int bloom_embed_bwd_dense(const void* g, int g_dtype, const int* idx,
-                          float* out, int T, int D, int m, int k,
+                          float* out, int T, int D, int m, int k, int lo,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_dtype == kF32)
     return launch_bwd<float>(static_cast<const float*>(g), idx, out, T, D, m,
-                             k, s);
+                             k, lo, s);
   if (g_dtype == kBF16)
     return launch_bwd<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(g),
-                                     idx, out, T, D, m, k, s);
+                                     idx, out, T, D, m, k, lo, s);
   return (int)cudaErrorInvalidValue;
 }
 
 
-// The forward: table (m, D) stored as `table_dtype` (a Dtype code),
-// scales (m,) f32 for int8 and null otherwise, out (T, D) as `out_dtype`
-// (kF32 or kBF16), all contiguous on one device. `src` says what `ids` is:
+// The forward: table (rows, D) stored as `table_dtype` (a Dtype code), the
+// rows [lo, lo + rows) of the full (m, D) table (lo = 0, rows = m: all of
+// it), scales (rows,) f32 for int8 and null otherwise, out (T, D) as
+// `out_dtype` (kF32 or kBF16), all contiguous on one device. `src` says what `ids` is:
 // kIdx, (T, k) int32 indices in [0, m); otherwise (T,) token ids, int64 if
 // `tok64` else int32, hashed with the salts c1, c2 and the remainder
 // constants (mp, sh) of m and max(m - 1, 1) (kHash), looked up in H (d, k)
@@ -462,14 +484,15 @@ int bloom_embed_bwd_dense(const void* g, int g_dtype, const int* idx,
 // synchronising; returns the CUDA error code of the launch (0 on success).
 int bloom_embed_fwd(const void* table, const float* scales, const void* ids,
                     int tok64, int src, const int* H, int* idx_out,
-                    void* out, int T, int D, int k, int m, int d,
-                    unsigned c1, unsigned c2, unsigned mp_m, unsigned sh_m,
-                    unsigned mp_m1, unsigned sh_m1, int table_dtype,
+                    void* out, int T, int D, int k, int m, int d, int lo,
+                    int rows, unsigned c1, unsigned c2, unsigned mp_m,
+                    unsigned sh_m, unsigned mp_m1, unsigned sh_m1,
+                    int table_dtype,
                     int out_dtype, int n_sm, void* stream) {
   if (src < kIdx || src > kIdent || k < 1 || (src == kIdent && k != 1) ||
       (src == kHMat) != (H != nullptr) ||
       (src == kIdx && idx_out != nullptr) ||
-      (table_dtype == kI8) != (scales != nullptr))
+      (table_dtype == kI8) != (scales != nullptr) || lo < 0 || rows < 0)
     return (int)cudaErrorInvalidValue;
   Fwd p;
   p.table = table;
@@ -485,6 +508,8 @@ int bloom_embed_fwd(const void* table, const float* scales, const void* ids,
   p.d = d;
   p.src = src;
   p.tok64 = tok64;
+  p.lo = lo;
+  p.rows = rows;
   p.hs = bloom_hash::Spec{c1, c2, (unsigned)m, mp_m, sh_m, mp_m1, sh_m1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (table_dtype) {

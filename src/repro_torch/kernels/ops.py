@@ -22,6 +22,11 @@ built once per (spec, device) too (``core.bloom.cached_decode_bins``), and
 only when the decode is differentiated; so is the 16-bit copy of the
 matrix that the Eq. 3 decode kernel reads
 (``core.bloom.cached_packed_hash_matrix``).
+
+The vocab-parallel pair of a tensor-parallel step: ``bloom_embed`` with
+``lo`` (one rank's rows of the table) and ``bloom_ce_sharded`` (one
+rank's columns of the logits), over the kernels' row ranges; the caller
+passes the collectives that combine the ranks (this layer imports none).
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ from repro_torch.core.bloom import (BloomSpec, cached_decode_bins,
                                     cached_hash_matrix,
                                     cached_packed_hash_matrix,
                                     cached_quantized_table)
+from repro_torch.kernels import bloom_ce as ce_lib
+from repro_torch.kernels import common
 from repro_torch.kernels.bloom_ce import bloom_ce as _ce
 from repro_torch.kernels.bloom_decode import bloom_decode as _decode
 from repro_torch.kernels.bloom_decode_topk import \
@@ -46,7 +53,8 @@ from repro_torch.kernels.bloom_embed import bloom_embed_tokens_fwd_quantized
 def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
                 spec: BloomSpec, bwd_impl: str = "csr",
                 table_dtype: Optional[str] = None,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                lo: Optional[int] = None) -> torch.Tensor:
     """table (m, D); tokens (B, S) -> (B, S, D): each token's k hashed
     table rows summed (Eq. 1's k-hot code times the table).  On CUDA
     tensors one launch of the embed kernel's token entry, which hashes the
@@ -62,7 +70,12 @@ def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
     ``table``; otherwise (serving) the quantized table comes from
     ``core.bloom.cached_quantized_table`` and the forward-only kernel runs
     on it, with ``out_dtype`` defaulting to float32 there, as in the
-    reference."""
+    reference.
+
+    ``lo``: ``table`` holds the rows [lo, lo + rows) of the spec's m
+    (one rank's shard, read as it is): the output is this shard's part
+    of the sum (the embed kernel's row range, ``bloom_embed.hash.range``
+    and its kin), its gradient the shard's rows."""
     B, S = tokens.shape
     flat = tokens.reshape(-1).contiguous()
     td = quant.resolve_table_dtype(table_dtype)
@@ -74,7 +87,7 @@ def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
             torch.float32 if out_dtype is None else out_dtype)
     else:
         out = _embed(table, flat, table_dtype=td, out_dtype=out_dtype,
-                     bwd_impl=bwd_impl, spec=spec)
+                     bwd_impl=bwd_impl, spec=spec, lo=lo)
     return out.reshape(B, S, -1)
 
 
@@ -87,6 +100,53 @@ def bloom_ce(logits: torch.Tensor, labels: torch.Tensor,
     z = logits.reshape(-1, logits.shape[-1]).contiguous()
     h = spec.indices_for(labels.reshape(-1).clamp_min(0)).contiguous()
     return _ce(z, h).reshape(shape)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The loss (T,) of one rank's columns z (T, m_local) of the logits;
+    the backward's dz is exact on the shard."""
+
+    @staticmethod
+    def forward(ctx, z, h, lo, gather, reduce):
+        if common.resolve_impl(z, h) == "kernel":
+            lse_local, hits = ce_lib.bloom_ce_shard_cuda(z, h, lo)
+        else:
+            lse_local, hits = ce_lib.bloom_ce_shard_plain(z, h, lo)
+        lse = torch.logsumexp(torch.stack(gather(lse_local)), dim=0)
+        ctx.save_for_backward(z, h, lse)
+        ctx.lo = lo
+        return lse - reduce(hits) / h.shape[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        z, h, lse = ctx.saved_tensors
+        g = g.float().contiguous()
+        if common.resolve_impl(z, h) == "kernel":
+            dz = ce_lib.bloom_ce_bwd_cuda(g, z, h, lse, ctx.lo)
+        else:
+            dz = ce_lib.bloom_ce_bwd_plain(g, z, h, lse, ctx.lo)
+        return dz.to(z.dtype), None, None, None, None
+
+
+def bloom_ce_sharded(logits: torch.Tensor, labels: torch.Tensor,
+                     spec: Optional[BloomSpec], lo: int, gather,
+                     reduce) -> torch.Tensor:
+    """The vocab-parallel Bloom CE: logits (..., m_local) f32, this rank's
+    columns [lo, lo + m_local) of the m-dim logits; labels (...,) ->
+    per-position loss (...,) f32, the same on every rank, differentiable
+    in ``logits``.  ``gather(t)`` returns every rank's ``t`` along the
+    model axis, ``reduce(t)`` their sum.  Each rank runs the ranged CE
+    forward (its local lse and the sum of its picked logits); the global
+    lse is the logsumexp of the gathered local ones, the hit sum is
+    reduced, and loss = lse - hits / k; the ranged backward takes the
+    global lse.  ``spec`` None (a dense vocab) is the CE of k = 1 on the
+    label itself."""
+    shape = labels.shape
+    z = logits.reshape(-1, logits.shape[-1]).contiguous()
+    flat = labels.reshape(-1).clamp_min(0)
+    h = (flat[:, None].to(torch.int32) if spec is None
+         else spec.indices_for(flat)).contiguous()
+    return _VocabParallelCE.apply(z, h, lo, gather, reduce).reshape(shape)
 
 
 def bloom_decode(logp: torch.Tensor, spec: BloomSpec,

@@ -1,42 +1,73 @@
-"""Serving meshes: the data-axis layout of the sharded slot pool.
+"""Meshes: the data-axis layout of the sharded slot pool on one device, and
+the (data, model) meshes of a world of ranks over ``torch.distributed``.
 
 The JAX package's meshes are ``jax.make_mesh`` over real devices; with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` one CPU process
-simulates N hosts, one per ``data`` shard.  The port keeps that single-
-process design and puts every host shard on ONE device: a ``Mesh`` here
-names the axes, their sizes and that device.  ``data`` counts simulated
-hosts, each owning a contiguous slot range of the pool on the mesh's
-device (``launch/sharding.slot_pool_pspecs``).
+simulates N hosts, one per ``data`` shard.  The port has two kinds:
 
-Placing shards on several cards, a ``model`` axis of more than one
-(kv heads split over cards) and the production mesh wait for ROADMAP
-A13b; the functions below raise for them.
+* on ONE device (no world): a ``Mesh`` names the axes, their sizes and
+  that device.  ``data`` counts simulated hosts, each owning a contiguous
+  slot range of the serving pool on the mesh's device
+  (``launch/sharding.slot_pool_pspecs``); ``model`` is 1.
+* over a WORLD of ranks (``torch.distributed`` initialised, one process
+  a rank): the mesh also holds this rank's place, ``rank`` and its
+  ``coords`` (row-major over the axes, as ``jax.make_mesh`` orders its
+  devices), and one process group per axis over the ranks that share
+  every other coordinate, plus ``batch``, the group over all batch axes
+  (the axes but ``model``).  Each rank holds its local shard of every
+  leaf (``launch/sharding``) and the step calls the collectives through
+  the mesh's ``transport`` (``launch/collectives``).
+
+``make_production_mesh`` is the reference's 16x16 (2x16x16 multi-pod)
+mesh over a world of 256 (512) ranks: in the tests that world is the
+``fake`` process-group backend.  A ``model`` axis of more than one needs
+a world of that many ranks and raises, with the reason, without one.
+The sharded serving pool takes one-device meshes only
+(``make_serving_mesh``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.configs.base import MeshConfig
 from repro_torch.kernels.common import resolve_device
-
-A13B = ("needs shards on several cards, which waits for ROADMAP A13b "
-        "(placement rules, NCCL transport)")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Named axes over one device: ``shape[name]`` shards of the pool each
-    (``data``: simulated hosts; ``model``: 1)."""
+    """Named axes: on one device (``groups`` None), or over a world of
+    ranks, this one being ``rank`` (``groups``: axis name or "batch" ->
+    process group; ``transport``: launch/collectives.Transport)."""
 
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
     device: torch.device
+    rank: int = 0
+    groups: Optional[Dict[str, object]] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    transport: Optional[object] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's coordinate on each axis (all 0 on one device)."""
+        return dict(zip(self.axis_names,
+                        (int(c) for c in np.unravel_index(self.rank,
+                                                          self.sizes))))
+
+    @property
+    def distributed(self) -> bool:
+        return self.groups is not None
 
 
 def _device_count(device: torch.device) -> int:
@@ -51,24 +82,86 @@ def _mesh(shape, axes, device: torch.device) -> Mesh:
     return Mesh(tuple(axes), tuple(int(s) for s in shape), device)
 
 
-def _refuse_model_parallel(model_parallel: int) -> None:
-    if model_parallel != 1:
+def _world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _needs_world(model_parallel: int, what: str) -> None:
+    """Raise, with the reason, unless a world of ``model_parallel`` ranks
+    or more exists."""
+    if model_parallel > _world_size():
         raise NotImplementedError(
-            f"model_parallel={model_parallel}: splitting kv heads over a "
-            f"`model` axis {A13B}; one card serves model_parallel=1")
+            f"{what}: a `model` axis of {model_parallel} shards each leaf "
+            f"over {model_parallel} ranks, and the world has "
+            f"{_world_size()} (ROADMAP A13b: launch/train.py --mesh DxM "
+            "starts a world)")
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The 16x16 (or 2x16x16) production mesh: not on one card."""
-    raise NotImplementedError(f"the production mesh {A13B}")
+def world_mesh(shape, axes=("data", "model"), device=None,
+               transport=None) -> Mesh:
+    """The mesh ``shape`` over the initialised world (its size must be
+    prod(shape)), with a process group per axis and ``batch`` for the
+    batch axes.  Every rank must call it, in the same order as its other
+    group creations (``dist.new_group`` is collective)."""
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {shape} mesh over ranks needs an "
+                           "initialised torch.distributed world")
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if math.prod(shape) != world or len(shape) != len(axes):
+        raise ValueError(f"mesh {shape} over axes {axes} needs a world of "
+                         f"{math.prod(shape)} ranks, have {world}")
+    ranks = np.arange(world).reshape(shape)
+
+    def groups_over(dims):
+        """The group of ``rank`` among those along ``dims`` (all rows
+        created, as every rank must)."""
+        rest = [d for d in range(len(shape)) if d not in dims]
+        rows = ranks.transpose(*rest, *dims).reshape(
+            -1, math.prod(shape[d] for d in dims))
+        mine = None
+        for row in rows:
+            g = dist.new_group([int(r) for r in row])
+            if rank in row:
+                mine = g
+        return mine
+
+    groups = {a: groups_over([i]) for i, a in enumerate(axes)}
+    batch = [i for i, a in enumerate(axes) if a != "model"]
+    groups["batch"] = (None if not batch else groups[axes[batch[0]]]
+                       if len(batch) == 1 else groups_over(batch))
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return Mesh(axes, shape, device, rank, groups, transport)
 
 
-def make_local_mesh(axes=("data", "model"), device=None) -> Mesh:
-    """Whatever devices of the chosen kind exist, as a (1, ..., n) mesh
-    (the reference's mesh for tests and CPU entry points)."""
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         transport=None) -> Mesh:
+    """16x16 single pod (256 ranks) or 2x16x16 two pods (512 ranks), over
+    the initialised world of that size (``MeshConfig``)."""
+    mc = MeshConfig(multi_pod=multi_pod)
+    if _world_size() != math.prod(mc.shape):
+        raise NotImplementedError(
+            f"the production mesh {mc.shape} needs a world of "
+            f"{math.prod(mc.shape)} ranks (ROADMAP A13b), and the world "
+            f"has {_world_size()}")
+    return world_mesh(mc.shape, mc.axes, device, transport)
+
+
+def make_local_mesh(axes=("data", "model"), device=None,
+                    transport=None) -> Mesh:
+    """Whatever ranks exist, as a (1, ..., n) mesh (the reference's mesh
+    for tests and CPU entry points): the world's ranks when one is
+    initialised, else the devices of the chosen kind (a model axis of
+    more than one then raises: it needs a world)."""
+    if dist.is_initialized():
+        n = _world_size()
+        return world_mesh((1,) * (len(axes) - 1) + (n,), axes, device,
+                          transport)
     device = resolve_device(device)
     n = _device_count(device)
-    _refuse_model_parallel(n if len(axes) > 1 else 1)
+    _needs_world(n if len(axes) > 1 else 1, "make_local_mesh")
     return _mesh((1,) * (len(axes) - 1) + (n,), axes, device)
 
 
@@ -77,19 +170,35 @@ def make_serving_mesh(n_hosts: Optional[int] = None,
     """Serving-pool mesh: one ``data`` shard per simulated host, ``model``
     fixed at ``model_parallel``.  ``n_hosts`` defaults to the device
     count of the chosen kind (as the reference's defaults to
-    ``jax.device_count()``); every host shard lives on ``device``."""
+    ``jax.device_count()``); every host shard lives on ``device``.  The
+    pool serves ``model_parallel`` 1: its kv heads split over ranks wait
+    for ROADMAP A13b (decode under a model axis)."""
     device = resolve_device(device)
-    _refuse_model_parallel(model_parallel)
+    if model_parallel != 1:
+        raise NotImplementedError(
+            f"model_parallel={model_parallel}: the sharded slot pool "
+            "serves model_parallel=1 (decode under a `model` axis waits "
+            "for ROADMAP A13b)")
     if n_hosts is None:
-        n_hosts = _device_count(device) // model_parallel
-    return _mesh((n_hosts, model_parallel), ("data", "model"), device)
+        n_hosts = _device_count(device)
+    return _mesh((n_hosts, 1), ("data", "model"), device)
 
 
 def make_elastic_mesh(n_devices: int, axes=("data", "model"),
-                      model_parallel: int = 1, device=None) -> Mesh:
+                      model_parallel: int = 1, device=None,
+                      transport=None) -> Mesh:
     """Rebuild a mesh after a world-size change (a host lost or added):
-    ``model_parallel`` stays fixed and the rest goes to ``data``."""
+    ``model_parallel`` stays fixed and the rest goes to ``data``.  Over
+    the world when it has ``n_devices`` ranks; else on one device, which
+    takes ``model_parallel`` 1 only."""
     assert n_devices % model_parallel == 0
-    _refuse_model_parallel(model_parallel)
-    return _mesh((n_devices // model_parallel, model_parallel), axes[-2:],
-                 resolve_device(device))
+    shape = (n_devices // model_parallel, model_parallel)
+    if dist.is_initialized() and _world_size() == n_devices:
+        return world_mesh(shape, axes[-2:], device, transport)
+    _needs_world(model_parallel, "make_elastic_mesh")
+    if model_parallel != 1:
+        raise NotImplementedError(
+            f"make_elastic_mesh: {n_devices} devices with model_parallel="
+            f"{model_parallel} need a world of {n_devices} ranks (ROADMAP "
+            f"A13b), the world has {_world_size()}")
+    return _mesh(shape, axes[-2:], resolve_device(device))

@@ -22,6 +22,20 @@ rows of one data shard of a sharded pool (serving/sharded_pool.py).
 (``models/transformer.py``, the ``vlm`` family's frontend among it).
 Prefill takes the frontend's ``embeds`` (the ``vlm`` image embeddings
 or the ``audio`` frames); decode takes tokens alone.
+
+Under a mesh (``dist``, launch/sharding.DistContext over a world of
+ranks, the model holding each rank's local shards): ``loss_fn_for``,
+``value_and_grad``, ``make_train_step`` and ``make_prefill_step`` take
+the context.  The train step takes the GLOBAL batch and keeps this
+rank's rows (``sharding.local_batch``: split over the batch axes, which
+must divide it), runs the model tensor-parallel over ``model`` (the
+dense and MoE families; any family with a model axis of 1), averages the
+gradients over the batch axes (``collectives.data_mean``; with
+``grad_compression="bf16"`` rounded to bf16 before the all-reduce), then
+clips by the global norm over the shards (a model-sharded leaf's squares
+summed over ``model``, a replicated one counted once) and updates each
+rank's shards, the moments mirroring them.  Decode under a model axis
+waits for ROADMAP A13b (``cache_pspecs``' k/v heads and sequence split).
 """
 from __future__ import annotations
 
@@ -31,19 +45,35 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core import bloom as bloom_lib
+from repro_torch.launch import collectives
+from repro_torch.launch import sharding
+from repro_torch.optim import optimizers as opt_lib
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import io as io_lib
 from repro_torch.models import transformer as tf
 from repro_torch.train import trainer as trainer_lib
 
 
-def loss_fn_for(cfg: ModelConfig):
+def loss_fn_for(cfg: ModelConfig, dist=None):
     """(model, batch) -> (loss, metrics): the family's objective
     (``encdec.encdec_loss_fn`` for ``audio``, else
-    ``transformer.lm_loss_fn``)."""
+    ``transformer.lm_loss_fn``; under ``dist``, the model's forward with
+    it, on this rank's batch rows)."""
+    if dist is not None:
+        return lambda model, batch: model(batch, dist)
     base = (encdec_lib.encdec_loss_fn if cfg.family == "audio"
             else tf.lm_loss_fn)
     return lambda model, batch: base(model, cfg, batch)
+
+
+def check_parallel(cfg: ModelConfig, dist) -> None:
+    """Raise for what the parallel step does not run yet: a model axis of
+    more than one for the mamba, hybrid, audio and vlm families."""
+    if tf.tensor_parallel(dist) and cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism for the {cfg.family} family "
+            "waits for the next slice of ROADMAP A13b; a model axis of 1 "
+            "(data parallel) runs it")
 
 
 def apply_fn_for(cfg: ModelConfig):
@@ -77,34 +107,63 @@ def cast_params_for_compute(model: torch.nn.Module, cfg: ModelConfig):
     return model
 
 
-def value_and_grad(model: torch.nn.Module, cfg: ModelConfig, batch):
+def value_and_grad(model: torch.nn.Module, cfg: ModelConfig, batch,
+                   dist=None):
     """(loss, metrics, grads) of the model's objective (its ``forward``:
     ``lm_loss_fn`` or ``encdec_loss_fn``) on ``batch`` at the
     model's f32 master params, with the reference's compute cast taken
     inside, differentiably: each cast param is a ``.to(dtype)`` of its
     master, so its gradient flows back in f32.  ``grads`` maps each param
-    name to a tensor in the master's dtype."""
+    name to a tensor in the master's dtype.  Under ``dist`` the params
+    are this rank's shards, ``batch`` its rows, and the loss and grads
+    this rank's (not yet averaged over the batch axes)."""
     dt = getattr(torch, cfg.dtype)
     params = dict(model.named_parameters())
     compute = {n: p.to(dt) if tf.compute_cast(n, p) else p
                for n, p in params.items()}
-    loss, metrics = torch.func.functional_call(model, compute, (batch,))
+    loss, metrics = torch.func.functional_call(model, compute, (batch,),
+                                               {"dist": dist})
     grads = torch.autograd.grad(loss, list(params.values()))
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             dict(zip(params, grads)))
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, dist=None):
     """(step, optimizer): ``step(model, opt_state, batch) -> (opt_state,
     metrics)`` takes the loss and gradients (``value_and_grad``), runs the
     optimizer and writes ``(p + u).to(p.dtype)`` into the model's master
     params in place (the reference returns new params; updating in place
     keeps one f32 copy on the device).  ``tc.microbatch`` is not read,
-    as in the reference's LM step."""
-    optimizer = trainer_lib.make_optimizer(tc)
+    as in the reference's LM step.
+
+    Under ``dist`` (the module's docstring) ``batch`` is the global batch
+    and the model and optimizer state hold this rank's shards; the
+    metrics are averaged over the batch axes, the same on every rank."""
+    split = {}    # the model-sharded param names, from the first step
+    if dist is None:
+        optimizer = trainer_lib.make_optimizer(tc)
+    else:
+        optimizer = trainer_lib.make_optimizer(
+            tc, norm_fn=lambda g: opt_lib.global_norm(
+                g, split["names"],
+                lambda t: collectives.all_reduce_sum(t, dist)))
 
     def step(model, opt_state, batch):
-        loss, metrics, grads = value_and_grad(model, cfg, batch)
+        if dist is not None:
+            check_parallel(cfg, dist)
+            B = next(iter(batch.values())).shape[0]
+            if B % dist.n_batch:
+                raise ValueError(f"the global batch {B} must divide the "
+                                 f"batch axes ({dist.n_batch} shards)")
+            batch = sharding.local_batch(batch, dist)
+            if "names" not in split:
+                split["names"] = (sharding.model_sharded(
+                    sharding.param_pspecs(cfg, model, dist))
+                    if dist.n_model > 1 else set())
+        loss, metrics, grads = value_and_grad(model, cfg, batch, dist)
+        if dist is not None:
+            grads = collectives.data_mean(grads, dist, tc.grad_compression)
+            loss, metrics = _batch_mean((loss, metrics), dist)
         opt_state = trainer_lib.apply_gradients(
             dict(model.named_parameters()), grads, optimizer, opt_state)
         return opt_state, {"loss": loss, **metrics}
@@ -112,23 +171,56 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     return step, optimizer
 
 
-def make_prefill_step(cfg: ModelConfig):
+def _batch_mean(tree, dist):
+    """Every scalar of a (loss, metrics) pair averaged over the batch
+    axes."""
+    if dist.n_batch == 1:
+        return tree
+    loss, metrics = tree
+    vals = torch.stack([loss.float(), *(v.float() for v in metrics.values())])
+    vals = collectives.all_reduce_sum(vals, dist, "batch") / dist.n_batch
+    return vals[0], dict(zip(metrics, vals[1:]))
+
+
+def make_prefill_step(cfg: ModelConfig, dist=None):
     """(model, tokens (B, S), embeds (B, S_emb, D) or None) ->
     {last_logits (B, m_vocab), caches}: the inference prefill, with the
     frontend's embeddings (``vlm``: ahead of the tokens; ``audio``: the
-    encoder's frames)."""
+    encoder's frames).
+
+    Under ``dist`` (the dense and MoE families with a model axis; any
+    family without) the inputs are global and this rank takes its batch
+    rows (``sharding.local_batch``; replicated when they do not divide
+    the batch axes); ``last_logits`` are this rank's rows, whole over m
+    (a sharded vocab's columns all-gathered over ``model``), the caches
+    its shards (``cache_pspecs``: its rows and kv heads), and ``aux`` the
+    MoE layers' load-balance loss."""
     apply_fn = apply_fn_for(cfg)
 
     @torch.inference_mode()
     def step(model, tokens, embeds=None):
-        out = apply_fn(model, cfg, tokens, mode="prefill", embeds=embeds)
-        return {"last_logits": out["logits"][:, -1],
-                "caches": out["caches"]}
+        kw = {}
+        if dist is not None:
+            check_parallel(cfg, dist)
+            inputs = sharding.local_batch(
+                {"tokens": tokens} if embeds is None
+                else {"tokens": tokens, "embeds": embeds}, dist)
+            tokens, embeds = inputs["tokens"], inputs.get("embeds")
+            if cfg.family != "audio":
+                kw["dist"] = dist
+        out = apply_fn(model, cfg, tokens, mode="prefill", embeds=embeds,
+                       **kw)
+        last = out["logits"][:, -1]
+        if dist is not None and io_lib.vocab_lo(last.shape[-1], cfg,
+                                                dist) is not None:
+            last = torch.cat(collectives.all_gather(last, dist), dim=-1)
+        return {"last_logits": last, "caches": out["caches"],
+                "aux": out["aux"]}
 
     return step
 
 
-def make_decode_step(cfg: ModelConfig, topk: int, device):
+def make_decode_step(cfg: ModelConfig, topk: int, device, dist=None):
     """Whole-batch decode step on ``device`` (the static path).
 
     (model, token (B, 1), caches, pos int) ->
@@ -136,8 +228,15 @@ def make_decode_step(cfg: ModelConfig, topk: int, device):
 
     The slot step (``make_slot_decode_step``) with every row at the one
     sequence offset ``pos`` and no ``active`` mask, so the Eq. 3 recovery
-    takes the decode-top-k kernel's dense grid on CUDA.
+    takes the decode-top-k kernel's dense grid on CUDA.  ``dist`` with a
+    model axis of more than one raises: decode over sharded caches
+    (``cache_pspecs``' k/v heads and sequence split) waits for the next
+    slice of ROADMAP A13b.
     """
+    if tf.tensor_parallel(dist):
+        raise NotImplementedError(
+            "decode under a model axis (cache_pspecs' k/v heads and "
+            "sequence split) waits for the next slice of ROADMAP A13b")
     slot_step = make_slot_decode_step(cfg, topk, device)
 
     def step(model, token, caches, pos):

@@ -16,6 +16,18 @@ keep the reference's layout: ``wq`` (D, H, hd), ``wk`` / ``wv``
 norm gains (hd,).  The reference's flash-style chunking and its
 sharded-cache decode are not ported: they serve memory limits of long
 sequences and models this path does not run.
+
+Tensor parallel (a mesh's ``model`` axis of more than one, train and
+prefill): the layer holds its rank's heads, as the reference's specs
+place them: ``wq`` (D, H/n, hd), ``wo`` (H/n, hd, D), ``bq`` (H/n, hd),
+and ``wk`` / ``wv`` / ``bk`` / ``bv`` over KV/n heads when ``num_kv_heads``
+divides the axis, else whole (GQA kv replication).  The layer's input
+enters through ``copy_to_model`` (its gradient summed over the axis),
+every replicated weight used by the rank's heads alone (the q/k norm
+gains, replicated k/v projections) too, each rank attends with its own
+heads (with replicated k/v, the kv heads its q heads read), and the
+output projection's parts are summed (``reduce_from_model``).  A layer
+whose heads do not divide the axis holds every head and runs whole.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import collectives
 from repro_torch.models import layers
 
 
@@ -55,40 +68,59 @@ class Attention(nn.Module):
             self.k_norm = nn.Parameter(torch.ones(hd))
 
 
+def _tp(p: Attention, cfg: ModelConfig, dist):
+    """``dist`` when this layer holds only its rank's heads, else None."""
+    if dist is None or dist.n_model == 1 or p.wq.shape[1] == cfg.num_heads:
+        return None
+    return dist
+
+
+def _rep(w: torch.Tensor, tp) -> torch.Tensor:
+    """A replicated weight used by the rank's heads alone: its gradient
+    is summed over the model axis."""
+    return w if tp is None else collectives.copy_to_model(w, tp)
+
+
 def _project_q(p: Attention, cfg: ModelConfig,
-               x: torch.Tensor) -> torch.Tensor:
+               x: torch.Tensor, tp=None) -> torch.Tensor:
     """x (B, S, D) -> q (B, S, H, hd): biased, RMS-normed per head
-    (``qk_norm``); no RoPE."""
+    (``qk_norm``); no RoPE.  H is the rank's heads under ``tp``."""
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
     if cfg.qkv_bias:
         q = q + p.bq.to(x.dtype)
     if cfg.qk_norm:
-        q = layers.rms_norm(p.q_norm, q, cfg.norm_eps)
+        q = layers.rms_norm(_rep(p.q_norm, tp), q, cfg.norm_eps)
     return q
 
 
-def project_kv(p: Attention, cfg: ModelConfig, x: torch.Tensor):
+def project_kv(p: Attention, cfg: ModelConfig, x: torch.Tensor, tp=None):
     """x (B, T, D) -> k and v (B, T, KV, hd): biased, k RMS-normed per
     head (``qk_norm``); no RoPE (the cross attention's keys and values
-    as the decode cache holds them)."""
+    as the decode cache holds them).  KV is the rank's kv heads under
+    ``tp`` when they are split, else all of them."""
     dt = x.dtype
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(dt))
+    kv_rep = tp is not None and p.wk.shape[1] == cfg.num_kv_heads
+
+    def w(t):
+        return _rep(t, tp) if kv_rep else t
+
+    k = torch.einsum("bsd,dhk->bshk", x, w(p.wk).to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, w(p.wv).to(dt))
     if cfg.qkv_bias:
-        k = k + p.bk.to(dt)
-        v = v + p.bv.to(dt)
+        k = k + w(p.bk).to(dt)
+        v = v + w(p.bv).to(dt)
     if cfg.qk_norm:
-        k = layers.rms_norm(p.k_norm, k, cfg.norm_eps)
+        k = layers.rms_norm(_rep(p.k_norm, tp), k, cfg.norm_eps)
     return k, v
 
 
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, tp=None):
     """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, KV, hd): biased,
     q and k RMS-normed per head (``qk_norm``), then RoPE'd, in the
     reference's order."""
-    q = _project_q(p, cfg, x)
-    k, v = project_kv(p, cfg, x)
+    q = _project_q(p, cfg, x, tp)
+    k, v = project_kv(p, cfg, x, tp)
     if cfg.use_rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
@@ -113,32 +145,54 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(w, vh).transpose(1, 2)
 
 
-def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(o.dtype))
+def _local_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, tp,
+              n_heads: int):
+    """The kv heads the rank's ``n_heads`` q heads read: with replicated
+    kv heads under ``tp``, global q head h reads kv head h // (H / KV);
+    otherwise k and v as they are."""
+    if tp is None or k.shape[2] != cfg.num_kv_heads:
+        return k, v
+    group = cfg.num_heads // cfg.num_kv_heads
+    heads = tp.model_index * n_heads + torch.arange(n_heads, device=k.device)
+    idx = heads // group
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _out(p: Attention, o: torch.Tensor, tp=None) -> torch.Tensor:
+    y = torch.einsum("bshk,hkd->bsd", o, p.wo.to(o.dtype))
+    return y if tp is None else collectives.reduce_from_model(y, tp)
 
 
 def self_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor,
-                   causal: bool = True) -> torch.Tensor:
+                   causal: bool = True, dist=None) -> torch.Tensor:
     """Train: self-attention over x (B, S, D) at ``positions`` (B, S),
     causal unless ``causal=False`` (the encoder), no cache kept; returns
-    (B, S, D)."""
+    (B, S, D).  ``dist``: tensor-parallel over the mesh's model axis
+    (causal only)."""
     if causal:
-        return self_attention_with_cache(p, cfg, x, positions)[0]
+        return self_attention_with_cache(p, cfg, x, positions, dist)[0]
     q, k, v = _project_qkv(p, cfg, x, positions)
     return _out(p, _attend(q, k, v, None))
 
 
 def self_attention_with_cache(p: Attention, cfg: ModelConfig,
-                              x: torch.Tensor, positions: torch.Tensor
+                              x: torch.Tensor, positions: torch.Tensor,
+                              dist=None
                               ) -> tuple[torch.Tensor,
                                          Dict[str, torch.Tensor]]:
     """Prefill: causal self-attention over x (B, S, D) at ``positions``
     (B, S), which also returns the layer's compact KV cache
-    {"k", "v"} (B, S, KV, hd) in x's dtype."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    {"k", "v"} (B, S, KV, hd) in x's dtype.  ``dist``: tensor-parallel
+    over the mesh's model axis (the module's docstring); the cache then
+    holds the rank's kv heads, or all of them where they replicate."""
+    tp = _tp(p, cfg, dist)
+    if tp is not None:
+        x = collectives.copy_to_model(x, tp)
+    q, k, v = _project_qkv(p, cfg, x, positions, tp)
     causal = positions[:, :, None] >= positions[:, None, :]
-    return _out(p, _attend(q, k, v, causal)), {"k": k, "v": v}
+    ka, va = _local_kv(k, v, cfg, tp, q.shape[2])
+    return _out(p, _attend(q, ka, va, causal), tp), {"k": k, "v": v}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

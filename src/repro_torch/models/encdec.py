@@ -34,7 +34,6 @@ from __future__ import annotations
 
 from typing import Dict, List, Mapping, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -115,8 +114,14 @@ class EncDec(nn.Module):
             done(f"decoder.{i}", self.decoder[i])
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model))
 
-    def forward(self, batch: Mapping[str, torch.Tensor]):
-        """(loss, {"ce", "aux"}) of ``batch`` (see ``encdec_loss_fn``)."""
+    def forward(self, batch: Mapping[str, torch.Tensor], dist=None):
+        """(loss, {"ce", "aux"}) of ``batch`` (see ``encdec_loss_fn``).
+        ``dist`` may split the batch (its mean is the shards' mean, equal
+        shards); a model axis waits for ROADMAP A13b."""
+        if tf.tensor_parallel(dist):
+            raise NotImplementedError(
+                f"{self.cfg.name}: the audio family under a model axis "
+                "waits for ROADMAP A13b")
         return encdec_loss_fn(self, self.cfg, batch)
 
 
@@ -233,14 +238,6 @@ def encdec_params_from_jax(tree: Mapping, cfg: ModelConfig
     """The JAX package's ``encdec_init`` tree (numpy arrays) as this
     module's state dict.  The reference stacks its ``encoder`` and
     ``decoder`` blocks under a leading layer axis: block i is entry i
-    (``transformer.put_stacked``).  The weight layouts are the same on
-    both sides; a norm's {"scale"} dict is the port's one gain param,
-    ``frontend_proj`` {"w"} its (D, D) param."""
-    sd = tf.io_params_from_jax(tree)
-    sd["enc_norm"] = torch.from_numpy(
-        np.array(tree["enc_norm"]["scale"], dtype=np.float32))
-    for stack, n in (("encoder", cfg.encoder_layers),
-                     ("decoder", cfg.num_layers)):
-        for i in range(n):
-            tf.put_stacked(sd, f"{stack}.{i}", tree[stack], i)
-    return sd
+    (``transformer.reference_path``, by which ``params_from_jax``
+    reads each param)."""
+    return tf.params_from_jax(tree, cfg, EncDec)

@@ -13,6 +13,17 @@ knob: the path follows the tensors' device, and every path reads the
 quantized tables through the kernels' own storage model (``table_dtype``,
 core/quant.py), so the reference's XLA-path ``_fake_quant_rows`` has no
 counterpart here.
+
+Vocab-parallel under a mesh's ``model`` axis of n > 1 (when n divides
+m_vocab): each rank holds m_vocab / n rows of the embedding table (and
+columns of an untied head), the rows [lo, lo + m_vocab / n).
+``embed_tokens`` sums on each rank only the hashed rows it owns (the
+embed kernel's row range) and all-reduces the parts; the head gives each
+rank its columns of the logits (the input's gradient summed over the
+axis); ``lm_loss`` runs the ranged Bloom CE (``ops.bloom_ce_sharded``):
+each rank's local lse and hit sum, the global lse from the gathered local
+ones, and the backward's dz exact on each shard.  A quantized
+``table_dtype`` under a model axis waits for ROADMAP A13b.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import losses, quant
 from repro_torch.core.bloom import BloomSpec
 from repro_torch.kernels import ops
+from repro_torch.launch import collectives
 from repro_torch.models import layers
 
 
@@ -54,8 +66,17 @@ def io_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None
     return p
 
 
+def vocab_lo(rows: int, cfg: ModelConfig, dist) -> Optional[int]:
+    """The first of this rank's ``rows`` vocab rows (columns of the
+    logits) when the vocab is sharded over ``dist``'s model axis, else
+    None."""
+    if dist is None or dist.n_model == 1 or rows == cfg.m_vocab:
+        return None
+    return dist.model_index * rows
+
+
 def embed_tokens(embed: torch.Tensor, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
+                 tokens: torch.Tensor, dist=None) -> torch.Tensor:
     """tokens (B, S) int -> (B, S, D) activations in ``cfg.dtype``.
 
     Bloom path: x = sum_j Table[H_j(tok)] — the dense-matrix product with
@@ -63,13 +84,30 @@ def embed_tokens(embed: torch.Tensor, cfg: ModelConfig,
     With a quantized ``cfg.table_dtype`` the master-precision table goes
     in and the kernel reads it stored narrow (gradients straight-through
     to the master).  ``cfg.bwd_impl`` picks the table's backward: the CSR
-    scatter-add or the dense m-tile sweep.
+    scatter-add or the dense m-tile sweep.  Vocab-parallel under
+    ``dist`` (the module's docstring).
     """
     dt = getattr(torch, cfg.dtype)
     spec = vocab_spec(cfg)
+    td = resolved_table_dtype(cfg)
+    lo = vocab_lo(embed.shape[0], cfg, dist)
+    if lo is not None:
+        if td is not None:
+            raise NotImplementedError(
+                f"table_dtype={td} under a model axis: the quantized "
+                "vocab-parallel embedding waits for ROADMAP A13b")
+        if spec is None:
+            rel = tokens.long() - lo
+            inside = (rel >= 0) & (rel < embed.shape[0])
+            part = torch.where(inside[..., None],
+                               embed[rel.clamp(0, embed.shape[0] - 1)], 0.0)
+            part = part.to(dt)
+        else:
+            part = ops.bloom_embed(embed.to(dt), tokens, spec,
+                                   bwd_impl=cfg.bwd_impl, lo=lo)
+        return collectives.reduce_from_model(part, dist)
     if spec is None:
         return embed[tokens.long()].to(dt)
-    td = resolved_table_dtype(cfg)
     if td is None:
         return ops.bloom_embed(embed.to(dt), tokens, spec,
                                bwd_impl=cfg.bwd_impl)
@@ -78,20 +116,34 @@ def embed_tokens(embed: torch.Tensor, cfg: ModelConfig,
 
 
 def lm_logits(embed: torch.Tensor, head: Optional[torch.Tensor],
-              cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+              cfg: ModelConfig, x: torch.Tensor, dist=None) -> torch.Tensor:
     """x (B, S, D) -> logits (B, S, m_vocab) (m-dim when bloom enabled):
-    ``x @ embed.T`` for a tied head, else ``x @ head``."""
+    ``x @ embed.T`` for a tied head, else ``x @ head``.  With the vocab
+    sharded over ``dist``'s model axis, this rank's columns of them
+    (x's gradient summed over the axis)."""
     w = embed.T if cfg.tie_embeddings else head
+    if vocab_lo(w.shape[1], cfg, dist) is not None:
+        x = collectives.copy_to_model(x, dist)
     return x @ w.to(x.dtype)
 
 
 def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
-            valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+            valid: Optional[torch.Tensor] = None, dist=None) -> torch.Tensor:
     """Per-token CE (...,) in f32 of logits (..., m_vocab) against labels
     (...,).  Bloom: logsumexp(z) - (1/k) sum_j z[H_j(y)] (Eq. 3) through
-    the fused Bloom CE; ``valid`` multiplies the loss after it."""
+    the fused Bloom CE; ``valid`` multiplies the loss after it.  With the
+    logits' columns sharded over ``dist``'s model axis, the vocab-parallel
+    CE (``ops.bloom_ce_sharded``; a dense vocab as the CE of k = 1 on the
+    label itself)."""
     spec = vocab_spec(cfg)
     logits = logits.float()
+    lo = vocab_lo(logits.shape[-1], cfg, dist)
+    if lo is not None:
+        loss = ops.bloom_ce_sharded(
+            logits, labels, spec, lo,
+            gather=lambda t: collectives.all_gather(t, dist),
+            reduce=lambda t: collectives.all_reduce_sum(t, dist))
+        return loss if valid is None else loss * valid.to(loss.dtype)
     if spec is None:
         return losses.softmax_xent_label(logits, labels, valid)
     loss = ops.bloom_ce(logits, labels, spec)

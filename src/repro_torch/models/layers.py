@@ -1,5 +1,9 @@
 """Shared neural building blocks: initialisers, RMSNorm, LayerNorm, RoPE,
-SwiGLU (the function and the module holding its weights).
+SwiGLU (the function, the module holding its weights, and
+``swiglu_module``, which runs it tensor-parallel under a mesh's
+``model`` axis: each rank holds d_ff / n columns of ``w_gate`` / ``w_up``
+and the matching rows of ``w_down``, and the row-parallel output is
+all-reduced).
 
 The JAX package's ``dense`` layer (``x @ w + b``) is ``nn.Linear`` here,
 whose weight is stored transposed, (d_out, d_in).  The transformer's
@@ -18,6 +22,8 @@ import math
 
 import torch
 from torch import nn
+
+from repro_torch.launch import collectives
 
 
 def truncated_normal_(w: torch.Tensor, scale: float, fan_in: int,
@@ -128,3 +134,17 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return swiglu(self.w_gate, self.w_up, self.w_down, x)
+
+
+def swiglu_module(ffn: SwiGLU, x: torch.Tensor, d_ff: int,
+                  dist=None) -> torch.Tensor:
+    """``ffn(x)``, where the FFN's full hidden width is ``d_ff``.  Under a
+    model axis of more than one, with ``ffn`` holding its local d_ff
+    columns, tensor-parallel: x's gradient is summed over the axis
+    (``copy_to_model``) and the row-parallel output's parts are summed
+    (``reduce_from_model``).  An FFN whose d_ff did not divide the axis
+    holds all of it and runs whole on every rank."""
+    if dist is None or dist.n_model == 1 or ffn.w_gate.shape[1] == d_ff:
+        return ffn(x)
+    x = collectives.copy_to_model(x, dist)
+    return collectives.reduce_from_model(ffn(x), dist)

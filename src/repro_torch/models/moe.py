@@ -1,12 +1,26 @@
 """Mixture-of-experts FFN: shared + routed experts (DeepSeekMoE / OLMoE /
 Jamba style) with top-k routing and capacity buffers.
 
-Ported from the JAX package's ``models/moe.py``, its single-device path
-(the one it takes whenever it runs without a mesh): every expert is
-local.  The reference computes the dispatch and the expert products
-outside any Pallas kernel, so the port computes them in plain PyTorch:
-integer index ops for the routing and ``torch.bmm`` for the batched
-expert products.  Its expert-parallel path waits for ROADMAP A13.
+Ported from the JAX package's ``models/moe.py``, both of its paths.  The
+reference computes the dispatch and the expert products outside any
+Pallas kernel, so the port computes them in plain PyTorch: integer index
+ops for the routing and ``torch.bmm`` for the batched expert products.
+
+  * ``dense`` (``moe_impl="dense"``, and any run without a model axis):
+    every expert local;
+  * ``ep`` (``moe_impl="ep"`` under a mesh whose ``model`` axis splits
+    the experts, the reference's ``shard_map`` path): each rank holds
+    E / n experts (the reference's ``P("model", None, None)``), routes
+    every one of its local tokens through the whole router (the same
+    integers on every rank), fills only its own experts' capacity
+    buffers, with the capacity of the batch-local token count, and the
+    ranks' partial outputs are all-reduced over ``model``.  No token
+    crosses ranks (no all-to-all): the activations arrive replicated over
+    ``model``.  The shared experts run tensor-parallel over their d_ff
+    when it divides the axis, their part summed in the same all-reduce.
+    ``aux`` is the same on every model rank; its value is averaged over
+    the batch axes (its gradient is each shard's own, which the step's
+    gradient mean averages).
 
 Routing (``route``) follows the reference's integer logic exactly: the
 softmax router's top-k, ties to the lower expert id (``jax.lax.top_k``'s
@@ -32,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import collectives
 from repro_torch.models import layers
 
 
@@ -126,12 +141,17 @@ def _experts(p: MoE, x_buf: torch.Tensor) -> torch.Tensor:
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, dist=None):
-    """MoE FFN. x: (B, S, D). Returns (y (B, S, D), aux scalar f32).
-    ``dist`` (a mesh context, the reference's expert-parallel path) is
-    not ported (ROADMAP A13)."""
-    if dist is not None:
-        raise NotImplementedError(
-            "the expert-parallel MoE path is not ported yet (ROADMAP A13)")
+    """MoE FFN. x: (B, S, D), this rank's batch rows under ``dist``.
+    Returns (y (B, S, D), aux scalar f32).  Under ``dist`` with a model
+    axis of more than one, ``moe_impl="ep"`` runs the expert-parallel
+    path (``p`` holding the rank's experts); ``"dense"`` keeps every
+    expert on the rank and so takes no model axis."""
+    if dist is not None and dist.n_model > 1:
+        if cfg.moe_impl != "ep":
+            raise ValueError(
+                f"moe_impl={cfg.moe_impl!r} keeps every expert on the rank; "
+                f"a model axis of {dist.n_model} needs moe_impl='ep'")
+        return _moe_ep(p, x, cfg, dist)
     B, S, D = x.shape
     x_flat = x.reshape(B * S, D)
     T, dt = x_flat.shape[0], x_flat.dtype
@@ -155,6 +175,54 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, dist=None):
     if mo.num_shared:
         out = out + p.shared(x_flat)
     return out.reshape(B, S, D), r.aux
+
+
+def _moe_ep(p: MoE, x: torch.Tensor, cfg: ModelConfig, dist):
+    """The expert-parallel path (the module's docstring)."""
+    B, S, D = x.shape
+    x_flat = x.reshape(B * S, D)
+    T, dt = x_flat.shape[0], x_flat.dtype
+    mo = cfg.moe
+    k, n_local = mo.top_k, p.w_gate.shape[0]
+    if n_local * dist.n_model != mo.num_experts:
+        raise ValueError(f"experts {mo.num_experts} must divide the model "
+                         f"axis {dist.n_model}")
+    C, off = capacity(T, cfg), dist.model_index * n_local
+    # routing: the same on every rank, outside the split region (its
+    # gradient, and aux's, are whole on each rank)
+    r = route(p.router, x_flat, cfg, C)
+    flat_sel = r.sel.reshape(-1)
+    local = (flat_sel >= off) & (flat_sel < off + n_local)
+    keep = r.keep & local
+    slot = torch.where(keep, (flat_sel - off) * C + r.pos,
+                       torch.full_like(r.pos, n_local * C))
+    # the split region: each rank's experts see the tokens and gates,
+    # whose gradients are summed over the axis
+    xr = collectives.copy_to_model(x_flat, dist)
+    gate = collectives.copy_to_model(r.gate, dist)
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    idx_buf = torch.full((n_local * C + 1,), T, dtype=tok.dtype,
+                         device=x.device)
+    idx_buf = idx_buf.scatter(0, slot, tok)[:-1]
+    x_pad = torch.cat([xr, xr.new_zeros(1, D)])
+    y_buf = _experts(p, x_pad[idx_buf].reshape(n_local, C, D))
+    y_pad = torch.cat([y_buf.reshape(n_local * C, D), y_buf.new_zeros(1, D)])
+    g = torch.where(keep, gate.reshape(-1), 0.0).to(dt)
+    part = (y_pad[slot] * g[:, None]).reshape(T, k, D).sum(1)
+    shared_whole = None
+    if mo.num_shared:
+        if p.shared.w_gate.shape[1] == mo.num_shared * mo.d_ff_expert:
+            shared_whole = p.shared(x_flat)
+        else:
+            part = part + p.shared(xr)
+    out = collectives.reduce_from_model(part, dist)
+    if shared_whole is not None:
+        out = out + shared_whole
+    aux = r.aux
+    if dist.n_batch > 1:
+        mean = collectives.all_reduce_sum(aux, dist, "batch") / dist.n_batch
+        aux = aux + (mean - aux).detach()
+    return out.reshape(B, S, D), aux
 
 
 def moe_apply_reference(p: MoE, x: torch.Tensor, cfg: ModelConfig

@@ -33,19 +33,39 @@ The JAX package stacks its super-blocks under a leading ``(n_super,
 ...)`` axis and scans them; here they are a Python loop over the
 ModuleList (PyTorch runs eagerly, so there is nothing to compile).  The
 encoder-decoder family (``audio``) is ``models/encdec.py``.
+``reference_path`` maps each param name to its leaf in the reference's
+tree (``lm_params_from_jax`` loads by it, and launch/sharding.py reads
+the reference's placement rules by it).
+
+Under a mesh (``dist``, launch/sharding.DistContext) with a ``model``
+axis of more than one, the module holds each rank's local shard of every
+param (``sharding.shard_module``) and ``lm_apply`` runs the dense and MoE
+families tensor-parallel: the vocab-parallel Bloom embedding and head
+(models/io.py), the attention's heads and the SwiGLU's d_ff columns
+split over ``model`` with the row-parallel outputs all-reduced, and the
+MoE's experts split (``moe_impl="ep"``).  The train and prefill modes run
+so; decode and the other families wait for ROADMAP A13b
+(``launch/steps.py`` refuses them).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import collectives
 from repro_torch.models import attention, io, layers, mamba2, moe
 from repro_torch.models.layers import SwiGLU
+
+
+def tensor_parallel(dist) -> bool:
+    """Whether ``dist`` splits the model over a ``model`` axis of more
+    than one rank."""
+    return dist is not None and dist.n_model > 1
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -169,9 +189,9 @@ class TransformerLM(nn.Module):
             done(f"blocks.{i}", self.blocks[i])
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model))
 
-    def forward(self, batch: Mapping[str, torch.Tensor]):
+    def forward(self, batch: Mapping[str, torch.Tensor], dist=None):
         """(loss, {"ce", "aux"}) of ``batch`` (see ``lm_loss_fn``)."""
-        return lm_loss_fn(self, self.cfg, batch)
+        return lm_loss_fn(self, self.cfg, batch, dist)
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -204,7 +224,7 @@ def frontend_concat(model: TransformerLM, x_tokens: torch.Tensor,
 def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
              mode: str = "prefill", caches=None,
              pos: Optional[torch.Tensor] = None,
-             embeds: Optional[torch.Tensor] = None) -> dict:
+             embeds: Optional[torch.Tensor] = None, dist=None) -> dict:
     """Run the LM on tokens (B, S), after the stub frontend's S_emb
     positions when ``embeds`` (B, S_emb, D) are given (train and prefill;
     positions then run over S_tot = S_emb + S).
@@ -218,9 +238,17 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
                row's position (read by the attention layers only).
 
     ``aux`` is the f32 sum of the MoE layers' load-balance losses (0
-    without MoE).
+    without MoE).  ``dist`` runs the model tensor-parallel over its
+    ``model`` axis (train and prefill, dense and MoE families): the logits
+    are then this rank's columns of the m-dim logits when the vocab is
+    sharded, and the caches its shards.
     """
-    x = io.embed_tokens(model.embed, cfg, tokens)
+    if tensor_parallel(dist) and (mode == "decode" or cfg.family not in
+                                  ("dense", "moe")):
+        raise NotImplementedError(
+            f"{cfg.name}: {mode} of the {cfg.family} family under a model "
+            "axis waits for ROADMAP A13b")
+    x = io.embed_tokens(model.embed, cfg, tokens, dist)
     if mode != "decode":
         x = frontend_concat(model, x, embeds)
     B, S = x.shape[:2]
@@ -238,10 +266,11 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
         h = layers.rms_norm(blk.norm1, x, cfg.norm_eps)
         if blk.mixer == "attn":
             if mode == "train":
-                y = attention.self_attention(blk.attn, cfg, h, positions)
+                y = attention.self_attention(blk.attn, cfg, h, positions,
+                                             dist=dist)
             elif mode == "prefill":
-                y, kv = attention.self_attention_with_cache(blk.attn, cfg,
-                                                            h, positions)
+                y, kv = attention.self_attention_with_cache(
+                    blk.attn, cfg, h, positions, dist=dist)
                 caches.append(kv)
             else:
                 y = attention.decode_self_attention(blk.attn, cfg, h,
@@ -258,33 +287,44 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
             continue
         h = layers.rms_norm(blk.norm2, x, cfg.norm_eps)
         if blk.ffn_kind == "moe":
-            y, a = moe.moe_apply(blk.ffn, h, cfg)
+            y, a = moe.moe_apply(blk.ffn, h, cfg, dist)
             aux = aux + a
         else:
-            y = blk.ffn(h)
+            y = layers.swiglu_module(blk.ffn, h, cfg.d_ff, dist)
         x = x + y
     x = layers.rms_norm(model.final_norm, x, cfg.norm_eps)
-    logits = io.lm_logits(model.embed, model.head, cfg, x)
+    logits = io.lm_logits(model.embed, model.head, cfg, x, dist)
     if mode == "train":
         return {"logits": logits, "aux": aux}
     return {"logits": logits, "aux": aux, "caches": caches}
 
 
 def lm_loss_fn(model: TransformerLM, cfg: ModelConfig,
-               batch: Mapping[str, torch.Tensor]):
+               batch: Mapping[str, torch.Tensor], dist=None):
     """Next-token CE plus the MoE auxiliary loss.  batch: {"tokens"
     (B, S)} and optionally {"embeds" (B, S_emb, D)} (the stub frontend's
     prefix) and {"loss_mask" (B, S - 1)}.  Returns (loss, {"ce", "aux"}):
     ce is the mean over predicted tokens of the text region (or over the
     mask), and loss = ce + aux_loss_weight * aux / num_superblocks, as
-    in the reference (divided by the super-blocks, not the MoE layers)."""
+    in the reference (divided by the super-blocks, not the MoE layers).
+
+    Under ``dist`` with batch axes of more than one, ``batch`` is this
+    rank's rows of the global batch (split evenly): ce is its summed loss
+    over the GLOBAL count of predicted tokens, times the number of batch
+    shards, so that the shards' mean (the step's gradient mean) is the
+    global batch's ce."""
     tokens = batch["tokens"]
     out = lm_apply(model, cfg, tokens, mode="train",
-                   embeds=batch.get("embeds"))
+                   embeds=batch.get("embeds"), dist=dist)
     logits = out["logits"][:, out["logits"].shape[1] - tokens.shape[1]:]
     valid = batch.get("loss_mask")
-    loss_tok = io.lm_loss(cfg, logits[:, :-1], tokens[:, 1:], valid)
-    if valid is None:
+    loss_tok = io.lm_loss(cfg, logits[:, :-1], tokens[:, 1:], valid, dist)
+    if dist is not None and dist.n_batch > 1:
+        n = (torch.tensor(float(loss_tok.numel()), device=loss_tok.device)
+             if valid is None else valid.sum().float())
+        n = collectives.all_reduce_sum(n, dist, "batch")
+        loss = loss_tok.sum() * dist.n_batch / torch.clamp(n, min=1.0)
+    elif valid is None:
         loss = loss_tok.sum() / max(loss_tok.numel(), 1)
     else:
         loss = loss_tok.sum() / torch.clamp(valid.sum().float(), min=1.0)
@@ -297,47 +337,60 @@ def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def io_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """The reference tree's unstacked params as state-dict entries: the
-    embedding and head (``io``), ``final_norm``'s gain and, where the tree
-    has one, ``frontend_proj`` {"w"} as the port's (D, D) param."""
-    sd = {"embed": _f32(tree["io"]["embed"]),
-          "final_norm": _f32(tree["final_norm"]["scale"])}
-    if "head" in tree["io"]:
-        sd["head"] = _f32(tree["io"]["head"])
-    if "frontend_proj" in tree:
-        sd["frontend_proj"] = _f32(tree["frontend_proj"]["w"])
+def reference_path(name: str, cfg: ModelConfig
+                   ) -> Tuple[str, Optional[int]]:
+    """The reference tree's leaf of the port param ``name`` (of a
+    ``TransformerLM`` or an ``encdec.EncDec``): its "/"-joined path, as
+    the reference's sharding rules read it, and its entry on the leading
+    stacked axis (None for an unstacked leaf).  The reference stacks
+    sub-layer j of every super-block under ``blocks/sub{j}`` (layer i is
+    entry ``i // period`` of ``sub{i % period}``) and the encoder's and
+    decoder's blocks under ``encoder`` / ``decoder`` (block i is entry i);
+    the embedding and head sit under ``io``; ``frontend_proj`` is a dense
+    layer {"w"}; a norm's {"scale"} dict is the port's one gain param;
+    every other nested dict (the shared experts, the Mamba convs) is a
+    sub-module of the same name."""
+    parts = name.split(".")
+    if parts[0] in ("embed", "head"):
+        return f"io/{parts[0]}", None
+    if parts[0] == "frontend_proj":
+        return "frontend_proj/w", None
+    stacked = None
+    if parts[0] == "blocks":
+        i, p = int(parts[1]), period_of(cfg)
+        parts, stacked = ["blocks", f"sub{i % p}", *parts[2:]], i // p
+    elif parts[0] in ("encoder", "decoder"):
+        parts, stacked = [parts[0], *parts[2:]], int(parts[1])
+    if "norm" in parts[-1]:
+        parts.append("scale")
+    return "/".join(parts), stacked
+
+
+def param_names(model_cls, cfg: ModelConfig) -> List[str]:
+    """The param names of ``model_cls(cfg)``, built on the ``meta``
+    device (no storage, no draws)."""
+    with torch.device("meta"):
+        return [n for n, _ in model_cls(cfg).named_parameters()]
+
+
+def params_from_jax(tree: Mapping, cfg: ModelConfig, model_cls
+                    ) -> Dict[str, torch.Tensor]:
+    """The reference's param tree (numpy arrays) as the state dict of
+    ``model_cls(cfg)``: each param read at its ``reference_path`` (the
+    weight layouts are the same on both sides)."""
+    sd = {}
+    for name in param_names(model_cls, cfg):
+        path, stacked = reference_path(name, cfg)
+        leaf = tree
+        for key in path.split("/"):
+            leaf = leaf[key]
+        sd[name] = _f32(leaf if stacked is None else leaf[stacked])
     return sd
-
-
-def put_stacked(sd: Dict[str, torch.Tensor], prefix: str, node,
-                s: int) -> None:
-    """Entry ``s`` of the leading (stacked) axis of every leaf under
-    ``node`` into ``sd`` at ``prefix``: a norm's {"scale"} dict is the
-    port's one gain param, other nested dicts become sub-module names."""
-    if isinstance(node, Mapping):
-        if set(node) == {"scale"}:
-            sd[prefix] = _f32(node["scale"][s])
-            return
-        for name, child in node.items():
-            put_stacked(sd, f"{prefix}.{name}", child, s)
-    else:
-        sd[prefix] = _f32(node[s])
 
 
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig
                        ) -> Dict[str, torch.Tensor]:
     """The JAX package's ``lm_init`` tree (numpy arrays) as this module's
-    state dict.  The reference stacks sub-layer j of every super-block
-    under ``tree["blocks"][f"sub{j}"]`` with a leading (n_super, ...)
-    axis; layer i is entry ``i // period`` of ``sub{i % period}``.  The
-    weight layouts are the same on both sides; a norm's {"scale"} dict is
-    the port's one gain param, and the nested dicts (the shared experts,
-    the Mamba convs) become sub-module names (``put_stacked``); a
-    frontend's ``frontend_proj`` {"w"} is the port's (D, D) param."""
+    state dict (``params_from_jax`` by ``reference_path``)."""
     _check_family(cfg)
-    sd = io_params_from_jax(tree)
-    p = period_of(cfg)
-    for i in range(cfg.num_layers):
-        put_stacked(sd, f"blocks.{i}", tree["blocks"][f"sub{i % p}"], i // p)
-    return sd
+    return params_from_jax(tree, cfg, TransformerLM)

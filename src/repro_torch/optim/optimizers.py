@@ -55,18 +55,31 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
     return _map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+def global_norm(tree: Tree, sharded=(), all_reduce=None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  On a rank of a mesh: the names
+    in ``sharded`` are this rank's shards of leaves split over the model
+    axis, whose squares ``all_reduce`` sums over that axis; every other
+    leaf is whole on each rank and counted once."""
+    def sq(names):
+        return sum(torch.sum(torch.square(tree[n].float())) for n in names)
+
+    if not sharded:
+        return torch.sqrt(sq(tree))
+    split = sq(n for n in tree if n in sharded)
+    return torch.sqrt(sq(n for n in tree if n not in sharded)
+                      + all_reduce(split))
 
 
 # --------------------------------------------------------------------------
 # Basic transforms
 # --------------------------------------------------------------------------
 
-def clip_by_global_norm(max_norm: float) -> Transform:
+def clip_by_global_norm(max_norm: float, norm_fn=None) -> Transform:
+    """Scale the gradients so that ``norm_fn(grads)`` (``global_norm`` by
+    default; a mesh's ``global_norm`` over shards in the parallel step)
+    is at most ``max_norm``."""
     def update(grads, state, params):
-        norm = global_norm(grads)
+        norm = (norm_fn or global_norm)(grads)
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
         return _map(lambda g: g * scale, grads), state
 
@@ -239,15 +252,17 @@ def constant(lr: float):
 
 def make_optimizer(name: str, lr, *, b1=0.9, b2=0.999, eps=1e-8,
                    momentum=0.0, weight_decay=0.0, grad_clip_norm=0.0,
-                   compression: str = "none") -> Transform:
+                   compression: str = "none",
+                   norm_fn=None) -> Transform:
     """Named constructor used by TrainConfig.
 
     lr: float or schedule callable.  Returned updates are ready for
-    apply_updates (they already include the negative sign).
+    apply_updates (they already include the negative sign).  ``norm_fn``
+    is the clipping's global norm.
     """
     parts = []
     if grad_clip_norm and grad_clip_norm > 0:
-        parts.append(clip_by_global_norm(grad_clip_norm))
+        parts.append(clip_by_global_norm(grad_clip_norm, norm_fn))
     if compression != "none":
         parts.append(compress_gradients(compression))
     if name in ("adam", "adamw"):

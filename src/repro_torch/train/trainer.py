@@ -32,14 +32,16 @@ class TrainState:
     step: int
 
 
-def make_optimizer(tc: TrainConfig, total_steps: Optional[int] = None):
+def make_optimizer(tc: TrainConfig, total_steps: Optional[int] = None,
+                   norm_fn=None):
     sched = (opt_lib.warmup_cosine(tc.learning_rate, tc.warmup_steps,
                                    total_steps or tc.steps)
              if tc.warmup_steps else tc.learning_rate)
     return opt_lib.make_optimizer(
         tc.optimizer, sched, b1=tc.beta1, b2=tc.beta2, eps=tc.eps,
         momentum=tc.momentum, weight_decay=tc.weight_decay,
-        grad_clip_norm=tc.grad_clip_norm, compression=tc.grad_compression)
+        grad_clip_norm=tc.grad_clip_norm, compression=tc.grad_compression,
+        norm_fn=norm_fn)
 
 
 def _tree_map(fn, tree):

@@ -252,5 +252,16 @@ def test_init_scale_and_capacity_at_the_serving_shapes():
         cfg = tconfigs.get_config(arch)
         assert t_moe.capacity(4, cfg) == 1
         assert t_moe.capacity(128, cfg) == c_pre
-    with pytest.raises(NotImplementedError, match="A13"):
-        t_moe.moe_apply(tm, torch.zeros(1, 2, 16), tcfg, dist=object())
+    # a mesh without a model axis keeps the single-device path; the dense
+    # path under a model axis of more than one raises (experts split
+    # need moe_impl="ep", tests/test_torch_parallel_gloo.py)
+    from repro_torch.launch import mesh as t_mesh
+    from repro_torch.launch import sharding as t_sharding
+    x = torch.randn(1, 2, 16, generator=torch.Generator().manual_seed(0))
+    one = t_sharding.DistContext(t_mesh.make_serving_mesh(device="cpu"))
+    for a, b in zip(t_moe.moe_apply(tm, x, tcfg, dist=one),
+                    t_moe.moe_apply(tm, x, tcfg)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="moe_impl='ep'"):
+        t_moe.moe_apply(tm, x, tcfg, dist=one.__class__(
+            t_mesh.Mesh(("data", "model"), (1, 2), torch.device("cpu"))))

@@ -286,7 +286,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "'configs.olmoe_1b_7b', 'configs.mamba2_1_3b', "
         "'configs.jamba_v0_1_52b', 'launch.mesh', 'launch.sharding', "
         "'serving.collective', 'serving.sharded_pool', "
-        "'serving.sim_multihost'):\n"
+        "'serving.sim_multihost', 'launch.collectives'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
