@@ -6,9 +6,7 @@
         # build, then that phase alone (a quick check of the parallel
         # step; no result line); nccl needs four cards on one host
     python3 chip_smoke.py --parent DIR   # also time the parent commit's
-        # csrc/bloom_embed.cu and bloom_decode.cu (copied into DIR with the
-        # headers they include, and its core/hashing.py) beside this
-        # tree's: phase 18
+        # csrc/bloom_ce.cu (copied into DIR) beside this tree's: phase 18
 
 Phases, one line of numbers each:
   1. build    — compile every kernel in src/repro_torch/kernels/csrc/, one
@@ -45,7 +43,8 @@ Phases, one line of numbers each:
                 the main path called it before (spec.indices_for, then the
                 index kernel) and now (ops.bloom_embed), the plain version
                 and F.embedding_bag: device (graph), back-to-back (events)
-                and L2-cold (profiler, a 96 MB write before each call)
+                and L2-cold (``common.cold_ms``: a graph of a 96 MB write
+                and the call, less one of the write alone)
                 times, beside the bound and an empty kernel's time (the
                 launch floor);
   3. serve    — the web10m retrieval drill (8 requests, 8 slots, two
@@ -69,7 +68,10 @@ Phases, one line of numbers each:
                 versions at (T = 512, m = 30,208, k = 4), at T = 4,088 and
                 with rows whose hashes repeat a column (loss rtol 1e-6 /
                 atol 1e-5, dz atol 1e-7: expf and the exp-sum order differ
-                from torch's in the last ulp), the card's CSR bins
+                from torch's in the last ulp), and on the kernels' branch
+                cases (``sweep_ce.edge_cases``: k = 1, 2, 3, 4, 8, 40,
+                ragged m, -inf columns and rows, a shard no label of a row
+                falls in, an unaligned row), the card's CSR bins
                 (bloom_csr.bin) equal to bin_csr_plain's and the CSR
                 scatter-add bit-identical to its plain version on a CPU copy
                 and to a second launch at (T = 520, k = 4, D = 1024,
@@ -346,12 +348,14 @@ Phases, one line of numbers each:
                 against their plain versions on its own shard; it prints
                 its step walls, its collective seconds per step and each
                 collective's branch (device buffer or host-staged);
- 18. parent (only with --parent DIR) — the parent commit's embed and decode
-                kernels built from DIR beside this tree's, bit-identical,
-                timed in turns (parent, change, change, parent): embed at
-                T = 8, 14, 520 per storage (the kernels, and as called:
-                the parent's double_hash, which synchronises the host,
-                then its kernel), decode per storage at B = 1 and 8.
+ 18. parent (only with --parent DIR) — the parent commit's Bloom CE
+                kernels, built from DIR/bloom_ce.cu beside this tree's
+                (``sweep_ce.start_parent``), timed in turns (parent,
+                change, change, parent), warm and L2-cold: the forward
+                and backward at T = 512, k = 4 and m = 30,208, 10,240
+                and the half range 15,104 of 30,208 (ranged entries), dz
+                bit-identical to the parent's and the forward within
+                rtol 1e-6 / atol 1e-5 of it.
 Then the card's name and power limit, one JSON line of kernel numbers, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code
 is not 0 and the last line is not printed.  Without a CUDA device, or
@@ -360,6 +364,7 @@ without the repository's src/ beside this file, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -379,6 +384,15 @@ F32_OPS_PER_S = 67e12
 # SM per clock (4 sub-partitions of 16) x 1.98 GHz, the H100 SXM's maximum
 # boost clock (NVIDIA's Hopper white paper and data sheet)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+@functools.lru_cache(maxsize=None)
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -542,47 +556,18 @@ def phase_embed(torch, be):
               f"{len(cases)} cases (T, D, k) = {cases}", flush=True)
 
 
-def _cold_ms(torch, fn, calls=20):
-    """Device ms of one ``fn()`` with the L2 cache cold: a 96 MB buffer
-    (twice the 50 MB L2) is written before each call, and the call's own
-    kernels are summed from a torch.profiler trace (the flush's kernel,
-    a random fill, left out by name)."""
-    from torch.profiler import ProfilerActivity, profile
-    flush = torch.empty(24 * 2 ** 20, dtype=torch.float32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            flush.uniform_()
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if (t > 0 and e.device_type == torch.autograd.DeviceType.CUDA
-                and "distribution" not in e.key):
-            us += t
-    del flush
-    return us / calls / 1e3
-
-
-def _turns(torch, common, fns, cold=True, no_graph=()):
+def _turns(torch, common, fns, cold=True):
     """{name: (device ms (graph), back-to-back ms (events), L2-cold device
-    ms (profiler) or None)} of each call, every call measured twice in
-    turns (a, b, ..., b, a) and the two runs averaged, so that a drift of
-    the card falls on every call alike.  The calls in ``no_graph`` (which
-    synchronise the host, so no CUDA graph can hold them) get no device
-    time (None)."""
+    ms (``common.cold_ms``) or None)} of each call, every call measured
+    twice in turns (a, b, ..., b, a) and the two runs averaged, so that a
+    drift of the card falls on every call alike."""
     order = list(fns) + list(fns)[::-1]
     runs = {n: [] for n in fns}
     for n in order:
         f = fns[n]
-        runs[n].append((None if n in no_graph else
-                        common.graph_time_ms(f, 20, 5),
+        runs[n].append((common.graph_time_ms(f, 20, 5),
                         common.time_ms(f, 50, 3),
-                        _cold_ms(torch, f) if cold else None))
+                        common.cold_ms(f) if cold else None))
     return {n: tuple(None if r[0][i] is None else (r[0][i] + r[1][i]) / 2
                      for i in range(3)) for n, r in runs.items()}
 
@@ -766,7 +751,7 @@ def phase_embed_tokens(torch, be, common, quant):
                 spec, None if td is None else q.dtype)
             print(f"kernels-embed: {vname} -> bf16 T={T} m={m} D={D} "
                   f"k={spec.k}: device ms (graph) / back-to-back ms (events)"
-                  f" / L2-cold device ms (profiler): {_turns_line(times)}; "
+                  f" / L2-cold device ms: {_turns_line(times)}; "
                   f"bound {bound_ms * 1e3:.4f} us ({by}, {nbytes} bytes), "
                   f"launch floor {floor * 1e3:.4f} us", flush=True)
             if T == 8:
@@ -946,26 +931,35 @@ def phase_ce(torch, ce, common):
     print(f"kernels-train: bloom_ce forward and backward within tolerance "
           f"on (T, repeated hashes) = {cases}, m={m} k={k}: max abs err "
           f"loss/lse {err_fwd}, dz {err_bwd}", flush=True)
+    from repro_torch.kernels import sweep_ce
+    n = sweep_ce.edge_cases(ce._library(), None, gen)
+    print(f"kernels-train: bloom_ce on {n} branch cases (k = 1, 2, 3, 4, 8, "
+          "40; m = 8, 37, 1,000, 10,240, 30,211; unranged, lo = 0 and 100 "
+          "with a row's labels all outside; -inf columns and rows; an "
+          "unaligned row) within tolerance of the plain versions",
+          flush=True)
 
     rows = []
-    for (name, times, bound_ms, by), err, line in zip(
+    for (name, cold, bound_ms, by), err, line in zip(
             _time_ce(torch, ce, common, 512, m, k, gen, "kernels-train"),
             (err_fwd, err_bwd), (145, 87)):
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/bloom_ce.cu",
                      "replaces": f"src/repro/kernels/bloom_ce.py:{line}",
                      "launches": None, "max_abs_err": err,
-                     "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+                     "ms": cold["kernel"], "plain_ms": cold["plain"],
                      "bound_ms": bound_ms, "bound_by": by,
-                     "library_ms": times["library"][0]})
+                     "library_ms": cold["library"]})
     return rows
 
 
 def _time_ce(torch, ce, common, T, m, k, gen, phase):
     """bloom_ce forward and backward at (T, m, k) on seeded logits, timed
-    beside their plain versions and one library call each, with their
-    bounds; prints a line each and returns [(name, times, bound ms,
-    bound by)] for the forward and the backward."""
+    beside their plain versions and one library call each, warm (graph,
+    events) and L2-cold (``common.cold_ms``: the bound is HBM bytes, and
+    logits under the 50 MB L2 stay there between graph replays), with
+    their bounds; prints a line each and returns [(name, L2-cold ms by
+    call, bound ms, bound by)] for the forward and the backward."""
     dev = torch.device("cuda")
     z = (3.0 * torch.randn(T, m, generator=gen)).to(dev)
     h = torch.randint(0, m, (T, k), generator=gen, dtype=torch.int32).to(dev)
@@ -973,27 +967,41 @@ def _time_ce(torch, ce, common, T, m, k, gen, phase):
     hl = h.long()
     _, lse = ce.bloom_ce_cuda(z, h)
     neg = torch.full((T, k), -1.0 / k, device=dev)
-    fwd = _times(common, {
+    common.graph_time_ms(lambda: ce.bloom_ce_cuda(z, h), 20, 5)  # clocks up
+    fwd = {
         "kernel": lambda: ce.bloom_ce_cuda(z, h),
         "plain": lambda: ce.bloom_ce_plain(z, h),
-        "library": lambda: torch.logsumexp(z, -1) - z.gather(1, hl).mean(-1)})
-    bwd = _times(common, {
+        "library": lambda: torch.logsumexp(z, -1) - z.gather(1, hl).mean(-1)}
+    bwd = {
         "kernel": lambda: ce.bloom_ce_bwd_cuda(g, z, h, lse),
         "plain": lambda: ce.bloom_ce_bwd_plain(g, z, h, lse),
         "library": lambda: torch.softmax(z, -1).scatter_add_(1, hl, neg)
-        * g[:, None]})
+        * g[:, None]}
     out = []
-    for label, name, times, nbytes, ops in (
+    for label, name, fns, nbytes, ops in (
             ("forward", ce.FWD, fwd, ce.min_bytes(T, m, k), 4 * T * m),
             ("backward", ce.BWD, bwd, ce.min_bytes(T, m, k, backward=True),
              5 * T * m + T * m * k)):
+        times, cold = _times(common, fns), _cold_times(common, fns)
         bound_ms, by = _bound(nbytes, ops)
         print(f"{phase}: bloom_ce {label} T={T} m={m} k={k}: device "
               f"ms (graph) / back-to-back ms (events): "
-              f"{_times_line(times)}, bound {bound_ms * 1e3:.3f} us ({by}, "
-              f"{nbytes} bytes)", flush=True)
-        out.append((name, times, bound_ms, by))
+              f"{_times_line(times)}; L2-cold device ms: "
+              f"{_cold_line(cold)}; bound {bound_ms * 1e3:.3f} us ({by}, "
+              f"{nbytes} bytes), share of bound L2-cold "
+              f"{bound_ms / cold['kernel']:.3f} (graph "
+              f"{bound_ms / times['kernel'][0]:.3f}); {_card()}", flush=True)
+        out.append((name, cold, bound_ms, by))
     return out
+
+
+def _cold_times(common, fns):
+    """{name: L2-cold device ms (``common.cold_ms``)} of each call."""
+    return {n: common.cold_ms(f) for n, f in fns.items()}
+
+
+def _cold_line(cold) -> str:
+    return ", ".join(f"{n} {c:.6f}" for n, c in cold.items())
 
 
 def _time_csr(torch, csr, common, T, k, D, m, gen, phase):
@@ -1639,7 +1647,7 @@ def phase_kernels_decode(torch, bd, csr, be, common, bloom, quant):
         print(f"kernels-decode: {name} B=8 m={m} d={d} k={k}: bit-identical "
               f"to plain on {[c[0] for c in cases]} and rows off 16 bytes; "
               f"{pl}; device ms (graph) / back-to-back ms (events) / L2-cold "
-              f"device ms (profiler): {_turns_line(times)}; plain "
+              f"device ms: {_turns_line(times)}; plain "
               f"{plain_ms:.6f} ms (events); bound "
               f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes)", flush=True)
         times["plain"] = (plain_ms, plain_ms, None)
@@ -1922,9 +1930,6 @@ def phase_train_lm_dense(torch, be, common, names, csr_losses, csr_ms):
           f"{med['csr']:.6f} ms ({batch * seq / med['csr'] * 1e3:.1f} "
           f"tokens/s)", flush=True)
     return counts
-
-
-PARENT_KERNELS = ("bloom_embed", "bloom_decode")
 
 
 def decode_topk_sweep_shapes(torch, dt, quant, bloom, get_retrieval_config):
@@ -3940,40 +3945,47 @@ def _ranged_kernels(torch, be, ce, csr, common):
     col = (h.long() - half).clamp(0, half - 1)
     ins = (h.long() >= half)
     neg = torch.where(ins, -1.0 / k, 0.0)
-    fwd = _times(common, {
+    fwd = {
         "unranged": lambda: ce.bloom_ce_cuda(z, h),
         "full": lambda: ce.bloom_ce_shard_cuda(z, h, 0),
         "kernel": lambda: ce.bloom_ce_shard_cuda(zh, h, half),
         "plain": lambda: ce.bloom_ce_shard_plain(zh, h, half),
         "library": lambda: (torch.logsumexp(zh, -1),
-                            (zh.gather(1, col) * ins).sum(-1))})
-    bwd = _times(common, {
+                            (zh.gather(1, col) * ins).sum(-1))}
+    bwd = {
         "unranged": lambda: ce.bloom_ce_bwd_cuda(gy, z, h, lse),
         "full": lambda: ce.bloom_ce_bwd_cuda(gy, z, h, lse, 0),
         "kernel": lambda: ce.bloom_ce_bwd_cuda(gy, zh, h, lse, half),
         "plain": lambda: ce.bloom_ce_bwd_plain(gy, zh, h, lse, half),
         "library": lambda: torch.exp(zh - lse[:, None]).scatter_add_(
-            1, col, neg) * gy[:, None]})
-    for label, name, times, nbytes, ops, err, line in (
+            1, col, neg) * gy[:, None]}
+    for label, name, fns, nbytes, ops, err, line in (
             ("forward", ce.FWD_RANGE, fwd,
              T * half * 4 + T * k * 4 + 2 * T * 4, 4 * T * half, err_f, 145),
             ("backward", ce.BWD_RANGE, bwd,
              ce.min_bytes(T, half, k, backward=True),
              5 * T * half + T * half * k, err_b, 87)):
+        # L2-cold as well: the half range's logits (31 MB) stay in the
+        # 50 MB L2 between graph replays; the bound is HBM bytes
+        times, cold = _times(common, fns), _cold_times(common, fns)
         bound_ms, by = _bound(nbytes, ops)
         print(f"train-parallel: bloom_ce {label} ranged T={T} k={k}: the "
               f"half range (m = {half}, lo = {half}) and the full range "
               f"beside the unranged kernel (m = {m}), device ms (graph) / "
-              f"back-to-back ms (events): {_times_line(times)}, bound "
+              f"back-to-back ms (events): {_times_line(times)}; L2-cold "
+              f"device ms: {_cold_line(cold)}; bound "
               f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes) at the half "
-              "range", flush=True)
+              f"range, share of bound L2-cold "
+              f"{bound_ms / cold['kernel']:.3f} (graph "
+              f"{bound_ms / times['kernel'][0]:.3f}); {_card()}",
+              flush=True)
         rows_out[name] = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bloom_ce.cu",
             "replaces": f"src/repro/kernels/bloom_ce.py:{line}",
-            "launches": 0, "max_abs_err": err, "ms": times["kernel"][0],
-            "plain_ms": times["plain"][0], "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": times["library"][0]}
+            "launches": 0, "max_abs_err": err, "ms": cold["kernel"],
+            "plain_ms": cold["plain"], "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": cold["library"]}
     return rows_out
 
 
@@ -4081,149 +4093,49 @@ def phase_train_parallel(torch, be, ce, csr, common, transport="gloo"):
     return list(rows.values()), counts
 
 
-def start_parent_build(common, parent: Path):
-    """nvcc on the parent commit's csrc/bloom_embed.cu and bloom_decode.cu
-    (copied with the headers they include into ``parent``), started now,
-    into parent/<name>.so; returns {name: (process, library path)}."""
-    procs = {}
-    for name in PARENT_KERNELS:
-        lib = parent / f"{name}.so"
-        cmd = [common._nvcc(), *common.NVCC_FLAGS, "-o", str(lib),
-               str(parent / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       lib)
-    return procs
-
-
-def phase_parent(torch, be, bd, common, quant, procs, parent):
-    """The parent commit's embed and decode kernels against this tree's, in
-    one process, each timed in turns (parent, change, change, parent):
-    device (graph), back to back (events) and L2-cold (profiler); their
-    outputs bit-identical.  The embedding as the parent called it hashes
-    with the parent's core/hashing.py (``parent``/hashing.py), whose
-    host-to-device copy synchronises the host (probed here under
-    set_sync_debug_mode("error")), so that call has no graph time."""
-    import ctypes
-    import importlib.util
-    from repro_torch import configs
-    from repro_torch.core import bloom
-    from repro_torch.kernels import ops
-    from repro_torch.models import io as io_lib
-    libs = {}
-    for name, (proc, path) in procs.items():
-        log, _ = proc.communicate()
-        _check(proc.returncode == 0, f"parent {name} build failed:\n{log}")
-        libs[name] = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    libs["bloom_embed"].bloom_embed_fwd.argtypes = [p, p, p, p, i, i, i, i,
-                                                    i, p]
-    libs["bloom_decode"].bloom_decode_fwd.argtypes = [p, i, p, p, p, i, i,
-                                                      i, i, i, p]
-    dev = torch.device("cuda")
-    codes = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
-             torch.float8_e4m3fn: 3}
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-
-    def parent_embed(q, sc, idx, od):
-        out = torch.empty((idx.shape[0], q.shape[1]), dtype=od, device=dev)
-        libs["bloom_embed"].bloom_embed_fwd(
-            q.data_ptr(), None if sc is None else sc.data_ptr(),
-            idx.data_ptr(), out.data_ptr(), idx.shape[0], q.shape[1],
-            idx.shape[1], codes[q.dtype], codes[od], stream())
-        return out
-
-    def parent_decode(q, H, sc):
-        (B, m), (d, k) = q.shape, H.shape
-        # the parent wrapper's blocks per row (bloom_decode._groups)
-        per_sm = max(1, min(4, 228 * 1024 // (m * 4 + 2048)))
-        groups = max(1, min(-(-d // 256),
-                            per_sm * common.sm_count(dev) // B, 65535))
-        out = torch.empty((B, d), dtype=torch.float32, device=dev)
-        libs["bloom_decode"].bloom_decode_fwd(
-            q.data_ptr(), codes[q.dtype],
-            None if sc is None else sc.data_ptr(), H.data_ptr(),
-            out.data_ptr(), B, m, d, k, groups, stream())
-        return out
-
-    spec = io_lib.vocab_spec(configs.get_config("qwen1.5-0.5b"))
-    m, D = spec.m, 1024
-    gen = torch.Generator().manual_seed(21)
-    base = torch.randn(m, D, generator=gen).to(dev)
-    found = importlib.util.spec_from_file_location("parent_hashing",
-                                                   parent / "hashing.py")
-    old_hash = importlib.util.module_from_spec(found)
-    found.loader.exec_module(old_hash)
-    probe = torch.arange(8, device=dev)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        old_hash.double_hash(probe, spec.k, m, spec.seed)
-        synced = False
-    except RuntimeError:
-        synced = True
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    print(f"parent: the parent's double_hash on CUDA ids under "
-          f"set_sync_debug_mode('error'): "
-          f"{'raised (it synchronises the host)' if synced else 'ran'}",
-          flush=True)
-    for td in (None, *quant.TABLE_DTYPES):
-        if td is None:
-            q, sc = base.to(torch.bfloat16), None
-        else:
-            q, sc = quant.quantize_table(base, td)
-        for T in (8, 14, 520):
-            tok = torch.randint(0, spec.d, (T,), generator=gen).to(dev)
-            idx = spec.indices_for(tok).contiguous()
-            od = torch.bfloat16
-            if td is None:
-                new_idx = lambda: be.bloom_embed_cuda(q, idx)  # noqa: E731
-                new_tok = lambda: be.bloom_embed_tokens_cuda(  # noqa: E731
-                    q, tok, spec)[0]
-                called = lambda: ops.bloom_embed(  # noqa: E731
-                    q, tok[:, None], spec)
-            else:
-                new_idx = lambda: be.bloom_embed_quantized_cuda(  # noqa: E731
-                    q, sc, idx, od)
-                new_tok = lambda: be.bloom_embed_tokens_quantized_cuda(  # noqa
-                    q, sc, tok, spec, od)[0]
-                called = lambda: be.bloom_embed_tokens_fwd_quantized(  # noqa
-                    q, sc, tok, spec, od)
-            old_called = lambda: parent_embed(  # noqa: E731
-                q, sc, old_hash.double_hash(tok, spec.k, m,
-                                            spec.seed).contiguous(), od)
-            want = parent_embed(q, sc, idx, od)
-            _check(torch.equal(new_idx(), want) and torch.equal(new_tok(),
-                                                                want),
-                   f"parent embed {td} T={T}: the kernels differ")
-            with torch.no_grad():
-                times = _turns(torch, common, {
-                    "parent kernel": lambda: parent_embed(q, sc, idx, od),
-                    "index kernel": new_idx, "token kernel": new_tok,
-                    "parent as called": old_called, "as called": called},
-                    no_graph=("parent as called",))
-            print(f"parent: bloom_embed {td or 'bf16 as is'} -> bf16 T={T} "
-                  f"D={D} k={spec.k}, bit-identical; device ms (graph) / "
-                  f"back-to-back ms (events) / L2-cold device ms "
-                  f"(profiler), in turns: {_turns_line(times)}", flush=True)
-    H = bloom.cached_hash_matrix(spec, dev)
-    H16 = bloom.cached_packed_hash_matrix(spec, dev)
-    logp = torch.log_softmax(3 * torch.randn(8, m, generator=gen), -1)
-    logp = logp.to(dev)
-    for td in (None, *quant.TABLE_DTYPES):
-        for B in (1, 8):
-            q, sc = ((logp[:B], None) if td is None
-                     else quant.quantize_table(logp[:B].contiguous(), td))
-            _check(_equal_nan(torch, parent_decode(q, H, sc),
-                              bd.bloom_decode_cuda(q, H, sc)),
-                   f"parent decode {td} B={B}: the kernels differ")
-            times = _turns(torch, common, {
-                "parent kernel": lambda: parent_decode(q, H, sc),
-                "kernel": lambda: bd.bloom_decode_cuda(q, H, sc, H16)})
-            print(f"parent: bloom_decode {td or 'f32'} B={B} m={m} "
-                  f"d={spec.d} k={spec.k}, bit-identical; device ms (graph) "
-                  f"/ back-to-back ms (events) / L2-cold device ms "
-                  f"(profiler), in turns: {_turns_line(times)}", flush=True)
+def parent_ce(torch, ce, common, old):
+    """The parent's Bloom CE pair (library ``old``) beside this tree's at
+    the main path's shapes (``sweep_ce.SHAPES``: qwen1.5-0.5b's m, whisper-
+    small's, the half range of a 2-way split), T = 512, k = 4: the
+    forward within rtol 1e-6 / atol 1e-5 of the parent's, dz equal to the
+    parent's on the same lse (``torch.equal``), each entry timed in
+    turns, warm and L2-cold."""
+    from repro_torch.kernels import sweep_ce
+    gen = torch.Generator().manual_seed(26)
+    new = ce._library()
+    for label, m, lo in sweep_ce.SHAPES:
+        z, h, g = sweep_ce.inputs(m, lo, gen)
+        got, want = ce.launch_fwd(new, z, h, lo), ce.launch_fwd(old, z, h, lo)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-5)
+        lse = want[0] if lo is not None else want[1]
+        dz = ce.launch_bwd(new, g, z, h, lse, lo)
+        _check(torch.equal(dz, ce.launch_bwd(old, g, z, h, lse, lo)),
+               f"parent bloom_ce {label}: dz differs from the parent's")
+        for what, fns, nbytes in (
+                ("forward", {"parent kernel": lambda: ce.launch_fwd(
+                    old, z, h, lo), "kernel": lambda: ce.launch_fwd(
+                        new, z, h, lo)}, ce.min_bytes(sweep_ce.T, m,
+                                                      sweep_ce.K)),
+                ("backward", {"parent kernel": lambda: ce.launch_bwd(
+                    old, g, z, h, lse, lo), "kernel": lambda: ce.launch_bwd(
+                        new, g, z, h, lse, lo)}, ce.min_bytes(
+                            sweep_ce.T, m, sweep_ce.K, backward=True))):
+            for f in fns.values():      # the clocks up before the turns
+                common.graph_time_ms(f, 20, 5)
+            times = _turns(torch, common, fns)
+            bound_ms = _bound(nbytes, 0)[0]
+            print(f"parent: bloom_ce {what} {label} T={sweep_ce.T} m={m} "
+                  f"k={sweep_ce.K} lo={lo}, dz bit-identical and the "
+                  f"forward within 1e-6 of the parent's; device ms (graph) "
+                  f"/ back-to-back ms (events) / L2-cold device ms, in "
+                  f"turns: {_turns_line(times)}; bound {bound_ms:.6f} ms "
+                  f"(bytes), share of bound L2-cold "
+                  f"{bound_ms / times['kernel'][2]:.3f} (parent "
+                  f"{bound_ms / times['parent kernel'][2]:.3f}), graph "
+                  f"{bound_ms / times['kernel'][0]:.3f} (parent "
+                  f"{bound_ms / times['parent kernel'][0]:.3f}); {_card()}",
+                  flush=True)
 
 
 def main() -> int:
@@ -4246,9 +4158,8 @@ def main() -> int:
         phase_only = "train-parallel"
         transport = sys.argv[4] if sys.argv[3:] else transport
     elif sys.argv[1:2] == ["--parent"]:
-        # a directory holding the parent commit's csrc/bloom_embed.cu and
-        # bloom_decode.cu with the headers they include, to time them
-        # beside this tree's (phase "parent")
+        # a directory holding the parent commit's csrc/bloom_ce.cu, to
+        # time it beside this tree's (phase "parent")
         parent = Path(sys.argv[2]).resolve()
     elif sys.argv[1:]:
         print("usage: chip_smoke.py [--parent DIR | --phase "
@@ -4269,7 +4180,10 @@ def main() -> int:
     from repro_torch.serving import retrieval
 
     t0 = time.perf_counter()
-    procs = None if parent is None else start_parent_build(common, parent)
+    wait_parent = None
+    if parent is not None:
+        from repro_torch.kernels import sweep_ce
+        wait_parent = sweep_ce.start_parent(parent)
     built = common.build()
     print("build: " + ", ".join(f"{n} {s:.3f} s" for n, s in built.items())
           + f" (wall {time.perf_counter() - t0:.3f} s)", flush=True)
@@ -4362,13 +4276,10 @@ def main() -> int:
     rows += prows
     _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")
-    if procs is not None:
-        phase_parent(torch, be, bd, common, quant, procs, parent)
+    if wait_parent is not None:
+        parent_ce(torch, ce, common, wait_parent())
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(_card())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

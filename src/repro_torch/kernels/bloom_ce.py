@@ -34,6 +34,9 @@ Functions, each pair with one signature:
   take the range as ``lo`` (the kernel counted as ``bloom_ce_bwd.range``
   when ``lo`` is given).  ``kernels.ops.bloom_ce_sharded`` is the
   differentiable vocab-parallel loss over them.
+* ``launch_fwd`` / ``launch_bwd`` are one uncounted launch of a given
+  library's kernel (this tree's or another commit's), for the sweep
+  (``sweep_ce``) and the parent comparison in ``chip_smoke.py``.
 * ``bloom_ce`` is the differentiable entry: an ``autograd.Function`` that
   takes the kernels for CUDA tensors and the plain versions for CPU
   tensors (``common.resolve_impl``), saves ``(z, h, lse)`` and returns
@@ -137,8 +140,38 @@ def _check_cuda(z, h, *vectors) -> None:
     T, m = z.shape
     if any(v.shape != (T,) for v in vectors):
         raise ValueError(f"need g and lse of shape ({T},)")
-    if T >= 2 ** 31 or m >= 2 ** 28:      # the grid's x and y limits
+    if T >= 2 ** 31 or m >= 2 ** 28:      # the kernels' int indices
         raise ValueError(f"need T < 2**31 and m < 2**28, got T={T} m={m}")
+
+
+def launch_fwd(lib, z: torch.Tensor, h: torch.Tensor, lo: int | None = None):
+    """One launch of ``lib``'s forward kernel, uncounted and unchecked:
+    (loss, lse) without ``lo``, (lse, hits) with it.  The wrappers below
+    call it with this tree's library; ``sweep_ce`` and ``chip_smoke.py``
+    also with another commit's."""
+    (T, m), k = z.shape, h.shape[1]
+    lse = torch.empty(T, dtype=torch.float32, device=z.device)
+    other = torch.empty_like(lse)
+    if T:
+        err = lib.bloom_ce_fwd(
+            z.data_ptr(), h.data_ptr(), None if lo is not None else
+            other.data_ptr(), lse.data_ptr(), None if lo is None else
+            other.data_ptr(), T, m, k, lo or 0, _stream(z))
+        _raise_on(lib, err, FWD if lo is None else FWD_RANGE)
+    return (other, lse) if lo is None else (lse, other)
+
+
+def launch_bwd(lib, g: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
+               lse: torch.Tensor, lo: int | None = None) -> torch.Tensor:
+    """One launch of ``lib``'s backward kernel (``launch_fwd``'s kin)."""
+    (T, m), k = z.shape, h.shape[1]
+    dz = torch.empty((T, m), dtype=torch.float32, device=z.device)
+    if T and m:
+        err = lib.bloom_ce_bwd(g.data_ptr(), z.data_ptr(), h.data_ptr(),
+                               lse.data_ptr(), dz.data_ptr(), T, m, k,
+                               lo or 0, _stream(z))
+        _raise_on(lib, err, BWD if lo is None else BWD_RANGE)
+    return dz
 
 
 def bloom_ce_cuda(z: torch.Tensor, h: torch.Tensor):
@@ -149,17 +182,11 @@ def bloom_ce_cuda(z: torch.Tensor, h: torch.Tensor):
     output, which is in [0, m) by construction."""
     _check(z, h)
     _check_cuda(z, h)
-    (T, m), k = z.shape, h.shape[1]
-    loss = torch.empty(T, dtype=torch.float32, device=z.device)
-    lse = torch.empty_like(loss)
-    if T == 0:
-        return loss, lse
-    lib = _library()
-    err = lib.bloom_ce_fwd(z.data_ptr(), h.data_ptr(), loss.data_ptr(),
-                           lse.data_ptr(), None, T, m, k, 0, _stream(z))
-    _raise_on(lib, err, FWD)
+    if z.shape[0] == 0:
+        return launch_fwd(None, z, h)
+    out = launch_fwd(_library(), z, h)
     common.count_launch(FWD)
-    return loss, lse
+    return out
 
 
 def _check_lo(lo: int) -> None:
@@ -175,17 +202,11 @@ def bloom_ce_shard_cuda(z: torch.Tensor, h: torch.Tensor, lo: int):
     _check(z, h)
     _check_cuda(z, h)
     _check_lo(lo)
-    (T, m), k = z.shape, h.shape[1]
-    lse = torch.empty(T, dtype=torch.float32, device=z.device)
-    hits = torch.empty_like(lse)
-    if T == 0:
-        return lse, hits
-    lib = _library()
-    err = lib.bloom_ce_fwd(z.data_ptr(), h.data_ptr(), None, lse.data_ptr(),
-                           hits.data_ptr(), T, m, k, lo, _stream(z))
-    _raise_on(lib, err, FWD_RANGE)
+    if z.shape[0] == 0:
+        return launch_fwd(None, z, h, lo)
+    out = launch_fwd(_library(), z, h, lo)
     common.count_launch(FWD_RANGE)
-    return lse, hits
+    return out
 
 
 def bloom_ce_bwd_cuda(g: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
@@ -199,17 +220,10 @@ def bloom_ce_bwd_cuda(g: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
     _check_cuda(z, h, g, lse)
     if lo is not None:
         _check_lo(lo)
-    (T, m), k = z.shape, h.shape[1]
-    dz = torch.empty((T, m), dtype=torch.float32, device=z.device)
-    if T == 0 or m == 0:
-        return dz
-    name = BWD if lo is None else BWD_RANGE
-    lib = _library()
-    err = lib.bloom_ce_bwd(g.data_ptr(), z.data_ptr(), h.data_ptr(),
-                           lse.data_ptr(), dz.data_ptr(), T, m, k, lo or 0,
-                           _stream(z))
-    _raise_on(lib, err, name)
-    common.count_launch(name)
+    if z.numel() == 0:
+        return launch_bwd(None, g, z, h, lse, lo)
+    dz = launch_bwd(_library(), g, z, h, lse, lo)
+    common.count_launch(BWD if lo is None else BWD_RANGE)
     return dz
 
 
@@ -253,9 +267,10 @@ def _raise_on(lib, err: int, name: str) -> None:
                            f"({msg})")
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = common.load_library(NAME)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a loaded ``csrc/bloom_ce.cu`` library
+    (this tree's, or another commit's with the same interface); returns
+    ``lib``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bloom_ce_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.bloom_ce_bwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
@@ -264,3 +279,8 @@ def _library() -> ctypes.CDLL:
     lib.bloom_ce_error_string.argtypes = [i]
     lib.bloom_ce_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return bind(common.load_library(NAME))

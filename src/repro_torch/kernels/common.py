@@ -242,3 +242,12 @@ def graph_time_ms(fn, calls: int = 50, replays: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+def cold_ms(fn, calls: int = 10, replays: int = 5) -> float:
+    """Mean device milliseconds of one ``fn()`` with the 50 MB L2 cold: a
+    CUDA graph of a 96 MB write (twice the L2) and the call, ``calls``
+    times, less a graph of the write alone."""
+    flush = torch.empty(24 * 2 ** 20, dtype=torch.float32, device="cuda")
+    both = graph_time_ms(lambda: (flush.fill_(1.0), fn()), calls, replays)
+    return both - graph_time_ms(lambda: flush.fill_(1.0), calls, replays)

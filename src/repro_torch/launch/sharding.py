@@ -65,6 +65,10 @@ class DistContext:
 
     mesh: Mesh
     model_axis: str = "model"
+    # whether the rows the model sees are this rank's shard of the global
+    # batch (False: every rank holds the whole batch, as a prefill whose
+    # batch does not divide the batch axes does)
+    rows_split: bool = True
 
     @property
     def batch_axes(self) -> Tuple[str, ...]:
@@ -83,6 +87,12 @@ class DistContext:
     def model_index(self) -> int:
         """This rank's coordinate on the model axis."""
         return self.mesh.coords.get(self.model_axis, 0)
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's index along the batch axes, row-major: the shard
+        of the global batch that ``local_batch`` gives it."""
+        return _shard_index(self.batch_axes, self.mesh)[1]
 
     @property
     def model_group(self):

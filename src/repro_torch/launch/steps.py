@@ -39,6 +39,7 @@ waits for ROADMAP A13b (``cache_pspecs``' k/v heads and sequence split).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -202,12 +203,14 @@ def make_prefill_step(cfg: ModelConfig, dist=None):
         kw = {}
         if dist is not None:
             check_parallel(cfg, dist)
+            split = dist.batch_spec_axes(tokens.shape[0]) is not None
             inputs = sharding.local_batch(
                 {"tokens": tokens} if embeds is None
                 else {"tokens": tokens, "embeds": embeds}, dist)
             tokens, embeds = inputs["tokens"], inputs.get("embeds")
             if cfg.family != "audio":
-                kw["dist"] = dist
+                kw["dist"] = (dist if split else
+                              dataclasses.replace(dist, rows_split=False))
         out = apply_fn(model, cfg, tokens, mode="prefill", embeds=embeds,
                        **kw)
         last = out["logits"][:, -1]

@@ -27,13 +27,33 @@ softmax router's top-k, ties to the lower expert id (``jax.lax.top_k``'s
 order, here a stable descending sort); a routed copy's place in its
 expert's queue is the exclusive cumsum over the (T·k) copies in token
 order; copies past the capacity C = max(1, ceil(T·k·cf / E)) are dropped
-to the sentinel slot E·C.  Token INDICES (not vectors) are scattered
-into the (E·C + 1,) buffer and the rows gathered once into the (E, C, D)
-expert buffer.  The combine differs in form, not in value: where the
-reference scatter-adds the expert outputs into (T + 1, D), each token
-here gathers its k copies by their slots (dropped copies read a zero
-row) and sums them in a fixed order, because a float scatter-add on
-CUDA takes atomics and its sum order changes from run to run.
+to the sentinel slot E·C.
+
+``dense`` under a data axis (a mesh of D x 1, D > 1, each rank holding
+its contiguous rows of the global batch in rank order,
+``sharding.local_batch``) routes as the reference routes the global
+batch under GSPMD: C is the capacity of the global T (the local T times
+D); a copy's queue position is its local exclusive position plus the
+copies of its expert in the earlier shards (one all-gather of each
+shard's (E,) counts); it is kept if and only if that global position is
+below C; and aux is E·Σ_e f_e·P_e over the global batch (the counts and
+the probability sums all-reduced).  Each rank's buffer holds only its
+own kept copies, at their local positions, min(C, T_local) slots an
+expert.  aux's value is the global one; its gradient on each rank is
+E·f_e / T_local on the rank's own probabilities, so that the step's
+gradient mean over the data axis is the global aux's gradient (the
+Megatron pattern of a forward all-reduce with a local backward; the
+router and aux stay outside any split region, as in ``ep``).  The
+reference's ``ep`` path routes each shard alone (its capacity of the
+shard's T, a pmean of aux), and so does the port's.
+
+Token INDICES (not vectors) are scattered into the (E·C + 1,) buffer and
+the rows gathered once into the (E, C, D) expert buffer. The combine
+differs in form, not in value: where the reference scatter-adds the
+expert outputs into (T + 1, D), each token here gathers its k copies by
+their slots (dropped copies read a zero row) and sums them in a fixed
+order, because a float scatter-add on CUDA takes atomics and its sum
+order changes from run to run.
 """
 from __future__ import annotations
 
@@ -85,15 +105,17 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
 class Routing:
     """One routing of T tokens: ``sel`` (T, k) expert ids and ``gate``
     (T, k) f32 renormalised weights, each row's best first; per routed
-    copy (T·k, token order) its queue position ``pos``, ``keep`` and its
-    buffer ``slot`` (E·C for a dropped copy); and the load-balance
-    ``aux``, E·Σ_e f_e·P_e."""
+    copy (T·k, token order) its queue position ``pos`` (global under a
+    data axis), ``keep`` and its buffer ``slot`` (E·``buf`` for a
+    dropped copy), ``buf`` the buffer's slots per expert; and the
+    load-balance ``aux``, E·Σ_e f_e·P_e."""
     sel: torch.Tensor
     gate: torch.Tensor
     pos: torch.Tensor
     keep: torch.Tensor
     slot: torch.Tensor
     aux: torch.Tensor
+    buf: int
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -107,29 +129,71 @@ def _router_probs(router: torch.Tensor, x_flat: torch.Tensor):
     return torch.softmax(logits, dim=-1)
 
 
+def queue_positions(flat_sel: torch.Tensor, E: int) -> torch.Tensor:
+    """Each routed copy's exclusive position in its expert's queue, in
+    token order."""
+    oh = F.one_hot(flat_sel, E)                               # (T*k, E)
+    return (torch.cumsum(oh, 0) - oh).gather(1, flat_sel[:, None])[:, 0]
+
+
+def offset_positions(local: torch.Tensor, flat_sel: torch.Tensor,
+                     counts: list, index: int):
+    """(global queue positions, global (E,) counts) of shard ``index``'s
+    copies: their ``local`` positions plus the copies of their expert in
+    the shards before it; ``counts`` is every shard's (E,) expert counts
+    in rank order."""
+    zero = torch.zeros_like(counts[0])
+    return local + sum(counts[:index], zero)[flat_sel], sum(counts, zero)
+
+
+def global_routing(dist) -> bool:
+    """Whether the dense path routes the global batch: a data axis of
+    more than one whose ranks hold split rows."""
+    return dist is not None and dist.n_batch > 1 and dist.rows_split
+
+
 def route(router: torch.Tensor, x_flat: torch.Tensor, cfg: ModelConfig,
-          cap: int) -> Routing:
+          cap: int | None = None, dist=None) -> Routing:
     """The reference's ``_route_local`` with every expert local: route
     x_flat (T, D) through the softmax router to its top-k experts, each
-    holding ``cap`` slots."""
+    holding ``cap`` slots of the routed batch's queue (by default
+    ``capacity`` of the routed batch).  Under ``dist``
+    (``global_routing``) x_flat is this rank's rows of the routed global
+    batch (the module's docstring)."""
     mo = cfg.moe
     T = x_flat.shape[0]
     k, E = mo.top_k, mo.num_experts
+    glob = global_routing(dist)
+    if cap is None:
+        cap = capacity(T * dist.n_batch if glob else T, cfg)
     probs = _router_probs(router, x_flat)                     # (T, E)
     gate, sel = _top_k(probs, k)                              # (T, k)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
     flat_sel = sel.reshape(-1)                                # (T*k,)
-    f = torch.bincount(flat_sel, minlength=E).float() / (T * k)
-    aux = mo.num_experts * (f * probs.mean(0)).sum()
-
-    # position of each routed copy within its expert's queue (exclusive)
-    oh = F.one_hot(flat_sel, E)                               # (T*k, E)
-    pos = (torch.cumsum(oh, 0) - oh).gather(1, flat_sel[:, None])[:, 0]
+    counts = torch.bincount(flat_sel, minlength=E)
+    local = queue_positions(flat_sel, E)
+    if not glob:
+        f = counts.float() / (T * k)
+        aux = mo.num_experts * (f * probs.mean(0)).sum()
+        pos, buf = local, cap
+    else:
+        n = dist.n_batch
+        pos, total = offset_positions(
+            local, flat_sel, collectives.all_gather(counts, dist, "batch"),
+            dist.batch_index)
+        f = total.float() / (T * n * k)
+        p_sum = collectives.all_reduce_sum(probs.sum(0), dist, "batch")
+        mine = mo.num_experts * (f * probs.mean(0)).sum()
+        aux = mine + (mo.num_experts * (f * p_sum / (T * n)).sum()
+                      - mine).detach()
+        # a kept copy's local position is below its global one and below
+        # T (a token picks an expert once)
+        buf = min(cap, T)
     keep = pos < cap
-    slot = torch.where(keep, flat_sel * cap + pos,
-                       torch.full_like(pos, E * cap))
-    return Routing(sel, gate, pos, keep, slot, aux)
+    slot = torch.where(keep, flat_sel * buf + local,
+                       torch.full_like(pos, E * buf))
+    return Routing(sel, gate, pos, keep, slot, aux, buf)
 
 
 def _experts(p: MoE, x_buf: torch.Tensor) -> torch.Tensor:
@@ -156,8 +220,9 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, dist=None):
     x_flat = x.reshape(B * S, D)
     T, dt = x_flat.shape[0], x_flat.dtype
     mo = cfg.moe
-    k, E, C = mo.top_k, mo.num_experts, capacity(T, cfg)
-    r = route(p.router, x_flat, cfg, C)
+    k, E = mo.top_k, mo.num_experts
+    r = route(p.router, x_flat, cfg, dist=dist)
+    C = r.buf
 
     # scatter token indices (not vectors) into the buffer, then gather
     # once; dropped copies all land on the sentinel slot E*C, cut off

@@ -8,8 +8,11 @@ backward, ``bloom_ce_bwd_plain`` on the CPU) against ``jax.grad``.
 Tolerances: loss and gradient within 1e-6 absolute plus 1e-6 relative
 (a few f32 ulps at the values' size), because the two packages sum the
 exp-sum and the k picked logits in another order.  Labels -1 (masked
-positions) and rows whose k hashes repeat a column are included.  On the
-CPU the entry takes the plain versions and launches nothing."""
+positions) and rows whose k hashes repeat a column are included, and the
+cases the Hopper kernels branch on (k = 1, 2, 4, 8 and others, m not a
+multiple of 4, -inf columns and rows, a shard no label falls in), where
+non-finite entries must be non-finite on both sides.  On the CPU the
+entry takes the plain versions and launches nothing."""
 import dataclasses
 
 import jax
@@ -23,7 +26,7 @@ from repro.core import losses as jlosses
 from repro.core.bloom import BloomSpec as JSpec
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.kernels.bloom_ce import bloom_ce_pallas
+from repro.kernels.bloom_ce import bloom_ce_bwd_pallas, bloom_ce_pallas
 from repro.models import io as j_io
 from repro_torch import configs as tconfigs
 from repro_torch.core import losses
@@ -141,6 +144,72 @@ def test_ops_and_lm_loss_match_the_reference(masked):
                                     torch.from_numpy(dlab), tvalid)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+
+
+# the cases the Hopper kernels branch on: k held in registers (1, 2, 4, 8)
+# or read per element (3, 5); m a multiple of 4 (16-byte loads) or not
+EDGE = [(6, 64, 1), (6, 64, 2), (6, 64, 4), (6, 64, 8), (6, 64, 3),
+        (6, 37, 5), (5, 38, 4)]
+
+
+def _finite_close(got, want, what, rtol=1e-6, atol=1e-6):
+    """Equal where each is finite, the same entries non-finite (the
+    finite-mask rule of chip_smoke's ``_max_abs_err``)."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want),
+                                  err_msg=what)
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=rtol, atol=atol,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("T,m,k", EDGE)
+def test_plain_pair_matches_pallas_on_the_kernels_cases(T, m, k):
+    """Repeated labels (a column hashed two and three times), -inf columns
+    in a row and a row of -inf alone: loss, lse and dz of the plain
+    versions against ``bloom_ce_pallas`` / ``bloom_ce_bwd_pallas`` in
+    interpret mode, non-finite entries where theirs are."""
+    z, h, g = _inputs(T, m, k, seed=2, dup=True)
+    if k >= 3:
+        h[1, 2] = h[1, 1] = h[1, 0]
+    z[2, 3:9] = -np.inf
+    z[4] = -np.inf
+    loss, lse = ce.bloom_ce_plain(torch.from_numpy(z), torch.from_numpy(h))
+    jz, jh = jnp.asarray(z), jnp.asarray(h)
+    _finite_close(loss.numpy(), bloom_ce_pallas(jz, jh, interpret=True),
+                  "loss")
+    _finite_close(lse.numpy(), jax.nn.logsumexp(jz, -1), "lse")
+    dz = ce.bloom_ce_bwd_plain(torch.from_numpy(g), torch.from_numpy(z),
+                               torch.from_numpy(h), lse)
+    want = bloom_ce_bwd_pallas(jnp.asarray(g), jz, jh,
+                               jnp.asarray(lse.numpy()), interpret=True)
+    _finite_close(dz.numpy(), want, "dz")
+
+
+@pytest.mark.parametrize("m", [64, 38])
+def test_ranged_pair_with_every_label_outside_the_shard(m):
+    """A shard [lo, lo + m) that no label falls in: the ranged forward's
+    local lse is the shard's logsumexp and its hit sum 0.0; the ranged
+    backward with the global lse is ``jax.grad`` of the whole row's
+    ``bloom_ce_pallas`` loss on the shard's columns (no count there)."""
+    T, k, lo = 5, 4, 40
+    z, _, g = _inputs(T, lo + m, k, seed=4)
+    h = np.random.default_rng(5).integers(0, lo, size=(T, k)) \
+        .astype(np.int32)
+    zs = torch.from_numpy(np.ascontiguousarray(z[:, lo:]))
+    lse_loc, hits = ce.bloom_ce_shard_plain(zs, torch.from_numpy(h), lo)
+    np.testing.assert_allclose(
+        lse_loc.numpy(), np.asarray(jax.nn.logsumexp(jnp.asarray(z[:, lo:]),
+                                                     -1)),
+        rtol=1e-6, atol=1e-6)
+    assert torch.equal(hits, torch.zeros(T))
+    lse = torch.from_numpy(np.array(jax.nn.logsumexp(jnp.asarray(z), -1)))
+    dz = ce.bloom_ce_bwd_plain(torch.from_numpy(g), zs, torch.from_numpy(h),
+                               lse, lo)
+    want = jax.grad(lambda a: jnp.sum(bloom_ce_pallas(
+        a, jnp.asarray(h), interpret=True) * g))(jnp.asarray(z))
+    np.testing.assert_allclose(dz.numpy(), np.asarray(want)[:, lo:],
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_cpu_entry_launches_nothing():

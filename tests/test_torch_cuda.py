@@ -5,8 +5,11 @@ embedding rounds once to the table's dtype; the CSR scatter-add
 bit-identical to its plain version on a CPU copy, where ``index_add_``
 adds in index order; the Bloom CE within loss rtol 1e-6 / atol 1e-5 and
 dz atol 1e-7, since the kernel's expf and exp-sum order differ from
-torch's in the last ulp), their input checks, the retrieval drill
-launching the decode kernel once per decode step, the LM engine launching
+torch's in the last ulp; also on the cases the CE kernels branch on:
+k = 1, 2, 4, 8 and others, ragged m, -inf columns and rows, the ranged
+pair with a row's labels all outside the shard), their input checks,
+the retrieval drill launching the decode kernel once per decode step,
+the LM engine launching
 the decode and embedding kernels once per prefill and per decode step, and
 a training step launching the embedding, CSR and CE kernels once each;
 and the quantized variants (``table_dtype``): the embedding over f32, bf16,
@@ -233,6 +236,61 @@ def test_ce_kernels_take_an_unaligned_row(cuda):
     torch.testing.assert_close(ce.bloom_ce_bwd_cuda(g, z, h, lse),
                                ce.bloom_ce_bwd_plain(g, z, h, lse),
                                rtol=0, atol=1e-7)
+
+
+def _finite_close(got, want, what, rtol, atol):
+    """Equal where finite, the same entries non-finite."""
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want)), what
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=rtol, atol=atol,
+                               msg=what)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 3, 40])
+@pytest.mark.parametrize("m", [37, 1000, 10240])
+def test_ce_kernels_on_the_branch_cases(cuda, k, m):
+    """The cases the kernels branch on: k held in registers (1, 2, 4, 8)
+    or read per element (3; 40, past one warp's picked lanes), m ragged
+    (37) or a multiple of 4, a column hashed three times, -inf columns and
+    a row of -inf alone; the forward within rtol 1e-6 / atol 1e-5 and dz
+    within atol 1e-7 of the plain versions, non-finite where they are;
+    the ranged pair at lo = 100 (one row's labels all outside the shard)
+    likewise, and at lo = 0 bit-identical to the unranged pair."""
+    gen = torch.Generator().manual_seed(k * 7 + m)
+    lo = 100
+    zf = 3.0 * torch.randn(7, lo + m, generator=gen)
+    zf[1, lo + 5:lo + 9] = -float("inf")
+    zf[2] = -float("inf")
+    h = torch.randint(0, lo + m, (7, k), generator=gen, dtype=torch.int32)
+    if k >= 3:
+        h[0, 2] = h[0, 1] = h[0, 0]
+    h[3] = torch.randint(0, lo, (k,), generator=gen)
+    g = torch.randn(7, generator=gen).to(cuda)
+    zf, h = zf.to(cuda), h.to(cuda)
+    z = zf[:, lo:].contiguous()
+    hz = (h - lo).clamp(0, m - 1).contiguous()
+    loss, lse = ce.bloom_ce_cuda(z, hz)
+    dz = ce.bloom_ce_bwd_cuda(g, z, hz, lse)
+    ploss, plse = ce.bloom_ce_plain(z, hz)
+    _finite_close(loss, ploss, "loss", 1e-6, 1e-5)
+    _finite_close(lse, plse, "lse", 1e-6, 1e-5)
+    _finite_close(dz, ce.bloom_ce_bwd_plain(g, z, hz, lse), "dz", 0, 1e-7)
+    l0, hits0 = ce.bloom_ce_shard_cuda(z, hz, 0)
+    assert torch.equal(l0.nan_to_num(), lse.nan_to_num())
+    # the hit sum is the plain version's bit for bit (both add in j order)
+    assert torch.equal(hits0.nan_to_num(),
+                       ce.bloom_ce_shard_plain(z, hz, 0)[1].nan_to_num())
+    assert torch.equal(ce.bloom_ce_bwd_cuda(g, z, hz, lse, 0).nan_to_num(),
+                       dz.nan_to_num())
+    slse, hits = ce.bloom_ce_shard_cuda(z, h, lo)
+    pslse, phits = ce.bloom_ce_shard_plain(z, h, lo)
+    _finite_close(slse, pslse, "ranged lse", 1e-6, 1e-5)
+    _finite_close(hits, phits, "hits", 1e-6, 1e-5)
+    assert float(hits[3]) == 0.0
+    glse = torch.logsumexp(zf, -1)
+    _finite_close(ce.bloom_ce_bwd_cuda(g, z, h, glse, lo),
+                  ce.bloom_ce_bwd_plain(g, z, h, glse, lo), "ranged dz", 0,
+                  1e-7)
 
 
 def test_ce_wrappers_reject_what_the_kernels_do_not_take(cuda):

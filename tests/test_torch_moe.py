@@ -11,7 +11,9 @@ and the load-balance aux within 1e-6; the capacity path's output and aux
 against the reference's within 1e-5 (the six cases of
 tests/test_models_moe.py, each on shared params); the dense oracle
 against the reference's oracle; the gradients against ``jax.grad``
-within 1e-4; and the capacity arithmetic at the serving shapes."""
+within 1e-4; the capacity arithmetic at the serving shapes; and the
+global queue positions of a data-split batch (local position plus the
+earlier shards' counts) against the reference's global cumsum."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +125,34 @@ def test_routing_integers_equal_the_reference(E, k, cf, T, zero_router):
         assert (got.sel.numpy() == np.arange(k)).all()
     if cf <= 1.0:
         assert not got.keep.all()        # the case has drops
+
+
+@pytest.mark.parametrize("n,cf", [(2, 0.25), (4, 0.25), (2, 8.0)])
+def test_shard_positions_add_up_to_the_global_cumsum(n, cf):
+    """The dense path under a data axis of n shards, in one process: each
+    shard's local queue positions plus the earlier shards' expert counts
+    (``offset_positions`` over the shards' bincounts, in rank order, as
+    the all-gather returns them) equal the reference's exclusive cumsum over
+    the global batch's copies; the summed counts its f; and the copies
+    kept below the global capacity its ``keep``."""
+    jcfg, tcfg, jp, tm = _pair(E=8, k=2, cf=cf)
+    T = 32
+    x = _x((T, 16), seed=5)
+    C = j_moe._capacity(T, jcfg)
+    want = _reference_routing(jp, jnp.asarray(x), jcfg, C)
+    sel = torch.from_numpy(np.asarray(want["sel"]).astype(np.int64))
+    shards = sel.reshape(n, -1)          # contiguous rows, token order
+    counts = [torch.bincount(s, minlength=8) for s in shards]
+    got = [t_moe.offset_positions(t_moe.queue_positions(s, 8), s, counts,
+                                  i) for i, s in enumerate(shards)]
+    pos = torch.cat([p for p, _ in got])
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(want["pos"]))
+    np.testing.assert_array_equal((pos < C).numpy(), np.asarray(want["keep"]))
+    for _, total in got:
+        assert torch.equal(total, torch.bincount(sel.reshape(-1),
+                                                 minlength=8))
+    if cf < 1:
+        assert not (pos < C).all()
 
 
 def _apply_both(jcfg, tcfg, jp, tm, x):

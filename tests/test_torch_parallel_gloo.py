@@ -22,13 +22,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import torch
+
 from repro import configs as jconfigs
+from repro.configs.base import MoEConfig as JMoEConfig
+from repro.configs.base import ModelConfig as JModelConfig
 from repro.configs.base import TrainConfig as JTrainConfig
 from repro.launch import steps as j_steps
+from repro.models import moe as j_moe
 from repro.models import transformer as j_tf
 from repro_torch import configs as tconfigs
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import MoEConfig, ModelConfig, TrainConfig
+from repro_torch.launch import collectives
+from repro_torch.launch import sharding
 from repro_torch.launch import train as t_train
+from repro_torch.models import moe as t_moe
 from repro_torch.models import transformer as t_tf
 from repro_torch.optim import optimizers as t_opt
 
@@ -138,3 +146,106 @@ def test_expert_parallel_prefill_and_a_resume_on_another_mesh(tmp_path):
     _, one = t_train.run(arch, steps=3, ckpt_dir=copy, **kw)
     assert [h["step"] for h in resumed] == [h["step"] for h in one] == [3]
     assert resumed[0]["loss"] == pytest.approx(one[0]["loss"], rel=1e-6)
+
+
+# tests/test_torch_moe.py's 8-expert top-2 layer (d_model 16, f32)
+MOE_KW = dict(name="moe", family="moe", num_layers=1, d_model=16,
+              num_heads=2, num_kv_heads=2, d_ff=32, vocab=64,
+              dtype="float32")
+
+
+def _moe_cfgs(cf):
+    mkw = dict(num_experts=8, top_k=2, num_shared=0, d_ff_expert=24,
+               capacity_factor=cf)
+    return (JModelConfig(moe=JMoEConfig(**mkw), **MOE_KW),
+            ModelConfig(moe=MoEConfig(**mkw), **MOE_KW))
+
+
+def dense_moe_job(mesh, cases):
+    """One rank of the dense MoE layer on a mesh of D x 1: for each
+    (cfg, params, x (B, S, D) global, w (B, S, D)) this rank's rows
+    (``sharding.local_batch``) through ``moe.moe_apply`` and ``route``,
+    and the router's gradient of D·Σ out·w + aux averaged over the data
+    axis (``collectives.data_mean``, as the train step averages).
+    Returns per case {"out", "aux", "pos", "keep", "grad"}, numpy."""
+    dist = sharding.DistContext(mesh)
+    results = []
+    for cfg, params, x, w in cases:
+        model = t_moe.MoE(cfg)
+        model.load_state_dict({n: torch.as_tensor(v)
+                               for n, v in params.items()})
+        rows = sharding.local_batch({"x": torch.as_tensor(x),
+                                     "w": torch.as_tensor(w)}, dist)
+        out, aux = t_moe.moe_apply(model, rows["x"], cfg, dist)
+        (dist.n_batch * (out * rows["w"]).sum() + aux).backward()
+        grad = collectives.data_mean({"router": model.router.grad}, dist)
+        flat = rows["x"].reshape(-1, cfg.d_model)
+        with torch.no_grad():
+            r = t_moe.route(model.router, flat, cfg, dist=dist)
+            # every rank holding the whole batch (a replicated prefill)
+            whole, whole_aux = t_moe.moe_apply(
+                model, torch.as_tensor(x), cfg,
+                dataclasses.replace(dist, rows_split=False))
+        results.append({"out": out.detach().numpy(),
+                        "aux": float(aux.detach()),
+                        "pos": r.pos.numpy(), "keep": r.keep.numpy(),
+                        "grad": grad["router"].numpy(),
+                        "whole": whole.numpy(),
+                        "whole_aux": float(whole_aux)})
+    return results
+
+
+def test_dense_moe_on_a_data_axis_routes_the_global_batch():
+    """The dense MoE (``moe_impl="dense"``) on two gloo ranks, mesh 2x1,
+    each holding half the rows of a (4, 8) batch: its outputs within 1e-5
+    and its aux within 1e-6 of the reference's ``moe_apply`` on the
+    global batch, the queue positions and kept copies equal to the
+    reference's global routing, and the router's gradient of
+    Σ out·w + aux, averaged over the ranks, within 1e-5 of ``jax.grad``
+    on the global batch; at capacity factor 0.25 (drops that depend on
+    the other shard's copies) and 8.0 (none).  A rank holding the whole
+    batch (``rows_split=False``, a replicated prefill) routes it alone,
+    to the same outputs and aux."""
+    left = _deadline()
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((4, 8, 16)).astype(np.float32)
+    w = rng.standard_normal((4, 8, 16)).astype(np.float32)
+    cases, wants = [], []
+    for cf in (0.25, 8.0):
+        jcfg, tcfg = _moe_cfgs(cf)
+        jp = j_moe.moe_init(jax.random.PRNGKey(0), jcfg)
+        params = {n: np.asarray(v) for n, v in jp.items()}
+        cases.append((tcfg, params, x, w))
+
+        def loss(router, jp=jp, jcfg=jcfg):
+            out, aux = j_moe.moe_apply({**jp, "router": router},
+                                       jnp.asarray(x), jcfg)
+            return jnp.sum(out * w) + aux
+
+        out, aux = j_moe.moe_apply(jp, jnp.asarray(x), jcfg)
+        flat = jnp.asarray(x.reshape(-1, 16))
+        probs = jax.nn.softmax(flat @ jp["router"], -1)
+        sel = np.asarray(jax.lax.top_k(probs, 2)[1]).reshape(-1)
+        oh = np.eye(8, dtype=np.int64)[sel]
+        pos = ((np.cumsum(oh, 0) - oh) * oh).sum(-1)
+        C = j_moe._capacity(32, jcfg)
+        wants.append((np.asarray(out), float(aux), pos, pos < C,
+                      np.asarray(jax.grad(loss)(jp["router"]))))
+    got = t_train.spawn(dense_moe_job, (2, 1), "gloo", "cpu", (cases,),
+                        timeout=left())
+    for i, (out, aux, pos, keep, grad) in enumerate(wants):
+        parts = [g[i] for g in got]
+        np.testing.assert_allclose(
+            np.concatenate([p["out"] for p in parts]), out, rtol=0,
+            atol=1e-5, err_msg=f"case {i}")
+        for p in parts:
+            assert p["aux"] == pytest.approx(aux, abs=1e-6)
+            np.testing.assert_allclose(p["grad"], grad, rtol=0, atol=1e-5)
+            np.testing.assert_allclose(p["whole"], out, rtol=0, atol=1e-5)
+            assert p["whole_aux"] == pytest.approx(aux, abs=1e-6)
+        np.testing.assert_array_equal(
+            np.concatenate([p["pos"] for p in parts]), pos)
+        np.testing.assert_array_equal(
+            np.concatenate([p["keep"] for p in parts]), keep)
+    assert not wants[0][3].all() and wants[1][3].all()
+
