@@ -91,7 +91,15 @@ Phases, one line of numbers each:
                 finite and step 8's below step 1's; then a resume drill (4
                 steps with a checkpoint, then a fresh run that restores it
                 and trains to 8) whose losses 5-8 equal the straight run's
-                within rtol 1e-6;
+                within rtol 1e-6; then the roofline's share of that step,
+                beside the card's name and power limit: the analytic
+                model FLOPs (``roofline.model_flops``) over the median
+                step wall times the bf16 peak, and the same step counted
+                on ``meta`` by the dry run for mesh 1x1 (its roofline
+                bound against the measured step); the count's
+                argument_bytes must equal the bytes of the same tensors
+                allocated on the card, and its temp_bytes is printed
+                beside torch.cuda.max_memory_allocated;
   8. kernels-quant — the quantized variants (table_dtype) against their
                 plain versions on the same tensors on the card,
                 bit-identical: bloom_embed's index entry over f32, bf16,
@@ -348,6 +356,32 @@ Phases, one line of numbers each:
                 against their plain versions on its own shard; it prints
                 its step walls, its collective seconds per step and each
                 collective's branch (device buffer or host-staged);
+ 17c. serve-parallel — whole-batch serving (launch/serve.generate under
+                a mesh: prefill, then the decode step against each rank's
+                cache shards, the vocab-parallel logits all-gathered over
+                ``model`` before the decode-top-k kernel) on four ranks
+                sharing the card over gloo: qwen1.5-0.5b at full width and
+                depth (24 layers, d_model 1024, 16 heads and 16 kv heads,
+                m = 30,208, k = 4), B = 4, prompt 32, 12 tokens, on mesh
+                1x4 and 2x2, and olmoe-1b-7b at full width and 2 of 16
+                layers on mesh 1x4 with moe_impl="ep", f32 (a bf16 split
+                rounds partial sums that one rank does not: the bf16 1x4
+                run's gap is printed, not held), from the weights rank 0
+                draws on the card.  Every token and every top-k id equals
+                the same weights' one-rank run here, the top-k scores
+                within 1e-4 (two ids whose one-rank scores tie within
+                1e-4 may swap; a row whose token falls on such a tie is
+                compared no further); each rank holds every kernel launch
+                against its plain version as it happens
+                (``held_to_plain``) and prints each decode step's wall,
+                its collective seconds and the busy share (the wall less
+                the collective seconds, over the wall);
+ 17d. dry run — ``python -m repro_torch.launch.dryrun --all --jobs 6``
+                (the production grid counted on ``meta`` tensors at the
+                H100's rates), started in a subprocess just before the
+                build, beside it on the host's cores, and read right
+                after it: exactly 18 ``OK`` lines, 14 ``WAIT`` lines
+                (ROADMAP A13b item 3) and no ``FAIL``;
  18. parent (only with --parent DIR) — the parent commit's Bloom CE
                 kernels, built from DIR/bloom_ce.cu beside this tree's
                 (``sweep_ce.start_parent``), timed in turns (parent,
@@ -369,6 +403,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -376,14 +411,13 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 outside the tensor
-# cores; the bound of a kernel is the larger of bytes/rate and ops/peak
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# int32 operations outside the tensor cores: 132 SMs x 64 INT32 lanes per
-# SM per clock (4 sub-partitions of 16) x 1.98 GHz, the H100 SXM's maximum
-# boost clock (NVIDIA's Hopper white paper and data sheet)
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+def _rates():
+    """The H100 SXM's rates, kept in one place (``launch/roofline.py``):
+    the bound of a kernel is the larger of bytes over ``HBM_BW`` and ops
+    over ``F32_PEAK_FLOPS`` (or ``INT32_PEAK_OPS``)."""
+    from repro_torch.launch import roofline
+    return roofline
 
 
 @functools.lru_cache(maxsize=None)
@@ -455,8 +489,8 @@ def phase_kernels(torch, dt, common, bloom, get_retrieval_config):
     library_dev_ms = common.graph_time_ms(library, 3, 2)
     nbytes = dt.min_bytes(B, B, m=m, d=d, k=k, topk=topk)
     ops = d * B * (k - 1)
-    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_bytes_ms = nbytes / _rates().HBM_BW * 1e3
+    bound_ops_ms = ops / _rates().F32_PEAK_FLOPS * 1e3
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
     bound_partial_ms, _ = _bound(dt.min_bytes(3, B, m=m, d=d, k=k,
                                               topk=topk), d * 3 * (k - 1))
@@ -482,8 +516,8 @@ def phase_kernels(torch, dt, common, bloom, get_retrieval_config):
 def _bound(nbytes: int, ops: int):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and f32
     operations over the f32 peak."""
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / F32_OPS_PER_S * 1e3
+    b_ms = nbytes / _rates().HBM_BW * 1e3
+    o_ms = ops / _rates().F32_PEAK_FLOPS * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
@@ -1133,6 +1167,8 @@ def phase_train_lm(torch, common, names):
           f"{batch * seq / med * 1e3:.1f} tokens/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
           f"launches {counts}", flush=True)
+    roofline_share(torch, cfg, batch, seq, med / 1e3,
+                   torch.cuda.max_memory_allocated())
 
     ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1152,6 +1188,55 @@ def phase_train_lm(torch, common, names):
           f"losses {drill} equal the straight run's within rtol 1e-6",
           flush=True)
     return counts, losses, step_ms
+
+
+def roofline_share(torch, cfg, batch: int, seq: int, step_s: float,
+                   peak_bytes: int) -> None:
+    """The roofline's share of train-lm's measured step (the module's
+    docstring): the step's tokens are (batch, seq + 1), the window the
+    training loop cuts, so the count's shape is that."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import dryrun, sharding
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import counting_mesh
+    roofline = _rates()
+    shape = ShapeConfig("train_lm", seq + 1, batch, "train")
+    tc = TrainConfig(optimizer="adamw", learning_rate=3e-3,
+                     grad_clip_norm=1.0, steps=8, warmup_steps=10)
+    dist = sharding.DistContext(counting_mesh((1, 1)))
+    count = dryrun.count_step(*dryrun.step_variant(cfg, shape, dist, tc),
+                              dist.mesh.transport)
+    terms = roofline.roofline_terms(count["flops_dev"], count["bytes_dev"],
+                                    count["collectives"]["total_bytes"])
+    mf = roofline.model_flops(cfg, shape)
+    dev = torch.device("cuda")
+    model = steps_lib.init_fn_for(cfg)(0).to(dev)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    state = steps_lib.make_train_step(cfg, tc)[1].init(params)
+    tokens = torch.zeros(batch, seq + 1, dtype=torch.int32, device=dev)
+    on_card = dryrun.storage_bytes((params, state, {"tokens": tokens}))
+    mem = count["memory"]
+    del model, params, state
+    torch.cuda.empty_cache()
+    _check(mem["argument_bytes"] == on_card, f"train-lm roofline: meta "
+           f"argument_bytes {mem['argument_bytes']} != {on_card} bytes of "
+           "the same tensors on the card")
+    print(f"train-lm roofline: {cfg.name} batch {batch} x {seq + 1} tokens, "
+          f"one rank; model FLOPs {mf:.6e} over (median step "
+          f"{step_s * 1e3:.6f} ms x bf16 peak {roofline.PEAK_FLOPS:.4e}) = "
+          f"{mf / (step_s * roofline.PEAK_FLOPS):.6f}; counted on meta "
+          f"(mesh 1x1): {count['flops_dev']:.6e} FLOPs, "
+          f"{count['bytes_dev']:.6e} bytes, bound "
+          f"{terms['step_time_s'] * 1e3:.6f} ms ({terms['dominant']}: "
+          f"compute {terms['compute_s'] * 1e3:.6f} ms, memory "
+          f"{terms['memory_s'] * 1e3:.6f} ms) = "
+          f"{terms['step_time_s'] / step_s:.6f} of the measured step; "
+          f"argument_bytes {mem['argument_bytes']} == the same tensors on "
+          f"the card; temp_bytes {mem['temp_bytes']} (argument + temp "
+          f"{(mem['argument_bytes'] + mem['temp_bytes']) / 2 ** 30:.3f} "
+          f"GiB) beside max_memory_allocated {peak_bytes / 2 ** 30:.3f} "
+          f"GiB; Bloom kernels counted {count['kernels']}; {_card()}",
+          flush=True)
 
 
 def phase_serve(torch, dt, common, bloom, retrieval, get_retrieval_config):
@@ -1210,8 +1295,8 @@ def phase_serve(torch, dt, common, bloom, retrieval, get_retrieval_config):
 def _bound_int(nbytes: int, int_ops: int):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     int32 operations over the int32 rate."""
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = int_ops / INT32_OPS_PER_S * 1e3
+    b_ms = nbytes / _rates().HBM_BW * 1e3
+    o_ms = int_ops / _rates().INT32_PEAK_OPS * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
@@ -4093,6 +4178,262 @@ def phase_train_parallel(torch, be, ce, csr, common, transport="gloo"):
     return list(rows.values()), counts
 
 
+def _rank_serve(mesh, jobs):
+    """One rank of phase serve-parallel: each job ({shape, cfg, prompts,
+    gen, topk, cache_dtype}) on a (data, model) mesh of its shape over
+    the same four ranks, from weights rank 0 draws on the card; the
+    generation (``serve.generate`` under the mesh) inside
+    ``held_to_plain``.  Returns per job the ids, each decode step's top-k
+    ids and scores (batch rows gathered), each step's wall and collective
+    seconds, its launches (reset just before, read just after) and the
+    held checks' errors."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import common
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve, sharding, train
+    from repro_torch.launch import steps as steps_lib
+    tr, dev = mesh.transport, mesh.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    results = []
+    for job in jobs:
+        cfg = job["cfg"]
+        dist_ctx = sharding.DistContext(
+            mesh if job["shape"] == mesh.sizes else mesh_lib.world_mesh(
+                job["shape"], mesh.axis_names, dev, tr))
+        t0 = time.perf_counter()
+        full = (dict(_draw(torch, cfg, 0, dev).named_parameters())
+                if mesh.rank == 0 else None)
+        model = train.parallel_state(cfg, None, 0, None, dist_ctx, full)[0]
+        del full
+        steps_lib.cast_params_for_compute(model, cfg)
+        model.eval().requires_grad_(False)
+        sync()
+        r = {"setup_s": time.perf_counter() - t0, "walls": [], "coll": [],
+             "steps": []}
+        clock = {}
+
+        def on_step(t, out):
+            sync()
+            r["walls"].append(time.perf_counter() - clock["t"])
+            r["coll"].append(tr.seconds - clock["c"])
+            r["steps"].append({k: serve.batch_whole(out[k], dist_ctx).cpu()
+                               .numpy() for k in ("topk_ids",
+                                                  "topk_scores")})
+            clock.update(t=time.perf_counter(), c=tr.seconds)
+
+        errs = {}
+        sync()
+        common.reset_launches()
+        tr.branches.clear()
+        tr.seconds, tr.timed = 0.0, True
+        clock.update(t=time.perf_counter(), c=0.0)
+        with held_to_plain(torch, common, f"serve-parallel rank "
+                           f"{mesh.rank}", errs):
+            r["ids"] = serve.generate(
+                cfg, model, job["prompts"], job["gen"], job["topk"],
+                dist=dist_ctx, on_step=on_step,
+                cache_dtype=job["cache_dtype"])[0]
+        tr.timed = False
+        r["counts"], r["errs"] = dict(common.LAUNCHES), errs
+        r["branches"] = {f"{op} {b}": n for (op, b), n in
+                         sorted(tr.branches.items())}
+        del model
+        torch.cuda.empty_cache()
+        results.append(r)
+    return results
+
+
+def _one_rank_generation(torch, cfg, job, device):
+    """The same generation in this process on ``device``, from the same
+    draw, with no mesh: its ids, each decode step's top-k ids and
+    scores."""
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_lib
+    model = _draw(torch, cfg, 0, device)
+    steps_lib.cast_params_for_compute(model, cfg)
+    model.eval().requires_grad_(False)
+    steps, walls = [], []
+    clock = {"t": time.perf_counter()}
+
+    def on_step(t, out):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - clock["t"])
+        steps.append({k: out[k].cpu().numpy() for k in
+                      ("topk_ids", "topk_scores")})
+        clock["t"] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    ids = serve.generate(cfg, model, job["prompts"], job["gen"], job["topk"],
+                         on_step=on_step, cache_dtype=job["cache_dtype"])[0]
+    wall = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    return {"ids": ids, "steps": steps, "wall": wall, "walls": walls}
+
+
+def _held_generation(label, got, want, tol):
+    """``got``'s tokens and top-k ids equal ``want``'s, scores within
+    ``tol`` (phase serve-parallel's rule on ties); returns the largest
+    score difference."""
+    import numpy as np
+    ids, B = want["ids"], want["ids"].shape[0]
+    live, err = np.ones(B, bool), 0.0
+    _check(np.array_equal(got["ids"][:, 0], ids[:, 0]),
+           f"{label}: first tokens {got['ids'][:, 0]} != {ids[:, 0]}")
+    for t, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+        d = np.abs(g["topk_scores"][live] - w["topk_scores"][live])
+        err = max(err, float(d.max()) if d.size else 0.0)
+        _check(err <= tol, f"{label} step {t}: scores off by {err}")
+        for b, j in zip(*np.nonzero((g["topk_ids"] != w["topk_ids"])
+                                    & live[:, None])):
+            s = w["topk_scores"][b]
+            near = min(abs(s[j] - s[i]) for i in (j - 1, j + 1)
+                       if 0 <= i < len(s))
+            _check(near <= tol, f"{label} step {t} row {b}: top-k id "
+                   f"{j} differs off a tie")
+        for b in np.flatnonzero(live & (got["ids"][:, t + 1]
+                                        != ids[:, t + 1])):
+            s = w["topk_scores"][b]
+            _check(s[0] - s[1] <= tol, f"{label} token {t + 1} row {b} "
+                   "differs off a tie")
+            live[b] = False
+    _check(live.sum() >= B - 1, f"{label}: {B - live.sum()} rows diverged")
+    return err
+
+
+def phase_serve_parallel(torch, common):
+    """Phase 17c (the module's docstring).  Returns (the ranks' launches
+    by kernel, the largest held error by kernel)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import train
+    q32 = configs.get_config("qwen1.5-0.5b", dtype="float32")
+    q16 = configs.get_config("qwen1.5-0.5b")
+    o32 = dataclasses.replace(configs.get_config(
+        "olmoe-1b-7b", dtype="float32", moe_impl="ep"), num_layers=2)
+    rng = np.random.default_rng(27)
+    B, S, gen, topk = 4, 32, 12, 8
+
+    def job(shape, cfg, cache_dtype):
+        return {"shape": shape, "cfg": cfg, "gen": gen, "topk": topk,
+                "cache_dtype": cache_dtype,
+                "prompts": rng.integers(0, cfg.vocab, (B, S)).astype(
+                    np.int32)}
+
+    jobs = [job((1, 4), q32, torch.float32), job((2, 2), q32, torch.float32),
+            job((1, 4), o32, torch.float32),
+            job((1, 4), q16, torch.bfloat16)]
+    jobs[1]["prompts"] = jobs[0]["prompts"]
+    jobs[3]["prompts"] = jobs[0]["prompts"]
+    t0 = time.perf_counter()
+    want = [_one_rank_generation(torch, j["cfg"], j, torch.device("cuda"))
+            for j in jobs]
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = train.spawn(_rank_serve, (2, 2), "gloo", "cuda", (jobs,),
+                      timeout=600)
+    print(f"serve-parallel: one-rank runs {ref_s:.3f} s; the four ranks "
+          f"over gloo {time.perf_counter() - t0:.3f} s (start, and per "
+          "job: draw, broadcast, shard, generate, checks); B = "
+          f"{B}, prompt {S}, {gen} tokens, top-{topk}", flush=True)
+    counts, errs = {}, {}
+    for i, (j, w) in enumerate(zip(jobs, want)):
+        cfg = j["cfg"]
+        label = (f"serve-parallel: {cfg.name} {cfg.num_layers}L "
+                 f"{cfg.dtype} {'x'.join(map(str, j['shape']))}"
+                 + (" ep" if cfg.moe is not None else ""))
+        for rank, per_job in enumerate(out):
+            r = per_job[i]
+            for n, c in r["counts"].items():
+                counts[n] = counts.get(n, 0) + c
+            for n, e in r["errs"].items():
+                errs[n] = max(errs.get(n, 0.0), e)
+            walls, coll = r["walls"], r["coll"]
+            if cfg.dtype == "float32":
+                err = _held_generation(f"{label} rank {rank}", r, w, 1e-4)
+                held = f"tokens and top-k ids held, scores within {err:.3e}"
+            else:
+                same = int((r["ids"] == w["ids"]).sum())
+                held = (f"not held (bf16): {same} of {w['ids'].size} "
+                        "tokens equal the one rank's")
+            print(f"{label} rank {rank}: {held}; step walls "
+                  f"{[round(x * 1e3, 3) for x in walls]} ms (the first "
+                  f"from the generation's start: prefill and step 1; one "
+                  f"rank {w['wall'] * 1e3:.3f} ms in all), collective "
+                  f"seconds {[round(x * 1e3, 3) for x in coll]} ms, busy "
+                  f"share {[round(1 - c / x, 3) for c, x in zip(coll, walls)]}"
+                  f", set-up {r['setup_s']:.3f} s, branches "
+                  f"{r['branches']}, launches {r['counts']}, held "
+                  f"{r['errs']}", flush=True)
+            if rank == 0:
+                print(f"{label}: ids (first seq) {r['ids'][0].tolist()} "
+                      f"(one rank {w['ids'][0].tolist()}); one rank's step "
+                      f"walls {[round(x * 1e3, 3) for x in w['walls']]} "
+                      f"ms; {_card()}", flush=True)
+    return counts, errs
+
+
+class _Background:
+    """A command run beside the phases in its own process group, its
+    output in ``log``; ``stop`` ends it and every process it started."""
+
+    def __init__(self, args, log: Path):
+        log.parent.mkdir(parents=True, exist_ok=True)
+        self.log = log
+        self._out = open(log, "w")
+        self.proc = subprocess.Popen(
+            args, stdout=self._out, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(SRC)},
+            cwd=str(SRC.parent), start_new_session=True)
+
+    def wait(self, timeout: float) -> int:
+        rc = self.proc.wait(timeout=timeout)
+        self._out.close()
+        return rc
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self._out.close()
+
+
+def start_dryrun() -> _Background:
+    """Phase 17d's subprocess: the dry run of the production grid."""
+    build = SRC.parent / "build"
+    return _Background([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--all", "--jobs", "6", "--out",
+                        str(build / "dryrun_torch")],
+                       build / "dryrun_torch.log")
+
+
+def phase_dryrun(dry: _Background) -> None:
+    """Phase 17d: the dry run's 18 OK, 14 WAIT and no FAIL lines."""
+    t0 = time.perf_counter()
+    rc = dry.wait(timeout=600)
+    lines = dry.log.read_text().splitlines()
+    ok = [ln for ln in lines if ln.startswith("OK ")]
+    wait = [ln for ln in lines if ln.startswith("WAIT ")]
+    fail = [ln for ln in lines if ln.startswith("FAIL")]
+    for ln in ok:
+        print(f"dryrun: {ln}", flush=True)
+    print(f"dryrun: {lines[-1] if lines else '(no output)'} (exit {rc}, "
+          f"waited {time.perf_counter() - t0:.3f} s after the build); "
+          f"roofline at the H100's rates (launch/roofline.py), counted on "
+          f"meta tensors", flush=True)
+    _check(rc == 0 and len(ok) == 18 and len(wait) == 14 and not fail,
+           f"dryrun: exit {rc}, {len(ok)} OK, {len(wait)} WAIT, "
+           f"{len(fail)} FAIL; tail {lines[-5:]}")
+
+
 def parent_ce(torch, ce, common, old):
     """The parent's Bloom CE pair (library ``old``) beside this tree's at
     the main path's shapes (``sweep_ce.SHAPES``: qwen1.5-0.5b's m, whisper-
@@ -4179,16 +4520,24 @@ def main() -> int:
     from repro_torch.kernels import common
     from repro_torch.serving import retrieval
 
-    t0 = time.perf_counter()
-    wait_parent = None
-    if parent is not None:
-        from repro_torch.kernels import sweep_ce
-        wait_parent = sweep_ce.start_parent(parent)
-    built = common.build()
-    print("build: " + ", ".join(f"{n} {s:.3f} s" for n, s in built.items())
-          + f" (wall {time.perf_counter() - t0:.3f} s)", flush=True)
-    _check(set(built) == {dt.NAME, be.NAME, ce.NAME, csr.NAME, bd.NAME},
-           f"unexpected kernels {sorted(built)}")
+    dry = None if phase_only else start_dryrun()
+    try:
+        t0 = time.perf_counter()
+        wait_parent = None
+        if parent is not None:
+            from repro_torch.kernels import sweep_ce
+            wait_parent = sweep_ce.start_parent(parent)
+        built = common.build()
+        print("build: " + ", ".join(f"{n} {s:.3f} s"
+                                    for n, s in built.items())
+              + f" (wall {time.perf_counter() - t0:.3f} s)", flush=True)
+        _check(set(built) == {dt.NAME, be.NAME, ce.NAME, csr.NAME, bd.NAME},
+               f"unexpected kernels {sorted(built)}")
+        if dry is not None:
+            phase_dryrun(dry)
+    finally:
+        if dry is not None:
+            dry.stop()
 
     if phase_only:
         prows, pcounts = phase_train_parallel(torch, be, ce, csr, common,
@@ -4211,7 +4560,8 @@ def main() -> int:
     lm = phase_serve_lm(torch, be, dt, common)
     row["launches"] += lm[dt.NAME]
     embed_row["launches"] = lm[embed_row["name"]]
-    train_rows = phase_ce(torch, ce, common) + phase_csr(torch, csr, common)
+    train_rows = (phase_ce(torch, ce, common)
+                  + phase_csr(torch, csr, common))
     trained, csr_losses, csr_ms = phase_train_lm(
         torch, common, [embed_row["name"], csr.BIN, csr.NAME, ce.FWD,
                         ce.BWD])
@@ -4262,18 +4612,25 @@ def main() -> int:
                              embed_row["name"], csr.BIN, csr.NAME, ce.FWD,
                              ce.BWD])):
         _check(set(counts) <= set(by_name), f"launched "
-               f"{sorted(set(counts) - set(by_name))}, which no kernel row "
-               "names")
+               f"{sorted(set(counts) - set(by_name))}, which no kernel "
+               "row names")
         for name, c in counts.items():
             by_name[name]["launches"] += c
-            by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
-                                               errs.get(name, 0.0))
+            by_name[name]["max_abs_err"] = max(
+                by_name[name]["max_abs_err"], errs.get(name, 0.0))
     prows, pcounts = phase_train_parallel(torch, be, ce, csr, common)
-    _check(set(pcounts) <= set(by_name), f"train-parallel launched "
-           f"{sorted(set(pcounts) - set(by_name))}, which no kernel row names")
-    for name, c in pcounts.items():
-        by_name[name]["launches"] += c
     rows += prows
+    by_name.update((r["name"], r) for r in prows)
+    for label, (counts, errs) in (
+            ("train-parallel", (pcounts, {})),
+            ("serve-parallel", phase_serve_parallel(torch, common))):
+        _check(set(counts) <= set(by_name), f"{label} launched "
+               f"{sorted(set(counts) - set(by_name))}, which no kernel "
+               "row names")
+        for name, c in counts.items():
+            by_name[name]["launches"] += c
+            by_name[name]["max_abs_err"] = max(
+                by_name[name]["max_abs_err"], errs.get(name, 0.0))
     _check(all(r["launches"] > 0 for r in rows),
            "a kernel of the main paths was never launched")
     if wait_parent is not None:

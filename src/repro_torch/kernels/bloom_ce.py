@@ -235,7 +235,9 @@ class _BloomCE(torch.autograd.Function):
         if common.resolve_impl(z, h) == "kernel":
             loss, lse = bloom_ce_cuda(z, h)
         else:
-            loss, lse = bloom_ce_plain(z, h)
+            loss, lse = common.run_plain(
+                FWD, lambda: min_bytes(*z.shape, h.shape[1]),
+                bloom_ce_plain, z, h)
         ctx.save_for_backward(z, h, lse)
         return loss
 
@@ -246,7 +248,9 @@ class _BloomCE(torch.autograd.Function):
         if common.resolve_impl(z, h) == "kernel":
             dz = bloom_ce_bwd_cuda(g, z, h, lse)
         else:
-            dz = bloom_ce_bwd_plain(g, z, h, lse)
+            dz = common.run_plain(
+                BWD, lambda: min_bytes(*z.shape, h.shape[1], True),
+                bloom_ce_bwd_plain, g, z, h, lse)
         return dz.to(z.dtype), None
 
 

@@ -251,11 +251,17 @@ def csr_scatter_add(g: torch.Tensor, idx: torch.Tensor,
     plain version for CPU tensors.  (m, D) f32, with ``lo`` the rows
     [lo, lo + m) of the table."""
     _check_shapes(g, idx)
-    impl = common.resolve_impl(g, idx)
-    bins = bin_csr(idx, m, lo)
-    if impl == "kernel":
-        return csr_scatter_add_cuda(g, bins, m)
-    return csr_scatter_add_plain(g, bins, m)
+    if common.resolve_impl(g, idx) == "kernel":
+        return csr_scatter_add_cuda(g, bin_csr(idx, m, lo), m)
+
+    def plain():
+        return csr_scatter_add_plain(g, bin_csr_plain(idx, m, lo), m)
+
+    return common.run_plain(
+        NAME,
+        lambda: (bin_min_bytes(idx.numel(), m)
+                 + min_bytes(idx.numel(), g.shape[0], m, g.shape[1],
+                             g.element_size())), plain)
 
 
 def bloom_decode_bwd_csr(g: torch.Tensor, H: torch.Tensor, m: int,

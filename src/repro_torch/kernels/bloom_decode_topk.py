@@ -421,7 +421,18 @@ def bloom_decode_topk(logp: torch.Tensor, H: torch.Tensor | None, topk: int,
     if common.resolve_impl(logp, H, active, scales) == "kernel":
         return bloom_decode_topk_cuda(logp, H, topk, active, scales,
                                       hash_spec)
-    return bloom_decode_topk_plain(logp, H, topk, active, scales, hash_spec)
+
+    def least_bytes():
+        (B, m), (d, k) = logp.shape, (H.shape if H is not None
+                                      else hash_spec[:2])
+        return min_bytes(B, B, m=m, d=d, k=k, topk=topk,
+                         logp_itemsize=logp.element_size(),
+                         inkernel_hash=H is None,
+                         row_scales=scales is not None)
+
+    return common.run_plain(
+        lambda: variant_name(logp.dtype, H is None), least_bytes,
+        bloom_decode_topk_plain, logp, H, topk, active, scales, hash_spec)
 
 
 @functools.lru_cache(maxsize=None)

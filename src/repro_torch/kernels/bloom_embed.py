@@ -463,7 +463,27 @@ def bloom_embed_bwd(g: torch.Tensor, idx: torch.Tensor,
     for CPU tensors.  (m, D) f32, with ``lo`` the rows [lo, lo + m)."""
     if common.resolve_impl(g, idx) == "kernel":
         return bloom_embed_bwd_cuda(g, idx, m, lo)
-    return bloom_embed_bwd_plain(g, idx, m, lo)
+    return common.run_plain(
+        BWD + ("" if lo is None else RANGE),
+        lambda: m * g.shape[1] * 4 + g.numel() * g.element_size()
+        + idx.numel() * 4, bloom_embed_bwd_plain, g, idx, m, lo)
+
+
+def _tokens_plain(q, scales, ids, spec, out_dtype, quantized: bool,
+                  want_idx: bool, lo=None):
+    """The token entry's plain version (``bloom_embed_tokens_plain``),
+    which the dry run counts as the kernel's least traffic: the rows it
+    can gather (T * k at most) once, the token ids, the output and, when
+    the backward wants them, the (T, k) indices."""
+    T, D, k = ids.shape[0], q.shape[1], spec.k
+    name = (token_variant_name(spec, q.dtype if quantized else None)
+            + ("" if lo is None else RANGE))
+    return common.run_plain(
+        name, lambda: min_bytes(
+            min(T * k, q.shape[0]), T, k, D, q.element_size(),
+            out_dtype.itemsize, scales is not None, ids.element_size())
+        + (T * k * 4 if want_idx else 0),
+        bloom_embed_tokens_plain, q, scales, ids, spec, out_dtype, lo)
 
 
 def _forward(table, ids, spec, table_dtype, out_dtype, want_idx, lo=None):
@@ -472,8 +492,8 @@ def _forward(table, ids, spec, table_dtype, out_dtype, want_idx, lo=None):
     kernel = common.resolve_impl(table, ids) == "kernel"
     if lo is not None:
         if not kernel:
-            return bloom_embed_tokens_plain(table, None, ids, spec,
-                                            table.dtype, lo)
+            return _tokens_plain(table, None, ids, spec, table.dtype, False,
+                                 want_idx, lo)
         return bloom_embed_tokens_cuda(table, ids, spec, want_idx, lo)
     if table_dtype is None:
         q, scales, od = table, None, table.dtype
@@ -487,7 +507,8 @@ def _forward(table, ids, spec, table_dtype, out_dtype, want_idx, lo=None):
             return bloom_embed_cuda(q, ids), ids
         return bloom_embed_quantized_cuda(q, scales, ids, od), ids
     if not kernel:
-        return bloom_embed_tokens_plain(q, scales, ids, spec, od)
+        return _tokens_plain(q, scales, ids, spec, od,
+                             table_dtype is not None, want_idx)
     if table_dtype is None:
         return bloom_embed_tokens_cuda(q, ids, spec, want_idx)
     return bloom_embed_tokens_quantized_cuda(q, scales, ids, spec, od,

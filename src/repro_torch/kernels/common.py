@@ -18,6 +18,12 @@
 * Launch counts: each kernel wrapper adds one to ``LAUNCHES[name]`` where it
   launches its kernel, and nowhere else, so a run can show which kernels
   its main path went through.
+* The dry run's meter: ``resolve_impl`` sends ``meta`` tensors (the dry
+  run's stand-ins, launch/dryrun.py) to the plain version, for its shapes;
+  each dispatcher calls that version through ``run_plain``, which, while
+  the dry run counts a step (``METER`` set), counts the call as its
+  kernel's least traffic (the kernel module's ``min_bytes``) and not by
+  the plain version's own ops, which the card never runs.
 * The backward knob: ``resolve_bwd_impl`` validates ``bwd_impl`` ("csr",
   the CSR scatter-add, or "dense", the m-tile sweep), and ``onehot_count``
   is the one-hot count the JAX package's dense backwards contract with,
@@ -45,6 +51,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {}
+
+# the dry run's counter while it counts a step (launch/dryrun.py), else None
+METER = None
 
 BWD_IMPLS = ("dense", "csr")
 
@@ -77,16 +86,29 @@ def sm_count(device: torch.device) -> int:
 
 def resolve_impl(*tensors: torch.Tensor) -> str:
     """``"kernel"`` when every tensor lies on one CUDA device, ``"plain"``
-    when every tensor lies on the CPU; anything else raises."""
+    when every tensor lies on the CPU or on ``meta`` (the dry run's
+    shapes); anything else raises."""
     devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f"tensors must share one device, got {devices}")
     dev = devices.pop()
     if dev.type == "cuda":
         return "kernel"
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return "plain"
     raise ValueError(f"unsupported device {dev}")
+
+
+def run_plain(name, min_bytes, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``: the plain version of the kernel ``name``
+    (its launch-count name, or a callable giving it).  While the dry run
+    counts a step (``METER`` set) the call counts as that kernel moving
+    ``min_bytes()`` bytes (a callable: the kernel's least traffic at
+    these shapes), not by ``fn``'s own ops; both callables are called
+    after ``fn``, which checks its arguments first."""
+    if METER is None:
+        return fn(*args, **kwargs)
+    return METER.kernel(name, min_bytes, fn, args, kwargs)
 
 
 def resolve_bwd_impl(bwd_impl: str) -> str:

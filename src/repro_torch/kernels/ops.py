@@ -111,7 +111,10 @@ class _VocabParallelCE(torch.autograd.Function):
         if common.resolve_impl(z, h) == "kernel":
             lse_local, hits = ce_lib.bloom_ce_shard_cuda(z, h, lo)
         else:
-            lse_local, hits = ce_lib.bloom_ce_shard_plain(z, h, lo)
+            lse_local, hits = common.run_plain(
+                ce_lib.FWD_RANGE,
+                lambda: ce_lib.min_bytes(*z.shape, h.shape[1]),
+                ce_lib.bloom_ce_shard_plain, z, h, lo)
         lse = torch.logsumexp(torch.stack(gather(lse_local)), dim=0)
         ctx.save_for_backward(z, h, lse)
         ctx.lo = lo
@@ -124,7 +127,10 @@ class _VocabParallelCE(torch.autograd.Function):
         if common.resolve_impl(z, h) == "kernel":
             dz = ce_lib.bloom_ce_bwd_cuda(g, z, h, lse, ctx.lo)
         else:
-            dz = ce_lib.bloom_ce_bwd_plain(g, z, h, lse, ctx.lo)
+            dz = common.run_plain(
+                ce_lib.BWD_RANGE,
+                lambda: ce_lib.min_bytes(*z.shape, h.shape[1], True),
+                ce_lib.bloom_ce_bwd_plain, g, z, h, lse, ctx.lo)
         return dz.to(z.dtype), None, None, None, None
 
 

@@ -37,8 +37,8 @@ import torch
 
 from repro_torch.kernels import bloom_ce as ce
 from repro_torch.kernels import common
+from repro_torch.launch.roofline import HBM_BW
 
-HBM_BYTES_PER_S = 3.35e12
 T, K = 512, 4
 # (label, m of the logits' row, lo) at the main path's shapes
 SHAPES = (("qwen1.5-0.5b", 30208, None), ("whisper-small", 10240, None),
@@ -197,7 +197,7 @@ def main() -> None:
         for what, times, nbytes in (
                 ("forward", fwd, ce.min_bytes(T, m, K)),
                 ("backward", bwd, ce.min_bytes(T, m, K, backward=True))):
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = nbytes / HBM_BW * 1e3
             print(f"{label} {what} T={T} m={m} k={K} lo={lo}: bound "
                   f"{bound:.6f} ms ({nbytes} bytes); graph / events / "
                   "L2-cold ms (share of bound by graph, by L2-cold): " +

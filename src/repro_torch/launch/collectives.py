@@ -31,10 +31,18 @@ transport counts which branch each collective took (``branches``:
 the device around each call and adds up the seconds spent in them.
 Only ``all_reduce``, ``all_gather`` and ``broadcast`` are used: gloo has
 no ``reduce_scatter``.
+
+The dry run (launch/dryrun.py) stands in for one rank of a world that
+does not exist: its mesh's groups are ``CountedGroup``s (a size, no
+ranks) and its transport a ``CountingTransport``, which records each
+call's kind, result and operand bytes and group size and returns a
+result of the right shape without communicating.  It is not one of
+``TRANSPORTS``: nothing but the dry run builds it.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import datetime
 import time
 from typing import Dict, List, Optional
@@ -107,6 +115,43 @@ class Transport:
             dist.all_gather(parts, src, group=group)
             return [p.to(t.device) for p in parts] if b == "host" else parts
         return self._run("all_gather", t, gather)
+
+
+@dataclasses.dataclass(frozen=True)
+class CountedGroup:
+    """A process group of the dry run's mesh: its size, no ranks."""
+    size: int
+
+
+class CountingTransport:
+    """The dry run's transport: each call is recorded in ``calls`` as
+    {"kind", "result_bytes", "operand_bytes", "group"} (the reference's
+    HLO names: ``all-reduce``, ``all-gather``) and answered with a tensor
+    of the result's shape and no exchange (``all_reduce`` leaves ``t`` as
+    it is).  ``launch/roofline.ring_collectives`` reads ``calls``."""
+
+    name = "counting"
+
+    def __init__(self):
+        self.calls: List[Dict] = []
+
+    def _record(self, kind: str, result: int, operand: int, group) -> None:
+        self.calls.append({"kind": kind, "result_bytes": result,
+                           "operand_bytes": operand, "group": group.size})
+
+    def all_reduce(self, t: torch.Tensor, group) -> torch.Tensor:
+        n = t.numel() * t.element_size()
+        self._record("all-reduce", n, n, group)
+        return t
+
+    def all_gather(self, t: torch.Tensor, group) -> List[torch.Tensor]:
+        n = t.numel() * t.element_size()
+        self._record("all-gather", n * group.size, n, group)
+        return [torch.empty_like(t) for _ in range(group.size)]
+
+    def broadcast(self, t, src, group=None):
+        raise NotImplementedError("the dry run counts a step, which "
+                                  "broadcasts nothing")
 
 
 def init_world(rank: int, world: int, init_method: str, transport: str,

@@ -22,6 +22,11 @@ simulates N hosts, one per ``data`` shard.  The port has two kinds:
 mesh over a world of 256 (512) ranks: in the tests that world is the
 ``fake`` process-group backend.  A ``model`` axis of more than one needs
 a world of that many ranks and raises, with the reason, without one.
+The dry run (launch/dryrun.py) needs no world: ``counting_mesh`` is rank
+0 of a mesh of any shape (the production mesh's ``MeshConfig`` shape by
+default) on the ``meta`` device, its groups
+``collectives.CountedGroup``s and its transport a
+``collectives.CountingTransport``.
 The sharded serving pool takes one-device meshes only
 (``make_serving_mesh``).
 """
@@ -37,6 +42,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import MeshConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.collectives import CountedGroup, CountingTransport
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +155,29 @@ def make_production_mesh(*, multi_pod: bool = False, device=None,
     return world_mesh(mc.shape, mc.axes, device, transport)
 
 
+def counting_mesh(shape=None, axes=None,
+                  transport: Optional[CountingTransport] = None) -> Mesh:
+    """Rank 0 of a mesh of ``shape`` over ``axes`` with no world, on the
+    ``meta`` device: the dry run's stand-in for one rank.  ``shape``
+    defaults to the production mesh's (``MeshConfig()``), ``axes`` to
+    (data, model), or (pod, data, model) for three axes.  Each axis's
+    group, and ``batch`` (the axes but ``model``), is a ``CountedGroup``
+    of its size; every collective goes to ``transport`` (a new
+    ``CountingTransport`` by default), which counts it."""
+    shape = MeshConfig().shape if shape is None else shape
+    shape = tuple(int(s) for s in shape)
+    if axes is None:
+        axes = ("pod", "data", "model")[-len(shape):]
+    axes = tuple(axes)
+    if len(shape) != len(axes) or min(shape) < 1:
+        raise ValueError(f"mesh {shape} over axes {axes}")
+    groups = {a: CountedGroup(n) for a, n in zip(axes, shape)}
+    groups["batch"] = CountedGroup(math.prod(
+        n for a, n in zip(axes, shape) if a != "model"))
+    return Mesh(axes, shape, torch.device("meta"), 0, groups,
+                transport or CountingTransport())
+
+
 def make_local_mesh(axes=("data", "model"), device=None,
                     transport=None) -> Mesh:
     """Whatever ranks exist, as a (1, ..., n) mesh (the reference's mesh
@@ -171,14 +200,15 @@ def make_serving_mesh(n_hosts: Optional[int] = None,
     fixed at ``model_parallel``.  ``n_hosts`` defaults to the device
     count of the chosen kind (as the reference's defaults to
     ``jax.device_count()``); every host shard lives on ``device``.  The
-    pool serves ``model_parallel`` 1: its kv heads split over ranks wait
-    for ROADMAP A13b (decode under a model axis)."""
+    pool serves ``model_parallel`` 1: its shards on their own ranks wait
+    for ROADMAP A13b (the whole-batch decode runs under a model axis over
+    a world of ranks: ``serve --static --mesh``)."""
     device = resolve_device(device)
     if model_parallel != 1:
         raise NotImplementedError(
-            f"model_parallel={model_parallel}: the sharded slot pool "
-            "serves model_parallel=1 (decode under a `model` axis waits "
-            "for ROADMAP A13b)")
+            f"model_parallel={model_parallel}: the sharded slot pool on "
+            "one device serves model_parallel=1 (its shards on their own "
+            "ranks wait for ROADMAP A13b)")
     if n_hosts is None:
         n_hosts = _device_count(device)
     return _mesh((n_hosts, 1), ("data", "model"), device)

@@ -35,17 +35,33 @@ item lookups over a configs/retrieval.py catalog preset) through
 ``--failpoints`` and the overload flags (``--deadline-slack`` /
 ``--max-queue-depth``) apply there too.
 
+``--static --mesh DxM`` serves the whole batch over D * M ranks, one
+process each, which the entry point starts itself (``train.spawn``, as
+``launch/train.py --mesh`` does), exchanging over ``--transport`` (gloo,
+the default there, or nccl): rank 0 draws (or loads) the weights, every
+rank takes its shards (``sharding.shard_module``), and each runs
+``make_prefill_step(cfg, dist)`` and ``make_decode_step(cfg, topk,
+device, dist)``: tensor parallel over ``model`` (the dense and MoE
+families), the batch rows split over ``data``; rank 0 prints the tokens.
+``--mesh 1x1`` (the default) is the one-process path.
+
 Weights are random, drawn from ``--seed`` (``build_model``, the
 reference's ``_setup``): on the CPU by the port's own init, on CUDA on the
-card, so the two devices serve different weights for one seed.  It runs
-on CUDA unless ``--device cpu`` is given (smoke size unless ``--full``),
-and raises when CUDA is asked for and absent.
+card, so the two devices serve different weights for one seed.
+``--static --ckpt DIR`` serves the params of the newest checkpoint under
+DIR instead (``launch/train.py``'s format).  It runs on CUDA unless
+``--device cpu`` is given (smoke size unless ``--full``), and raises when
+CUDA is asked for and absent.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --full --slots 8 --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --full --static --batch 4 --prompt-len 32 --gen 12
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+      --full --static --mesh 2x2 --transport gloo --batch 4 --gen 12
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
+      --device cpu --static --mesh 1x2 --batch 2 --prompt-len 8 --gen 5
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-moe-16b --full --static --batch 4 --gen 12
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
@@ -71,9 +87,14 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.kernels import common as kernels_common
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch import collectives
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch import train as train_lib
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import io as io_lib
@@ -131,11 +152,41 @@ def build_model(cfg, seed: int, device):
     return model.eval().requires_grad_(False)
 
 
+def load_params(ckpt_dir: str) -> dict:
+    """name -> tensor: the params of the newest readable checkpoint under
+    ``ckpt_dir`` (``launch/train.py``'s, the reference's on-disk format
+    with the port's param names)."""
+    ck = Checkpointer(ckpt_dir)
+    for step in reversed(ck.all_steps()):
+        try:
+            flat, _ = ck.read(step)
+        except (OSError, KeyError, ValueError, EOFError):
+            continue
+        return {k.split("/", 1)[1]: torch.from_numpy(v)
+                for k, v in flat.items() if k.startswith("params/")}
+    raise FileNotFoundError(f"no readable checkpoint under {ckpt_dir}")
+
+
+def model_from_params(cfg, params, device):
+    """The serving model on ``device`` from full params (name -> tensor),
+    cast for compute (``cast_params_for_compute``)."""
+    with torch.device("meta"):
+        model = steps_lib.model_class_for(cfg)(cfg)
+    model = model.to_empty(device=torch.device(device))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(params[name])
+    steps_lib.cast_params_for_compute(model, cfg)
+    return model.eval().requires_grad_(False)
+
+
 def _config(arch: str, full: bool, table_dtype: str | None = None,
-            layers: int | None = None):
+            layers: int | None = None, moe_impl: str | None = None):
     over = {} if table_dtype is None else {"table_dtype": table_dtype}
     if layers is not None:
         over["num_layers"] = layers
+    if moe_impl is not None:
+        over["moe_impl"] = moe_impl
     return (configs.get_config(arch, **over) if full
             else configs.get_smoke_config(arch, **over))
 
@@ -161,7 +212,8 @@ def pad_caches_to(caches_small, caches_template):
 
 
 def decode_caches(cfg, batch: int, prompt_len: int, gen: int,
-                  embeds: torch.Tensor | None, device):
+                  embeds: torch.Tensor | None, device,
+                  dtype=torch.bfloat16):
     """(the zeroed decode-cache pool, the first decode position) of a
     whole-batch generation of ``gen`` tokens after a ``prompt_len``-token
     prefill with the frontend's ``embeds`` (B, S_emb, D) or None.  A
@@ -170,18 +222,27 @@ def decode_caches(cfg, batch: int, prompt_len: int, gen: int,
     decodes at ``prompt_len``: its first step overwrites a prompt token's
     k/v and masks out the last S_emb - 1 of them.)  The ``audio`` family's
     self-attention caches the decoder tokens alone, and its cross k/v
-    hold the S_emb frames."""
+    hold the S_emb frames.  The caches hold ``dtype``."""
     if cfg.family == "audio":
         return encdec_lib.init_encdec_cache(
-            cfg, batch, prompt_len + gen, embeds.shape[1],
+            cfg, batch, prompt_len + gen, embeds.shape[1], dtype=dtype,
             device=device), prompt_len
     n_prefix = prompt_len + (0 if embeds is None else embeds.shape[1])
-    return tf.init_lm_cache(cfg, batch, n_prefix + gen,
+    return tf.init_lm_cache(cfg, batch, n_prefix + gen, dtype=dtype,
                             device=device), n_prefix
 
 
+def batch_whole(x: torch.Tensor, dist) -> torch.Tensor:
+    """Every batch shard's rows of ``x``, in order (``x`` itself without a
+    batch axis of more than one)."""
+    if dist is None or dist.n_batch == 1:
+        return x
+    return torch.cat(collectives.all_gather(x, dist, "batch"))
+
+
 def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int,
-             embeds: torch.Tensor | None = None):
+             embeds: torch.Tensor | None = None, dist=None, on_step=None,
+             cache_dtype=torch.bfloat16):
     """Whole-batch greedy generation on a built model: prefill ``prompts``
     (B, S) together with the frontend's ``embeds`` (B, S_emb, D), if any,
     place the caches into buffers of ``decode_caches`` (``pad_caches_to``),
@@ -190,11 +251,21 @@ def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int,
     position (S, or S_emb + S behind a ``vlm`` prefix;
     ``make_decode_step``).  Returns (ids (B, gen) int32 numpy, prefill
     seconds, decode seconds); each window ends with the device
-    synchronised."""
+    synchronised.  ``on_step(t, out)`` sees each decode step's output;
+    the caches hold ``cache_dtype`` (bf16, as the reference's).
+
+    Under ``dist`` the model holds this rank's shards: the caches are its
+    shards (``sharding.shard_caches``), each step's tokens are gathered
+    over the batch axes for the next, and every rank returns the whole
+    batch's ids."""
     device = model.embed.device
     B, S = prompts.shape
-    prefill = steps_lib.make_prefill_step(cfg)
-    decode = steps_lib.make_decode_step(cfg, topk, device)
+    kw = {}
+    if dist is not None:
+        steps_lib.check_decode(cfg, dist, B)
+        kw["dist"] = dist
+    prefill = steps_lib.make_prefill_step(cfg, **kw)
+    decode = steps_lib.make_decode_step(cfg, topk, device, **kw)
 
     def sync():
         if device.type == "cuda":
@@ -202,37 +273,127 @@ def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int,
 
     t0 = time.perf_counter()
     pre = prefill(model, torch.as_tensor(prompts, device=device), embeds)
-    template, n_prefix = decode_caches(cfg, B, S, gen, embeds, device)
+    if dist is None:
+        template, n_prefix = decode_caches(cfg, B, S, gen, embeds, device,
+                                           cache_dtype)
+    else:
+        template, n_prefix = decode_caches(cfg, B, S, gen, embeds, "meta",
+                                           cache_dtype)
+        template = [{k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                     for k, v in layer.items()}
+                    for layer in sharding.shard_caches(cfg, template, dist,
+                                                       B)]
     caches = pad_caches_to(pre["caches"], template)
     sync()
     t_prefill = time.perf_counter() - t0
 
     with torch.inference_mode():
         _, ids = io_lib.recover_topk(cfg, pre["last_logits"], topk=topk)
-    token = ids[:, :1]
+    token = batch_whole(ids[:, :1], dist)
     generated = [token.cpu()]
     t0 = time.perf_counter()
     for t in range(gen - 1):
         out = decode(model, token, caches, n_prefix + t)
+        if on_step is not None:
+            on_step(t, out)
         caches = out["caches"]
-        token = out["topk_ids"][:, :1]
+        token = batch_whole(out["topk_ids"][:, :1], dist)
         generated.append(token.cpu())
+    sync()
     t_decode = time.perf_counter() - t0
     return torch.cat(generated, 1).numpy(), t_prefill, t_decode
+
+
+def decode_job(mesh, cfg, params, prompts: np.ndarray, gen: int,
+               topk: int, cache_dtype=torch.bfloat16):
+    """One rank of a whole-batch generation over ``mesh`` from given
+    weights (``params``: name -> full f32 tensor or array, read on rank
+    0) on the global ``prompts`` (``generate`` under the mesh's
+    context).  Rank 0 returns {"ids" (B, gen), and per decode step
+    "logits" (B, 1, m_vocab), "topk_ids", "topk_scores" (B, topk)}, numpy,
+    the batch rows gathered; the other ranks None."""
+    dist_ctx = sharding.DistContext(mesh)
+    full = {n: torch.as_tensor(v) for n, v in params.items()}
+    model = train_lib.parallel_state(cfg, None, 0, None, dist_ctx, full)[0]
+    steps_lib.cast_params_for_compute(model, cfg)
+    model.eval().requires_grad_(False)
+    steps = []
+
+    def keep(t, out):
+        rows = {k: batch_whole(out[k], dist_ctx).cpu()
+                for k in ("logits", "topk_ids", "topk_scores")}
+        steps.append({k: (v.float() if v.is_floating_point() else v).numpy()
+                      for k, v in rows.items()})
+
+    ids, _, _ = generate(cfg, model, prompts, gen, topk, dist=dist_ctx,
+                         on_step=keep, cache_dtype=cache_dtype)
+    if mesh.rank:
+        return None
+    return {"ids": ids, **{k: np.stack([s[k] for s in steps])
+                           for k in ("logits", "topk_ids", "topk_scores")}}
+
+
+def decode_jobs(mesh, cases):
+    """``decode_job`` for each case (mesh shape, cfg, params, prompts,
+    gen, topk, cache dtype), each on a mesh of its own shape over this
+    world (``mesh.world_mesh``, as many ranks as ``mesh``): the list of
+    this rank's results."""
+    out = []
+    for shape, *args in cases:
+        m = (mesh if tuple(shape) == mesh.sizes else mesh_lib.world_mesh(
+            shape, ("data", "model"), mesh.device, mesh.transport))
+        out.append(decode_job(m, *args))
+    return out
 
 
 def run(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         topk: int = 8, seed: int = 0, full: bool = False,
         table_dtype: str | None = None, device=None,
-        layers: int | None = None):
+        layers: int | None = None, mesh: str = "1x1",
+        transport: str = "gloo", ckpt: str | None = None,
+        moe_impl: str | None = None, timeout: float = 1800.0):
     """Static whole-batch serving (``--static``): ``batch`` seeded prompts
     of ``prompt_len`` tokens, ``gen`` greedy tokens each (``generate``),
     with the depth cut to ``layers`` if given.  The ``vlm`` and ``audio``
     families get zero embeddings (frames) of ``max(4, prompt_len // 4)``
     rows, as in the reference.  Prints the prefill and decode times and
-    the first sequence's ids; returns the (batch, gen) ids."""
-    device, cfg, model = _setup(arch, full, table_dtype, seed, device,
-                                layers)
+    the first sequence's ids; returns the (batch, gen) ids.  ``mesh``
+    other than "1x1" serves over D * M ranks (the module's docstring),
+    which must end within ``timeout`` seconds; ``ckpt`` serves the newest
+    checkpoint's params; ``moe_impl`` overrides the config's."""
+    kw = dict(arch=arch, batch=batch, prompt_len=prompt_len, gen=gen,
+              topk=topk, seed=seed, full=full, table_dtype=table_dtype,
+              layers=layers, ckpt=ckpt, moe_impl=moe_impl)
+    shape = train_lib.parse_mesh(mesh)
+    if shape == (1, 1):
+        return _run(device=resolve_device(device), **kw)
+    return train_lib.spawn(_run_rank, shape, transport, device, (kw,),
+                           timeout)[0]
+
+
+def _run_rank(mesh, kw):
+    """One rank of ``run`` over a mesh: its (batch, gen) ids."""
+    return _run(device=mesh.device, dist=sharding.DistContext(mesh), **kw)
+
+
+def _run(arch, batch, prompt_len, gen, topk, seed, full, table_dtype,
+         layers, ckpt, moe_impl, device, dist=None):
+    lead = dist is None or dist.mesh.rank == 0
+    if device.type == "cuda":
+        kernels_common.build()
+    cfg = _config(arch, full, table_dtype, layers, moe_impl)
+    if dist is None:
+        model = (build_model(cfg, seed, device) if ckpt is None
+                 else model_from_params(cfg, load_params(ckpt), device))
+    else:
+        params = None
+        if lead:
+            params = (load_params(ckpt) if ckpt is not None else dict(
+                build_model(cfg, seed, device).named_parameters()))
+        model = train_lib.parallel_state(cfg, None, seed, None, dist,
+                                         params)[0]
+        steps_lib.cast_params_for_compute(model, cfg)
+        model.eval().requires_grad_(False)
     steps_lib.warm_bloom_caches(cfg, model)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len),
@@ -242,9 +403,14 @@ def run(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         embeds = torch.zeros(batch, max(4, prompt_len // 4), cfg.d_model,
                              dtype=getattr(torch, cfg.dtype), device=device)
     ids, t_prefill, t_decode = generate(cfg, model, prompts, gen, topk,
-                                        embeds)
+                                        embeds, dist)
+    if not lead:
+        return ids
+    where = ("" if dist is None else
+             f", mesh {'x'.join(map(str, dist.mesh.sizes))} over "
+             f"{dist.mesh.transport.name}")
     print(f"whole-batch serving ({cfg.name} {cfg.num_layers}L d_model "
-          f"{cfg.d_model}, table_dtype {cfg.table_dtype}, {device}"
+          f"{cfg.d_model}, table_dtype {cfg.table_dtype}, {device}{where}"
           + ("" if embeds is None else
              f", {embeds.shape[1]} zero {cfg.frontend} embeddings") + ")")
     print(f"prefill {prompt_len} toks x{batch}: {t_prefill * 1e3:.0f} ms")
@@ -466,12 +632,27 @@ def main(argv=None):
     ap.add_argument("--gossip-delay", type=int, default=1,
                     help="steps before arrivals/releases become globally "
                          "visible (--sharded)")
-    ap.add_argument("--transport", choices=("sim", "collective"),
-                    default="sim",
-                    help="control-plane delta transport (--sharded): "
-                         "'sim' = in-process gossip (default), "
+    ap.add_argument("--transport",
+                    choices=("sim", "collective") + collectives.TRANSPORTS,
+                    default=None,
+                    help="--sharded: the control-plane delta transport, "
+                         "'sim' = in-process gossip (default) or "
                          "'collective' = fixed-size padded exchange "
-                         "gathered on the device")
+                         "gathered on the device; --mesh: the ranks' "
+                         "collectives, gloo (default; ranks may share a "
+                         "card) or nccl (a card per rank)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="--static: DxM, D data shards times M model "
+                         "shards, one rank each, started here (default "
+                         "1x1: one process)")
+    ap.add_argument("--ckpt", default=None,
+                    help="--static: serve the params of the newest "
+                         "checkpoint under this directory (launch/"
+                         "train.py's) instead of drawing them")
+    ap.add_argument("--moe-impl", default=None, choices=["dense", "ep"],
+                    help="--static: the MoE path, dense (every expert on "
+                         "the rank) or ep (experts split over the model "
+                         "axis)")
     ap.add_argument("--compact-threshold", type=float, default=None,
                     help="per-host fragmentation (dead-slot fraction "
                          "below the highest live slot) above which the "
@@ -487,6 +668,16 @@ def main(argv=None):
                   failpoints=args.failpoints,
                   deadline_slack=args.deadline_slack,
                   max_queue_depth=args.max_queue_depth, device=args.device)
+    meshed = train_lib.parse_mesh(args.mesh) != (1, 1)
+    if meshed and not args.static:
+        ap.error("--mesh serves the whole-batch path: add --static")
+    if (args.ckpt or args.moe_impl) and not args.static:
+        ap.error("--ckpt and --moe-impl serve the whole-batch path: add "
+                 "--static")
+    if args.transport in collectives.TRANSPORTS and not meshed:
+        ap.error(f"--transport {args.transport} joins the ranks of --mesh")
+    if args.transport in ("sim", "collective") and meshed:
+        ap.error("--mesh exchanges over gloo or nccl")
     if FailPlan.parse(args.failpoints).kill_steps() and not args.sharded:
         raise SystemExit("kill_host failpoints need --sharded: only the "
                          "sharded pool has hosts to kill")
@@ -495,7 +686,7 @@ def main(argv=None):
             raise SystemExit("--mode retrieval is its own serve path: "
                              "drop --static/--sharded (the retrieval "
                              "pool is single-host)")
-        if args.transport != "sim":
+        if args.transport not in (None, "sim"):
             raise SystemExit("--mode retrieval has no control-plane "
                              "transport: the pool is single-host")
         run_retrieval(args.retrieval_config,
@@ -509,7 +700,9 @@ def main(argv=None):
         run(args.arch, batch=args.batch, prompt_len=args.prompt_len,
             gen=args.gen, topk=args.topk, seed=args.seed, full=args.full,
             table_dtype=args.table_dtype, device=args.device,
-            layers=args.layers)
+            layers=args.layers, mesh=args.mesh,
+            transport=args.transport or "gloo", ckpt=args.ckpt,
+            moe_impl=args.moe_impl)
         return
     if args.sharded:
         run_sharded(args.arch, slots_per_host=args.slots_per_host,
@@ -518,7 +711,7 @@ def main(argv=None):
                     prompt_len=args.prompt_len, gen=args.gen,
                     topk=args.topk, seed=args.seed, full=args.full,
                     eos_id=args.eos_id, gossip_delay=args.gossip_delay,
-                    transport=args.transport,
+                    transport=args.transport or "sim",
                     prefill_workers=args.prefill_workers,
                     compact_threshold=args.compact_threshold,
                     table_dtype=args.table_dtype,

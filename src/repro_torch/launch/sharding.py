@@ -263,6 +263,16 @@ def cache_pspecs(cfg: ModelConfig, caches: List[Dict[str, torch.Tensor]],
     return [{k: spec_for(k, v) for k, v in layer.items()} for layer in caches]
 
 
+def shard_caches(cfg: ModelConfig, caches: List[Dict[str, torch.Tensor]],
+                 dist: DistContext, global_batch: int
+                 ) -> List[Dict[str, torch.Tensor]]:
+    """This rank's shards (``cache_pspecs``) of the decode caches of a
+    ``global_batch``-row batch (``meta`` in, ``meta`` out)."""
+    specs = cache_pspecs(cfg, caches, dist, global_batch)
+    return [{k: local_shard(v, s[k], dist.mesh) for k, v in layer.items()}
+            for layer, s in zip(caches, specs)]
+
+
 def slot_pool_pspecs(pool: List[Dict], dist: DistContext,
                      n_slots: int) -> List[Dict[str, PartitionSpec]]:
     """The serving slot pool's specs, leaf by leaf.
@@ -276,7 +286,8 @@ def slot_pool_pspecs(pool: List[Dict], dist: DistContext,
     shard.  No other axis shards: the sequence axis never does (an
     insert writes a slot-local ``[0, S_p)`` block), and the reference's
     split of kv heads, ``ssm`` heads and ``conv_x`` channels over
-    ``model`` waits for ROADMAP A13b (decode under a model axis).
+    ``model`` waits for the pool's shards on their own cards (ROADMAP
+    A13b).
 
     ``n_slots`` must divide across the data axes: the per-host admission
     shards (serving/scheduler.ShardedScheduler) own equal contiguous

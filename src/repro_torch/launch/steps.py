@@ -34,13 +34,20 @@ gradients over the batch axes (``collectives.data_mean``; with
 ``grad_compression="bf16"`` rounded to bf16 before the all-reduce), then
 clips by the global norm over the shards (a model-sharded leaf's squares
 summed over ``model``, a replicated one counted once) and updates each
-rank's shards, the moments mirroring them.  Decode under a model axis
-waits for ROADMAP A13b (``cache_pspecs``' k/v heads and sequence split).
+rank's shards, the moments mirroring them.  The whole-batch decode step
+takes the context too: the global tokens, this rank's cache shards
+(``sharding.cache_pspecs``: its batch rows, and its kv heads where they
+divide the model axis, else every kv head), the logits' columns gathered
+whole over ``model`` before the Eq. 3 top-k.  A cache whose sequence
+splits (over ``model`` where neither the heads nor the kv heads divide
+the axis; over the batch axes where the batch does not divide them)
+waits for ROADMAP A13b item 3.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -73,8 +80,29 @@ def check_parallel(cfg: ModelConfig, dist) -> None:
     if tf.tensor_parallel(dist) and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism for the {cfg.family} family "
-            "waits for the next slice of ROADMAP A13b; a model axis of 1 "
-            "(data parallel) runs it")
+            "waits for ROADMAP A13b item 3; a model axis of 1 (data "
+            "parallel) runs it")
+
+
+def check_decode(cfg: ModelConfig, dist, batch: Optional[int] = None
+                 ) -> None:
+    """Raise for a decode cache whose sequence splits: over ``model``
+    (``cache_pspecs``' ``allow_seq_model``: neither the heads nor the kv
+    heads divide the axis) or over the batch axes (a ``batch`` that does
+    not divide them, as long_500k's B = 1)."""
+    check_parallel(cfg, dist)
+    if (tf.tensor_parallel(dist) and cfg.num_kv_heads % dist.n_model
+            and cfg.num_heads % dist.n_model):
+        raise NotImplementedError(
+            f"{cfg.name}: neither its {cfg.num_heads} heads nor its "
+            f"{cfg.num_kv_heads} kv heads divide the model axis of "
+            f"{dist.n_model}; the decode cache's sequence split over "
+            "`model` waits for ROADMAP A13b item 3")
+    if batch is not None and batch % dist.n_batch:
+        raise NotImplementedError(
+            f"a decode batch of {batch} does not divide the batch axes "
+            f"({dist.n_batch} shards); the decode cache's sequence split "
+            "over them waits for ROADMAP A13b item 3")
 
 
 def apply_fn_for(cfg: ModelConfig):
@@ -231,18 +259,23 @@ def make_decode_step(cfg: ModelConfig, topk: int, device, dist=None):
 
     The slot step (``make_slot_decode_step``) with every row at the one
     sequence offset ``pos`` and no ``active`` mask, so the Eq. 3 recovery
-    takes the decode-top-k kernel's dense grid on CUDA.  ``dist`` with a
-    model axis of more than one raises: decode over sharded caches
-    (``cache_pspecs``' k/v heads and sequence split) waits for the next
-    slice of ROADMAP A13b.
+    takes the decode-top-k kernel's dense grid on CUDA.
+
+    Under ``dist`` (the module's docstring) ``token`` is the global batch
+    and ``caches`` this rank's shards; the outputs are this rank's rows
+    (B / the batch shards), every rank of a model group holding the same
+    ids and scores.  A cache whose sequence splits raises
+    (``check_decode``: over ``model`` here, over the batch axes at the
+    call).
     """
-    if tf.tensor_parallel(dist):
-        raise NotImplementedError(
-            "decode under a model axis (cache_pspecs' k/v heads and "
-            "sequence split) waits for the next slice of ROADMAP A13b")
-    slot_step = make_slot_decode_step(cfg, topk, device)
+    if dist is not None:
+        check_decode(cfg, dist)
+    slot_step = make_slot_decode_step(cfg, topk, device, dist)
 
     def step(model, token, caches, pos):
+        if dist is not None:
+            check_decode(cfg, dist, token.shape[0])
+            token = sharding.local_batch({"tokens": token}, dist)["tokens"]
         rows = torch.full((token.shape[0],), int(pos), dtype=torch.long,
                           device=token.device)
         return slot_step(model, token, caches, rows, None)
@@ -250,7 +283,7 @@ def make_decode_step(cfg: ModelConfig, topk: int, device, dist=None):
     return step
 
 
-def make_slot_decode_step(cfg: ModelConfig, topk: int, device):
+def make_slot_decode_step(cfg: ModelConfig, topk: int, device, dist=None):
     """Continuous-batching decode step over a slot pool on ``device``.
 
     (model, token (B, 1), caches, pos (B,), active (B,) or None) ->
@@ -262,20 +295,29 @@ def make_slot_decode_step(cfg: ModelConfig, topk: int, device):
     per (spec, device), not in the first step — for the legacy
     ``table_dtype="auto"`` path only: a quantized decode of an on-the-fly
     spec rehashes in the kernel.
+
+    ``dist`` (``make_decode_step``'s): the rows are this rank's, the
+    caches its shards, and a vocab sharded over ``model`` is gathered
+    whole before the recovery, since Eq. 3 sums logp over all k hash
+    columns; the returned logits are whole.
     """
     spec = io_lib.vocab_spec(cfg)
     if spec is not None and (io_lib.resolved_table_dtype(cfg) is None
                              or not spec.on_the_fly):
         bloom_lib.cached_hash_matrix(spec, device)
     apply_fn = apply_fn_for(cfg)
+    kw = {} if dist is None or cfg.family == "audio" else {"dist": dist}
 
     @torch.inference_mode()
     def step(model, token, caches, pos, active):
         out = apply_fn(model, cfg, token, mode="decode", caches=caches,
-                       pos=pos)
-        scores, ids = io_lib.recover_topk(cfg, out["logits"][:, 0],
-                                          topk=topk, active=active)
-        return {"logits": out["logits"], "caches": out["caches"],
+                       pos=pos, **kw)
+        logits = out["logits"]
+        if kw and io_lib.vocab_lo(logits.shape[-1], cfg, dist) is not None:
+            logits = torch.cat(collectives.all_gather(logits, dist), dim=-1)
+        scores, ids = io_lib.recover_topk(cfg, logits[:, 0], topk=topk,
+                                          active=active)
+        return {"logits": logits, "caches": out["caches"],
                 "topk_scores": scores, "topk_ids": ids}
 
     return step

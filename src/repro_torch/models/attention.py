@@ -13,12 +13,11 @@ outside any Pallas kernel, so the port computes it in plain PyTorch
 where the reference has a chunked flash-style ``custom_vjp``.  Weights
 keep the reference's layout: ``wq`` (D, H, hd), ``wk`` / ``wv``
 (D, KV, hd), ``wo`` (H, hd, D), biases (H, hd) / (KV, hd), the q/k
-norm gains (hd,).  The reference's flash-style chunking and its
-sharded-cache decode are not ported: they serve memory limits of long
-sequences and models this path does not run.
+norm gains (hd,).  The reference's flash-style chunking is not
+ported: it serves the memory limits of long sequences.
 
-Tensor parallel (a mesh's ``model`` axis of more than one, train and
-prefill): the layer holds its rank's heads, as the reference's specs
+Tensor parallel (a mesh's ``model`` axis of more than one, train,
+prefill and decode): the layer holds its rank's heads, as the reference's specs
 place them: ``wq`` (D, H/n, hd), ``wo`` (H/n, hd, D), ``bq`` (H/n, hd),
 and ``wk`` / ``wv`` / ``bk`` / ``bv`` over KV/n heads when ``num_kv_heads``
 divides the axis, else whole (GQA kv replication).  The layer's input
@@ -27,7 +26,11 @@ every replicated weight used by the rank's heads alone (the q/k norm
 gains, replicated k/v projections) too, each rank attends with its own
 heads (with replicated k/v, the kv heads its q heads read), and the
 output projection's parts are summed (``reduce_from_model``).  A layer
-whose heads do not divide the axis holds every head and runs whole.
+whose heads do not divide the axis holds every head and runs whole.  At
+decode the cache is the rank's shard of ``sharding.cache_pspecs``; the
+split of its sequence over ``model`` (neither the heads nor the kv heads
+divide the axis) waits for ROADMAP A13b item 3 (``launch/steps.py``
+refuses it).
 """
 from __future__ import annotations
 
@@ -205,23 +208,32 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_self_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                          cache: Dict[str, torch.Tensor], pos: torch.Tensor
-                          ) -> torch.Tensor:
+                          cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                          dist=None) -> torch.Tensor:
     """Single-token decode of x (B, 1, D) against ``cache`` {"k","v"}
     (B, T, KV, hd), where ``pos`` (B,) int is each row's own sequence
     offset (a continuous-batching slot pool).  Each row's new k/v is
     written at its ``pos`` IN PLACE (the reference returns a new cache;
     updating the pool saves a copy of it per layer per step), and keys at
-    positions <= pos are attended.  Returns (B, 1, D)."""
+    positions <= pos are attended.  Returns (B, 1, D).
+
+    ``dist``: tensor-parallel over the mesh's model axis, as prefill is:
+    the cache is this rank's shard (``sharding.cache_pspecs``: its kv
+    heads, or all of them where they replicate), the new k/v of those
+    heads go into it, and each q head reads its kv head."""
+    tp = _tp(p, cfg, dist)
+    if tp is not None:
+        x = collectives.copy_to_model(x, tp)
     B, T = x.shape[0], cache["k"].shape[1]
     posb = pos.reshape(B, 1)
-    q, k_new, v_new = _project_qkv(p, cfg, x, posb)
+    q, k_new, v_new = _project_qkv(p, cfg, x, posb, tp)
     rows = torch.arange(B, device=x.device)
     cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
     valid = torch.arange(T, device=x.device)[None, None, :] <= posb[:, :, None]
-    o = _attend(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), valid)
-    return _out(p, o)
+    ka, va = _local_kv(cache["k"], cache["v"], cfg, tp, q.shape[2])
+    o = _attend(q, ka.to(x.dtype), va.to(x.dtype), valid)
+    return _out(p, o, tp)
 
 
 def cross_attention_kv(p: Attention, cfg: ModelConfig, x: torch.Tensor,

@@ -171,7 +171,8 @@ def route(router: torch.Tensor, x_flat: torch.Tensor, cfg: ModelConfig,
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
     flat_sel = sel.reshape(-1)                                # (T*k,)
-    counts = torch.bincount(flat_sel, minlength=E)
+    # (not bincount: it syncs on CUDA and has no meta version)
+    counts = F.one_hot(flat_sel, E).sum(0)
     local = queue_positions(flat_sel, E)
     if not glob:
         f = counts.float() / (T * k)

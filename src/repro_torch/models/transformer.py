@@ -43,9 +43,10 @@ param (``sharding.shard_module``) and ``lm_apply`` runs the dense and MoE
 families tensor-parallel: the vocab-parallel Bloom embedding and head
 (models/io.py), the attention's heads and the SwiGLU's d_ff columns
 split over ``model`` with the row-parallel outputs all-reduced, and the
-MoE's experts split (``moe_impl="ep"``).  The train and prefill modes run
-so; decode and the other families wait for ROADMAP A13b
-(``launch/steps.py`` refuses them).
+MoE's experts split (``moe_impl="ep"``).  The train, prefill and decode
+modes run so (decode against this rank's cache shards); the other
+families wait for ROADMAP A13b item 3 (``launch/steps.py`` refuses
+them).
 """
 from __future__ import annotations
 
@@ -239,15 +240,15 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
 
     ``aux`` is the f32 sum of the MoE layers' load-balance losses (0
     without MoE).  ``dist`` runs the model tensor-parallel over its
-    ``model`` axis (train and prefill, dense and MoE families): the logits
-    are then this rank's columns of the m-dim logits when the vocab is
-    sharded, and the caches its shards.
+    ``model`` axis (the dense and MoE families): the logits are then this
+    rank's columns of the m-dim logits when the vocab is sharded, and the
+    caches (returned by prefill, taken and returned by decode) its
+    shards.
     """
-    if tensor_parallel(dist) and (mode == "decode" or cfg.family not in
-                                  ("dense", "moe")):
+    if tensor_parallel(dist) and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: {mode} of the {cfg.family} family under a model "
-            "axis waits for ROADMAP A13b")
+            "axis waits for ROADMAP A13b item 3")
     x = io.embed_tokens(model.embed, cfg, tokens, dist)
     if mode != "decode":
         x = frontend_concat(model, x, embeds)
@@ -274,7 +275,7 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
                 caches.append(kv)
             else:
                 y = attention.decode_self_attention(blk.attn, cfg, h,
-                                                    caches[i], pos)
+                                                    caches[i], pos, dist)
         elif mode == "train":
             y = mamba2.mamba_apply(blk.mamba, cfg, h)
         elif mode == "prefill":

@@ -392,13 +392,19 @@ def test_global_norm_counts_each_leaf_once():
 
 
 def test_what_the_parallel_step_refuses():
-    """Under a model axis: decode, the mamba / hybrid / audio / vlm
-    families' tensor parallelism and a quantized table raise, naming
-    what they wait for."""
+    """Under a model axis: decode of a cache whose sequence splits (over
+    ``model``, where neither the heads nor the kv heads divide the axis;
+    over the batch axes, where the batch does not divide them), the
+    mamba / hybrid / audio / vlm families' tensor parallelism and a
+    quantized table raise, naming what they wait for.  Decode whose
+    heads divide the axis builds."""
     dist = _port_dist(2, 1)
     cfg = tconfigs.get_smoke_config("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        t_steps.make_decode_step(cfg, 4, "cpu", dist)
+    t_steps.make_decode_step(cfg, 4, "cpu", dist)
+    with pytest.raises(NotImplementedError, match="A13b item 3"):
+        t_steps.make_decode_step(cfg, 4, "cpu", _port_dist(8, 1))
+    with pytest.raises(NotImplementedError, match="A13b item 3"):
+        t_steps.check_decode(cfg, _port_dist(2, 2), 3)
     for arch in ("mamba2-1.3b", "jamba-v0.1-52b", "whisper-small",
                  "pixtral-12b"):
         with pytest.raises(NotImplementedError, match="A13b"):
