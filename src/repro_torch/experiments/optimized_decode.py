@@ -1,7 +1,6 @@
 """Decode cells re-counted at a model axis of 16 (mesh 16x16) by the
 port's dry run (launch/dryrun.py): decode is weight-bandwidth bound, so
-it wants the thinnest weight shards.  A cell waiting for ROADMAP A13b
-item 3 prints ``WAIT``.
+it wants the thinnest weight shards.
 
 Usage: PYTHONPATH=src python -m repro_torch.experiments.optimized_decode
 """
@@ -9,7 +8,7 @@ import time
 import traceback
 
 from repro_torch import configs
-from repro_torch.launch.dryrun import WAIT, run_cell
+from repro_torch.launch.dryrun import run_cell
 
 
 def main():
@@ -25,9 +24,6 @@ def main():
                   f"bound={r.get('step_time_s', 0):.4f}s "
                   f"[{time.perf_counter()-t0:.0f}s]", flush=True)
         except Exception as e:  # noqa: BLE001 (reported, as the reference)
-            if isinstance(e, NotImplementedError) and WAIT in str(e):
-                print(f"WAIT {arch} {shape}: {e}", flush=True)
-                continue
             print(f"FAIL {arch} {shape}: {e}", flush=True)
             traceback.print_exc()
     print("done")

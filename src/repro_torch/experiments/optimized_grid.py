@@ -2,8 +2,7 @@
 (launch/dryrun.py at the H100's rates): mesh (32, 8), adafactor for the
 train cells, and ``causal_skip`` for every causal-attention train and
 prefill cell, an XLA knob the port records and has no counterpart of.
-Artifacts land in experiments/dryrun_opt_torch/ with tag 'opt'; a cell
-waiting for ROADMAP A13b item 3 prints ``WAIT``.
+Artifacts land in experiments/dryrun_opt_torch/ with tag 'opt'.
 
 Usage: PYTHONPATH=src python -m repro_torch.experiments.optimized_grid
 """
@@ -11,11 +10,11 @@ import time
 import traceback
 
 from repro_torch import configs
-from repro_torch.launch.dryrun import WAIT, run_cell
+from repro_torch.launch.dryrun import run_cell
 
 
 def main():
-    failures = waits = 0
+    failures = 0
     for arch, shape, ok, _ in configs.all_cells():
         if not ok:
             continue
@@ -37,14 +36,10 @@ def main():
                   f"frac={r.get('roofline_fraction', 0):.4f} "
                   f"[{time.perf_counter()-t0:.0f}s]", flush=True)
         except Exception as e:  # noqa: BLE001 (reported, as the reference)
-            if isinstance(e, NotImplementedError) and WAIT in str(e):
-                waits += 1
-                print(f"WAIT {arch} {shape}: {e}", flush=True)
-                continue
             failures += 1
             print(f"FAIL {arch} {shape}: {e}", flush=True)
             traceback.print_exc()
-    print(f"done, failures={failures}, waits={waits}")
+    print(f"done, failures={failures}")
 
 
 if __name__ == "__main__":

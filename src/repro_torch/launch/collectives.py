@@ -14,8 +14,14 @@ calls the collectives itself, Megatron-style:
 * ``reduce_from_model``: all-reduce over ``model`` forward, identity
   backward, where the parts are summed (a row-parallel product's
   output, the vocab-parallel embedding);
+* ``all_reduce_model``: all-reduce over ``model`` both ways, where every
+  rank's part depends on the sum (the gated RMSNorm's sum of squares
+  over a Mamba mixer's split channels);
 * ``all_gather`` along an axis (not differentiated: the vocab-parallel
   loss's local lse, a checkpoint's shards);
+* ``softmax_combine``: attention over a cache whose sequence is split,
+  one all-gather of each slice's (max, sum, weighted values), merged on
+  every rank (``merge_softmax``; not differentiated: decode only);
 * ``data_mean``: the gradient mean over the batch axes.
 
 Low-precision tensors (bf16, f16) are summed in f32 and rounded back once.
@@ -218,6 +224,18 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _AllReduceModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist_ctx):
+        ctx.dist_ctx = dist_ctx
+        return _sum(x, dist_ctx, dist_ctx.model_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.dist_ctx
+        return _sum(g, d, d.model_group), None
+
+
 def copy_to_model(x: torch.Tensor, dist_ctx) -> torch.Tensor:
     """Identity; its gradient is summed over ``model``.  A no-op without
     a model axis of more than one."""
@@ -231,6 +249,41 @@ def reduce_from_model(x: torch.Tensor, dist_ctx) -> torch.Tensor:
     if dist_ctx is None or dist_ctx.n_model == 1:
         return x
     return _ReduceFromModel.apply(x, dist_ctx)
+
+
+def all_reduce_model(x: torch.Tensor, dist_ctx) -> torch.Tensor:
+    """``x`` summed over ``model``, and its gradient summed over ``model``
+    too: each rank's part of the result's use differs, so the gradient of
+    the sum is every rank's.  A no-op without a model axis of more than
+    one."""
+    if dist_ctx is None or dist_ctx.n_model == 1:
+        return x
+    return _AllReduceModel.apply(x, dist_ctx)
+
+
+def merge_softmax(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor
+                  ) -> torch.Tensor:
+    """Softmax attention from the partials of n slices of the keys,
+    stacked on a leading axis: m (n, ...) each slice's largest score
+    (-inf: no valid key in it), l (n, ...) its sum of exp(s - m) and o
+    (n, ..., hd) its sum of exp(s - m) v.  Returns
+    sum_r e^(m_r - M) o_r / sum_r e^(m_r - M) l_r (..., hd), M the largest
+    m: a slice with no valid key weighs 0."""
+    top = m.amax(0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(m - top)
+    return (w[..., None] * o).sum(0) / (w * l).sum(0)[..., None]
+
+
+def softmax_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                    dist_ctx, group) -> torch.Tensor:
+    """``merge_softmax`` of this rank's partials (m, l (...), o (..., hd))
+    and those of the other ranks of ``group``, which hold the other
+    slices of the keys: one all-gather of the three packed in f32."""
+    packed = torch.cat([m[..., None], l[..., None], o], -1).float()
+    parts = torch.stack(dist_ctx.mesh.transport.all_gather(
+        packed.contiguous(), group))
+    return merge_softmax(parts[..., 0], parts[..., 1], parts[..., 2:])
 
 
 def all_gather(x: torch.Tensor, dist_ctx, axis: str = "model"

@@ -36,16 +36,18 @@ because XLA counts a loop body once.  The port counts every layer: the
 test_torch_dryrun.py`` holds the two equal).  ``compile_s`` is the
 seconds the count took.  The H100's rates are ``launch/roofline.py``'s.
 
-Cells of the ``ssm``, ``hybrid``, ``audio`` and ``vlm`` families wait for
-ROADMAP A13b item 3 (their tensor parallelism, and long_500k's sequence
-split): ``run_cell`` raises ``NotImplementedError`` naming it and ``main``
-prints them as ``WAIT``.  ``zero=True`` (ZeRO-1) raises: its optimizer
-specs exist, their execution does not.  The reference's XLA execution
-knobs (``XLA_ONLY_OVERRIDES``) have no counterpart here: ``run_cell``
-drops them from the config, records them under ``xla_only_overrides``
-and says so.  An MoE config's ``moe_impl="dense"`` keeps every expert on
-the rank, which a ``model`` axis of more than one refuses, so the dry
-run counts such a cell with ``moe_impl="ep"`` and records it.
+Every family runs: the decode step reads its caches by their specs
+(``sharding.decode_dist``), a cache whose sequence splits (whisper's 12
+heads on a 16-way axis, long_500k's B = 1 over the batch axes) slice by
+slice, its softmax partials merged by one all-gather that the counting
+transport records.  ``zero=True`` (ZeRO-1) raises: its optimizer specs
+exist, their execution does not (ROADMAP A13b item 5).  The reference's
+XLA execution knobs (``XLA_ONLY_OVERRIDES``) have no counterpart here:
+``run_cell`` drops them from the config, records them under
+``xla_only_overrides`` and says so.  An MoE config's
+``moe_impl="dense"`` keeps every expert on the rank, which a ``model``
+axis of more than one refuses, so the dry run counts such a cell with
+``moe_impl="ep"`` and records it.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
@@ -82,7 +84,6 @@ aten = torch.ops.aten
 # the reference's XLA execution knobs, which the port has no counterpart of
 XLA_ONLY_OVERRIDES = ("remat", "causal_skip", "scan_layers",
                       "unroll_for_analysis")
-WAIT = "ROADMAP A13b item 3"
 OUT_DIR = "experiments/dryrun_torch"
 
 # ops that read the rows they gather (the index and twice the output)
@@ -254,9 +255,10 @@ def step_variant(cfg, shape, dist, tc: TrainConfig):
         step = steps.make_prefill_step(cfg, dist)
         return (lambda: step(model, batch["tokens"], batch.get("embeds")),
                 (params, local))
+    whole = configs.cache_specs(cfg, shape)
+    dist = sharding.decode_dist(cfg, whole, dist, shape.global_batch)
     step = steps.make_decode_step(cfg, topk=16, device="meta", dist=dist)
-    caches = sharding.shard_caches(cfg, configs.cache_specs(cfg, shape),
-                                   dist, shape.global_batch)
+    caches = sharding.shard_caches(cfg, whole, dist, shape.global_batch)
     return (lambda: step(model, batch["tokens"], caches, shape.seq_len - 1),
             (params, local, caches))
 
@@ -316,14 +318,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if zero:
         raise NotImplementedError(
             "ZeRO-1: the optimizer-state specs exist (sharding."
-            "opt_state_pspecs), their execution waits for ROADMAP A13b's "
-            "ZeRO-1 item")
+            "opt_state_pspecs), their execution waits for ROADMAP A13b "
+            "item 5")
     mesh = _mesh(multi_pod, mesh_shape)
     dist = sharding.DistContext(mesh)
-    if dist.n_model > 1 and cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"tensor parallelism for the {cfg.family} family (and "
-            f"long_500k's sequence split) waits for {WAIT}")
     if cfg.moe is not None and dist.n_model > 1 and cfg.moe_impl == "dense":
         cfg = dataclasses.replace(cfg, moe_impl="ep")
     if xla_only:
@@ -388,14 +386,12 @@ def extrapolate(result: dict, key) -> float:
 
 
 def _run_one(cell, kw):
-    """("OK" | "WAIT" | "FAIL", the lines to print) of one cell."""
+    """("OK" | "FAIL", the lines to print) of one cell."""
     arch, shape = cell
     t0 = time.perf_counter()
     try:
         res = run_cell(arch, shape, **kw)
     except Exception as e:  # noqa: BLE001 (reported, counted, exit 1)
-        if isinstance(e, NotImplementedError) and WAIT in str(e):
-            return "WAIT", f"WAIT {arch} {shape}: {e}"
         return "FAIL", (f"FAIL {arch} {shape}: {e}\n"
                         + traceback.format_exc().rstrip())
     took = time.perf_counter() - t0
@@ -440,7 +436,7 @@ def main(argv=None):
     kw = dict(multi_pod=args.multi_pod, bloom=not args.no_bloom,
               roofline_pass=not args.no_roofline, out_dir=args.out)
 
-    counts = {"OK": 0, "WAIT": 0, "FAIL": 0}
+    counts = {"OK": 0, "FAIL": 0}
 
     def report(outcome):
         kind, text = outcome
@@ -456,9 +452,7 @@ def main(argv=None):
     else:
         for cell in cells:
             report(_run_one(cell, kw))
-    print(f"done: {counts['OK']}/{len(cells)} cells passed"
-          + (f", {counts['WAIT']} wait for {WAIT}" if counts["WAIT"]
-             else ""), flush=True)
+    print(f"done: {counts['OK']}/{len(cells)} cells passed", flush=True)
     raise SystemExit(1 if counts["FAIL"] else 0)
 
 

@@ -14,7 +14,8 @@ simulates N hosts, one per ``data`` shard.  The port has two kinds:
   ``coords`` (row-major over the axes, as ``jax.make_mesh`` orders its
   devices), and one process group per axis over the ranks that share
   every other coordinate, plus ``batch``, the group over all batch axes
-  (the axes but ``model``).  Each rank holds its local shard of every
+  (the axes but ``model``), and ``world``, every rank (a cache sequence
+  split over every axis).  Each rank holds its local shard of every
   leaf (``launch/sharding``) and the step calls the collectives through
   the mesh's ``transport`` (``launch/collectives``).
 
@@ -136,6 +137,7 @@ def world_mesh(shape, axes=("data", "model"), device=None,
     batch = [i for i, a in enumerate(axes) if a != "model"]
     groups["batch"] = (None if not batch else groups[axes[batch[0]]]
                        if len(batch) == 1 else groups_over(batch))
+    groups["world"] = dist.group.WORLD
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -174,6 +176,7 @@ def counting_mesh(shape=None, axes=None,
     groups = {a: CountedGroup(n) for a, n in zip(axes, shape)}
     groups["batch"] = CountedGroup(math.prod(
         n for a, n in zip(axes, shape) if a != "model"))
+    groups["world"] = CountedGroup(math.prod(shape))
     return Mesh(axes, shape, torch.device("meta"), 0, groups,
                 transport or CountingTransport())
 
@@ -208,7 +211,7 @@ def make_serving_mesh(n_hosts: Optional[int] = None,
         raise NotImplementedError(
             f"model_parallel={model_parallel}: the sharded slot pool on "
             "one device serves model_parallel=1 (its shards on their own "
-            "ranks wait for ROADMAP A13b)")
+            "ranks wait for ROADMAP A13b item 6)")
     if n_hosts is None:
         n_hosts = _device_count(device)
     return _mesh((n_hosts, 1), ("data", "model"), device)

@@ -41,8 +41,9 @@ process each, which the entry point starts itself (``train.spawn``, as
 the default there, or nccl): rank 0 draws (or loads) the weights, every
 rank takes its shards (``sharding.shard_module``), and each runs
 ``make_prefill_step(cfg, dist)`` and ``make_decode_step(cfg, topk,
-device, dist)``: tensor parallel over ``model`` (the dense and MoE
-families), the batch rows split over ``data``; rank 0 prints the tokens.
+device, dist)``: tensor parallel over ``model`` (every family), the
+batch rows split over ``data`` where they divide it, else replicated and
+the decode cache's sequence split over it; rank 0 prints the tokens.
 ``--mesh 1x1`` (the default) is the one-process path.
 
 Weights are random, drawn from ``--seed`` (``build_model``, the
@@ -204,11 +205,22 @@ def _setup(arch: str, full: bool, table_dtype, seed: int, device,
     return device, cfg, build_model(cfg, seed, device)
 
 
-def pad_caches_to(caches_small, caches_template):
+def pad_caches_to(caches_small, caches_template, dist=None):
     """Place prefill caches (length S_p) into preallocated max-length
     buffers: the whole-batch case (slot 0, every row) of the engine's
-    slot-indexed ``steps.insert_cache_slot``."""
-    return steps_lib.insert_cache_slot(caches_template, caches_small, 0)
+    slot-indexed ``steps.insert_cache_slot``.  Under ``dist`` carrying
+    the caches' specs (``sharding.decode_dist``) the template is this
+    rank's shards: where a leaf's sequence splits (``dist.seq_shard``),
+    the rank keeps the prefill's positions that fall in its slice, the
+    ``vlm`` prefix's among them."""
+    seq_lo = None
+    if dist is not None and dist.cache_specs is not None:
+        seq_lo = [{name: seq.index * buf[name].shape[1]
+                   for name in steps_lib.SEQ_LEAVES if name in buf
+                   and (seq := dist.seq_shard(i, name)) is not None}
+                  for i, buf in enumerate(caches_template)]
+    return steps_lib.insert_cache_slot(caches_template, caches_small, 0,
+                                       seq_lo)
 
 
 def decode_caches(cfg, batch: int, prompt_len: int, gen: int,
@@ -232,10 +244,11 @@ def decode_caches(cfg, batch: int, prompt_len: int, gen: int,
                             device=device), n_prefix
 
 
-def batch_whole(x: torch.Tensor, dist) -> torch.Tensor:
-    """Every batch shard's rows of ``x``, in order (``x`` itself without a
-    batch axis of more than one)."""
-    if dist is None or dist.n_batch == 1:
+def batch_whole(x: torch.Tensor, dist, batch: int) -> torch.Tensor:
+    """Every batch shard's rows of ``x``, in order, of a ``batch``-row
+    global batch (``x`` itself without a batch axis of more than one, or
+    where ``batch`` does not divide it: every rank holds every row)."""
+    if dist is None or dist.n_batch == 1 or batch % dist.n_batch:
         return x
     return torch.cat(collectives.all_gather(x, dist, "batch"))
 
@@ -255,16 +268,24 @@ def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int,
     the caches hold ``cache_dtype`` (bf16, as the reference's).
 
     Under ``dist`` the model holds this rank's shards: the caches are its
-    shards (``sharding.shard_caches``), each step's tokens are gathered
-    over the batch axes for the next, and every rank returns the whole
-    batch's ids."""
+    shards (``sharding.shard_caches``; a split sequence its slice), each
+    step's tokens are gathered over the batch axes for the next (where
+    the rows split), and every rank returns the whole batch's ids."""
     device = model.embed.device
     B, S = prompts.shape
-    kw = {}
-    if dist is not None:
-        steps_lib.check_decode(cfg, dist, B)
-        kw["dist"] = dist
+    kw = {} if dist is None else {"dist": dist}
     prefill = steps_lib.make_prefill_step(cfg, **kw)
+    if dist is None:
+        template, n_prefix = decode_caches(cfg, B, S, gen, embeds, device,
+                                           cache_dtype)
+    else:
+        template, n_prefix = decode_caches(cfg, B, S, gen, embeds, "meta",
+                                           cache_dtype)
+        dist = kw["dist"] = sharding.decode_dist(cfg, template, dist, B)
+        template = [{k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                     for k, v in layer.items()}
+                    for layer in sharding.shard_caches(cfg, template, dist,
+                                                       B)]
     decode = steps_lib.make_decode_step(cfg, topk, device, **kw)
 
     def sync():
@@ -273,23 +294,13 @@ def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int,
 
     t0 = time.perf_counter()
     pre = prefill(model, torch.as_tensor(prompts, device=device), embeds)
-    if dist is None:
-        template, n_prefix = decode_caches(cfg, B, S, gen, embeds, device,
-                                           cache_dtype)
-    else:
-        template, n_prefix = decode_caches(cfg, B, S, gen, embeds, "meta",
-                                           cache_dtype)
-        template = [{k: torch.zeros(v.shape, dtype=v.dtype, device=device)
-                     for k, v in layer.items()}
-                    for layer in sharding.shard_caches(cfg, template, dist,
-                                                       B)]
-    caches = pad_caches_to(pre["caches"], template)
+    caches = pad_caches_to(pre["caches"], template, dist)
     sync()
     t_prefill = time.perf_counter() - t0
 
     with torch.inference_mode():
         _, ids = io_lib.recover_topk(cfg, pre["last_logits"], topk=topk)
-    token = batch_whole(ids[:, :1], dist)
+    token = batch_whole(ids[:, :1], dist, B)
     generated = [token.cpu()]
     t0 = time.perf_counter()
     for t in range(gen - 1):
@@ -297,7 +308,7 @@ def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int,
         if on_step is not None:
             on_step(t, out)
         caches = out["caches"]
-        token = batch_whole(out["topk_ids"][:, :1], dist)
+        token = batch_whole(out["topk_ids"][:, :1], dist, B)
         generated.append(token.cpu())
     sync()
     t_decode = time.perf_counter() - t0
@@ -305,13 +316,15 @@ def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int,
 
 
 def decode_job(mesh, cfg, params, prompts: np.ndarray, gen: int,
-               topk: int, cache_dtype=torch.bfloat16):
+               topk: int, cache_dtype=torch.bfloat16, embeds=None):
     """One rank of a whole-batch generation over ``mesh`` from given
     weights (``params``: name -> full f32 tensor or array, read on rank
-    0) on the global ``prompts`` (``generate`` under the mesh's
-    context).  Rank 0 returns {"ids" (B, gen), and per decode step
-    "logits" (B, 1, m_vocab), "topk_ids", "topk_scores" (B, topk)}, numpy,
-    the batch rows gathered; the other ranks None."""
+    0) on the global ``prompts`` and, for the ``vlm`` and ``audio``
+    families, the frontend's global ``embeds`` (B, S_emb, D) array
+    (``generate`` under the mesh's context).  Rank 0 returns {"ids" (B,
+    gen), and per decode step "logits" (B, 1, m_vocab), "topk_ids",
+    "topk_scores" (B, topk)}, numpy, the batch rows gathered; the other
+    ranks None."""
     dist_ctx = sharding.DistContext(mesh)
     full = {n: torch.as_tensor(v) for n, v in params.items()}
     model = train_lib.parallel_state(cfg, None, 0, None, dist_ctx, full)[0]
@@ -320,13 +333,16 @@ def decode_job(mesh, cfg, params, prompts: np.ndarray, gen: int,
     steps = []
 
     def keep(t, out):
-        rows = {k: batch_whole(out[k], dist_ctx).cpu()
+        rows = {k: batch_whole(out[k], dist_ctx, len(prompts)).cpu()
                 for k in ("logits", "topk_ids", "topk_scores")}
         steps.append({k: (v.float() if v.is_floating_point() else v).numpy()
                       for k, v in rows.items()})
 
-    ids, _, _ = generate(cfg, model, prompts, gen, topk, dist=dist_ctx,
-                         on_step=keep, cache_dtype=cache_dtype)
+    if embeds is not None:
+        embeds = torch.as_tensor(embeds).to(mesh.device,
+                                            getattr(torch, cfg.dtype))
+    ids, _, _ = generate(cfg, model, prompts, gen, topk, embeds,
+                         dist=dist_ctx, on_step=keep, cache_dtype=cache_dtype)
     if mesh.rank:
         return None
     return {"ids": ids, **{k: np.stack([s[k] for s in steps])
@@ -335,9 +351,9 @@ def decode_job(mesh, cfg, params, prompts: np.ndarray, gen: int,
 
 def decode_jobs(mesh, cases):
     """``decode_job`` for each case (mesh shape, cfg, params, prompts,
-    gen, topk, cache dtype), each on a mesh of its own shape over this
-    world (``mesh.world_mesh``, as many ranks as ``mesh``): the list of
-    this rank's results."""
+    gen, topk, cache dtype[, embeds]), each on a mesh of its own shape
+    over this world (``mesh.world_mesh``, as many ranks as ``mesh``): the
+    list of this rank's results."""
     out = []
     for shape, *args in cases:
         m = (mesh if tuple(shape) == mesh.sizes else mesh_lib.world_mesh(

@@ -18,7 +18,11 @@ axis but ``model`` (pure data parallelism); ``model`` is Megatron-style
 tensor parallelism (heads, d_ff, the vocab's m rows, experts, Mamba's
 d_inner and heads); GQA kv heads replicate when ``num_kv_heads`` does not
 divide the model axis; decode caches shard the batch over the batch axes
-when it divides, else the sequence.
+when it divides, else the sequence.  A cache whose sequence splits is
+read by attention slice by slice: ``DistContext.cache_specs`` (set by
+``decode_dist``) carries the caches' specs into model code, and
+``seq_shard`` gives a rank its slice by the same ``_shard_index`` that
+``local_shard`` cuts by.
 
 On a mesh over a world of ranks (launch/mesh.py) each rank holds the
 local shard of each leaf (``local_shard``, ``shard_state_dict``,
@@ -69,6 +73,9 @@ class DistContext:
     # batch (False: every rank holds the whole batch, as a prefill whose
     # batch does not divide the batch axes does)
     rows_split: bool = True
+    # the decode caches' specs, per layer and leaf (``decode_dist``):
+    # where a cache's sequence splits, attention reads it slice by slice
+    cache_specs: Optional[List[Dict[str, "PartitionSpec"]]] = None
 
     @property
     def batch_axes(self) -> Tuple[str, ...]:
@@ -106,6 +113,27 @@ class DistContext:
         """Batch-dim axes if ``b`` divides across them, else None
         (replicate)."""
         return self.batch_axes if b % self.n_batch == 0 else None
+
+    def seq_shard(self, layer: int, key: str) -> Optional["SeqShard"]:
+        """This rank's slice of the sequence of layer ``layer``'s cache
+        leaf ``key`` ("k", "cross_k") when ``cache_specs`` split it, else
+        None."""
+        if self.cache_specs is None:
+            return None
+        entry = self.cache_specs[layer][key][1]
+        n, i = _shard_index(entry, self.mesh)
+        if n == 1:
+            return None
+        return SeqShard(i, _group_of(entry, self.mesh))
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A rank's slice of a cache's sequence: slice ``index`` of equal ones
+    (positions ``[index * T, (index + 1) * T)`` of a local length T), the
+    other slices held by the ranks of ``group``."""
+    index: int
+    group: object
 
 
 # --------------------------------------------------------------------------
@@ -273,6 +301,15 @@ def shard_caches(cfg: ModelConfig, caches: List[Dict[str, torch.Tensor]],
             for layer, s in zip(caches, specs)]
 
 
+def decode_dist(cfg: ModelConfig, caches: List[Dict[str, torch.Tensor]],
+                dist: DistContext, global_batch: int) -> DistContext:
+    """``dist`` carrying the ``cache_pspecs`` of the (global) decode caches
+    ``caches`` of a ``global_batch``-row batch, which the decode step
+    reads them by (a split sequence, ``DistContext.seq_shard``)."""
+    return dataclasses.replace(
+        dist, cache_specs=cache_pspecs(cfg, caches, dist, global_batch))
+
+
 def slot_pool_pspecs(pool: List[Dict], dist: DistContext,
                      n_slots: int) -> List[Dict[str, PartitionSpec]]:
     """The serving slot pool's specs, leaf by leaf.
@@ -406,6 +443,8 @@ def _group_of(entry, mesh: Mesh):
     batch = tuple(a for a in mesh.axis_names if a != "model")
     if axes == batch:
         return mesh.groups["batch"]
+    if axes == tuple(mesh.axis_names):
+        return mesh.groups["world"]
     raise ValueError(f"no process group spans the axes {axes}")
 
 

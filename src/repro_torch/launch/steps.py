@@ -28,26 +28,28 @@ ranks, the model holding each rank's local shards): ``loss_fn_for``,
 ``value_and_grad``, ``make_train_step`` and ``make_prefill_step`` take
 the context.  The train step takes the GLOBAL batch and keeps this
 rank's rows (``sharding.local_batch``: split over the batch axes, which
-must divide it), runs the model tensor-parallel over ``model`` (the
-dense and MoE families; any family with a model axis of 1), averages the
+must divide it), runs the model tensor-parallel over ``model`` (every
+family, each layer split where the reference's rules split it), averages the
 gradients over the batch axes (``collectives.data_mean``; with
 ``grad_compression="bf16"`` rounded to bf16 before the all-reduce), then
 clips by the global norm over the shards (a model-sharded leaf's squares
 summed over ``model``, a replicated one counted once) and updates each
 rank's shards, the moments mirroring them.  The whole-batch decode step
-takes the context too: the global tokens, this rank's cache shards
-(``sharding.cache_pspecs``: its batch rows, and its kv heads where they
-divide the model axis, else every kv head), the logits' columns gathered
-whole over ``model`` before the Eq. 3 top-k.  A cache whose sequence
-splits (over ``model`` where neither the heads nor the kv heads divide
-the axis; over the batch axes where the batch does not divide them)
-waits for ROADMAP A13b item 3.
+takes the context too, carrying the caches' specs
+(``sharding.decode_dist``): the global tokens, this rank's cache shards
+(``sharding.cache_pspecs``: its batch rows where the batch divides the
+batch axes, else every row; its kv heads where they divide the model
+axis, else every kv head; its Mamba heads and channels), the logits'
+columns gathered whole over ``model`` before the Eq. 3 top-k.  A cache
+whose sequence splits (over ``model`` where neither the heads nor the kv
+heads divide the axis; over the batch axes where the batch does not
+divide them) is read slice by slice and its softmax partials merged
+(models/attention.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
 
 import torch
 
@@ -72,37 +74,6 @@ def loss_fn_for(cfg: ModelConfig, dist=None):
     base = (encdec_lib.encdec_loss_fn if cfg.family == "audio"
             else tf.lm_loss_fn)
     return lambda model, batch: base(model, cfg, batch)
-
-
-def check_parallel(cfg: ModelConfig, dist) -> None:
-    """Raise for what the parallel step does not run yet: a model axis of
-    more than one for the mamba, hybrid, audio and vlm families."""
-    if tf.tensor_parallel(dist) and cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism for the {cfg.family} family "
-            "waits for ROADMAP A13b item 3; a model axis of 1 (data "
-            "parallel) runs it")
-
-
-def check_decode(cfg: ModelConfig, dist, batch: Optional[int] = None
-                 ) -> None:
-    """Raise for a decode cache whose sequence splits: over ``model``
-    (``cache_pspecs``' ``allow_seq_model``: neither the heads nor the kv
-    heads divide the axis) or over the batch axes (a ``batch`` that does
-    not divide them, as long_500k's B = 1)."""
-    check_parallel(cfg, dist)
-    if (tf.tensor_parallel(dist) and cfg.num_kv_heads % dist.n_model
-            and cfg.num_heads % dist.n_model):
-        raise NotImplementedError(
-            f"{cfg.name}: neither its {cfg.num_heads} heads nor its "
-            f"{cfg.num_kv_heads} kv heads divide the model axis of "
-            f"{dist.n_model}; the decode cache's sequence split over "
-            "`model` waits for ROADMAP A13b item 3")
-    if batch is not None and batch % dist.n_batch:
-        raise NotImplementedError(
-            f"a decode batch of {batch} does not divide the batch axes "
-            f"({dist.n_batch} shards); the decode cache's sequence split "
-            "over them waits for ROADMAP A13b item 3")
 
 
 def apply_fn_for(cfg: ModelConfig):
@@ -179,7 +150,6 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, dist=None):
 
     def step(model, opt_state, batch):
         if dist is not None:
-            check_parallel(cfg, dist)
             B = next(iter(batch.values())).shape[0]
             if B % dist.n_batch:
                 raise ValueError(f"the global batch {B} must divide the "
@@ -217,28 +187,26 @@ def make_prefill_step(cfg: ModelConfig, dist=None):
     frontend's embeddings (``vlm``: ahead of the tokens; ``audio``: the
     encoder's frames).
 
-    Under ``dist`` (the dense and MoE families with a model axis; any
-    family without) the inputs are global and this rank takes its batch
+    Under ``dist`` the inputs are global and this rank takes its batch
     rows (``sharding.local_batch``; replicated when they do not divide
     the batch axes); ``last_logits`` are this rank's rows, whole over m
     (a sharded vocab's columns all-gathered over ``model``), the caches
-    its shards (``cache_pspecs``: its rows and kv heads), and ``aux`` the
-    MoE layers' load-balance loss."""
+    its rows, kv heads and Mamba heads, over the whole prompt (a split
+    sequence is cut by ``serve.pad_caches_to``), and ``aux`` the MoE
+    layers' load-balance loss."""
     apply_fn = apply_fn_for(cfg)
 
     @torch.inference_mode()
     def step(model, tokens, embeds=None):
         kw = {}
         if dist is not None:
-            check_parallel(cfg, dist)
             split = dist.batch_spec_axes(tokens.shape[0]) is not None
             inputs = sharding.local_batch(
                 {"tokens": tokens} if embeds is None
                 else {"tokens": tokens, "embeds": embeds}, dist)
             tokens, embeds = inputs["tokens"], inputs.get("embeds")
-            if cfg.family != "audio":
-                kw["dist"] = (dist if split else
-                              dataclasses.replace(dist, rows_split=False))
+            kw["dist"] = (dist if split else
+                          dataclasses.replace(dist, rows_split=False))
         out = apply_fn(model, cfg, tokens, mode="prefill", embeds=embeds,
                        **kw)
         last = out["logits"][:, -1]
@@ -261,24 +229,31 @@ def make_decode_step(cfg: ModelConfig, topk: int, device, dist=None):
     sequence offset ``pos`` and no ``active`` mask, so the Eq. 3 recovery
     takes the decode-top-k kernel's dense grid on CUDA.
 
-    Under ``dist`` (the module's docstring) ``token`` is the global batch
-    and ``caches`` this rank's shards; the outputs are this rank's rows
-    (B / the batch shards), every rank of a model group holding the same
-    ids and scores.  A cache whose sequence splits raises
-    (``check_decode``: over ``model`` here, over the batch axes at the
-    call).
+    Under ``dist`` (the module's docstring; it must carry the caches'
+    specs, ``sharding.decode_dist``) ``token`` is the global batch and
+    ``caches`` this rank's shards; the outputs are this rank's rows (B /
+    the batch shards, or every row where B does not divide them), every
+    rank of a model group holding the same ids and scores.
     """
-    if dist is not None:
-        check_decode(cfg, dist)
     slot_step = make_slot_decode_step(cfg, topk, device, dist)
+    # a batch that does not divide the batch axes: every rank holds every
+    # row, as the prefill's (so an MoE routes them as the whole batch)
+    whole_step = (None if dist is None else make_slot_decode_step(
+        cfg, topk, device, dataclasses.replace(dist, rows_split=False)))
 
     def step(model, token, caches, pos):
+        run = slot_step
         if dist is not None:
-            check_decode(cfg, dist, token.shape[0])
+            if dist.cache_specs is None:
+                raise ValueError("the decode step under a mesh reads its "
+                                 "caches by their specs: pass "
+                                 "sharding.decode_dist(...)")
+            if dist.batch_spec_axes(token.shape[0]) is None:
+                run = whole_step
             token = sharding.local_batch({"tokens": token}, dist)["tokens"]
         rows = torch.full((token.shape[0],), int(pos), dtype=torch.long,
                           device=token.device)
-        return slot_step(model, token, caches, rows, None)
+        return run(model, token, caches, rows, None)
 
     return step
 
@@ -306,7 +281,7 @@ def make_slot_decode_step(cfg: ModelConfig, topk: int, device, dist=None):
                              or not spec.on_the_fly):
         bloom_lib.cached_hash_matrix(spec, device)
     apply_fn = apply_fn_for(cfg)
-    kw = {} if dist is None or cfg.family == "audio" else {"dist": dist}
+    kw = {} if dist is None else {"dist": dist}
 
     @torch.inference_mode()
     def step(model, token, caches, pos, active):
@@ -348,8 +323,12 @@ def warm_bloom_caches(cfg: ModelConfig, model: torch.nn.Module,
         bloom_lib.cached_packed_hash_matrix(spec, model.embed.device)
 
 
+# the cache leaves with a sequence (position or frame) axis, axis 1
+SEQ_LEAVES = ("k", "v", "cross_k", "cross_v")
+
+
 @torch.inference_mode()
-def insert_cache_slot(pool, caches_small, slot: int):
+def insert_cache_slot(pool, caches_small, slot: int, seq_lo=None):
     """Write a prefill's caches into rows [slot, slot + B) of the pool, in
     place, leaf by leaf by its role; returns the pool.  Attention k/v
     (prefill (B, S, KV, hd), pool (n_slots, T, KV, hd)) go to positions
@@ -360,10 +339,18 @@ def insert_cache_slot(pool, caches_small, slot: int):
     whole-batch prefill at slot 0 fills the pool
     (``serve.pad_caches_to``).  Stale k/v past S from an earlier occupant
     are never read: decode attends only to positions <= the slot's offset
-    and writes each position before reaching it."""
-    for buf, small in zip(pool, caches_small):
+    and writes each position before reaching it.
+
+    ``seq_lo`` (per layer, {leaf: position}) places a pool whose leaf
+    holds one slice of a split sequence: the pool's position 0 is the
+    prefill's ``seq_lo``, and the leaf takes the prefill's positions that
+    fall in its slice (a leaf missing from it starts at 0)."""
+    for i, (buf, small) in enumerate(zip(pool, caches_small)):
         for name, s in small.items():
             rows = buf[name][slot:slot + s.shape[0]]
+            if name in SEQ_LEAVES:
+                lo = 0 if seq_lo is None else seq_lo[i].get(name, 0)
+                s = s[:, lo:lo + rows.shape[1]]
             if name in ("k", "v"):
                 rows = rows[:, :s.shape[1]]
             rows.copy_(s)

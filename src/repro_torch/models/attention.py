@@ -26,11 +26,20 @@ every replicated weight used by the rank's heads alone (the q/k norm
 gains, replicated k/v projections) too, each rank attends with its own
 heads (with replicated k/v, the kv heads its q heads read), and the
 output projection's parts are summed (``reduce_from_model``).  A layer
-whose heads do not divide the axis holds every head and runs whole.  At
-decode the cache is the rank's shard of ``sharding.cache_pspecs``; the
-split of its sequence over ``model`` (neither the heads nor the kv heads
-divide the axis) waits for ROADMAP A13b item 3 (``launch/steps.py``
-refuses it).
+whose heads do not divide the axis holds every head and runs whole on
+every rank, with no reduce after ``wo``.  The encoder's self-attention
+and the cross attention split the same way.
+
+At decode the cache is the rank's shard of ``sharding.cache_pspecs``.
+Where its sequence splits (over ``model`` when neither the heads nor the
+kv heads divide the axis, over the batch axes when the batch does not
+divide them) the caller passes the rank's slice (``seq``, a
+``sharding.SeqShard``): the new k/v is written only by the rank that
+holds position ``pos``, keys are masked by their global position, and
+each rank's softmax partials over its slice (max, sum, weighted values;
+a slice with no valid key gives a max of -inf and weighs 0) are merged
+across the slices (``collectives.softmax_combine``).  The combine has
+no host sync and no data-dependent shape, so it runs on ``meta``.
 """
 from __future__ import annotations
 
@@ -148,6 +157,36 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(w, vh).transpose(1, 2)
 
 
+def _attend_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid: Optional[torch.Tensor]):
+    """Softmax partials of q (B, S, H, hd) over one slice of the keys,
+    k/v (B, T, KV, hd), valid (B, S, T) bool or None: (m, l) (B, S, H),
+    the slice's largest score and sum of exp(s - m), and o (B, S, H, hd),
+    its sum of exp(s - m) v, all f32.  A row with no valid key gives
+    m = -inf, l = 0 and o = 0 (its exponents taken against 0, not
+    against -inf, which would give NaN)."""
+    H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
+    if H != KV:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # (B, H, ., hd)
+    s = torch.matmul(qh, kh.transpose(-1, -2)).float() / math.sqrt(hd)
+    if valid is not None:
+        s = s.masked_fill(~valid[:, None], -math.inf)
+    m = s.amax(-1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m,
+                                  torch.zeros_like(m))[..., None])
+    o = torch.matmul(p, vh.float())
+    return m.transpose(1, 2), p.sum(-1).transpose(1, 2), o.transpose(1, 2)
+
+
+def _attend_seq(q, k, v, valid, seq, dist) -> torch.Tensor:
+    """``_attend`` over keys split by sequence: this rank's slice k/v
+    (``seq``), merged with the other slices' partials; q's dtype."""
+    m, l, o = _attend_partial(q, k, v, valid)
+    return collectives.softmax_combine(m, l, o, dist, seq.group).to(q.dtype)
+
+
 def _local_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, tp,
               n_heads: int):
     """The kv heads the rank's ``n_heads`` q heads read: with replicated
@@ -171,31 +210,29 @@ def self_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                    causal: bool = True, dist=None) -> torch.Tensor:
     """Train: self-attention over x (B, S, D) at ``positions`` (B, S),
     causal unless ``causal=False`` (the encoder), no cache kept; returns
-    (B, S, D).  ``dist``: tensor-parallel over the mesh's model axis
-    (causal only)."""
-    if causal:
-        return self_attention_with_cache(p, cfg, x, positions, dist)[0]
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    return _out(p, _attend(q, k, v, None))
+    (B, S, D).  ``dist``: tensor-parallel over the mesh's model axis."""
+    return self_attention_with_cache(p, cfg, x, positions, dist, causal)[0]
 
 
 def self_attention_with_cache(p: Attention, cfg: ModelConfig,
                               x: torch.Tensor, positions: torch.Tensor,
-                              dist=None
+                              dist=None, causal: bool = True
                               ) -> tuple[torch.Tensor,
                                          Dict[str, torch.Tensor]]:
-    """Prefill: causal self-attention over x (B, S, D) at ``positions``
-    (B, S), which also returns the layer's compact KV cache
-    {"k", "v"} (B, S, KV, hd) in x's dtype.  ``dist``: tensor-parallel
-    over the mesh's model axis (the module's docstring); the cache then
-    holds the rank's kv heads, or all of them where they replicate."""
+    """Prefill: self-attention over x (B, S, D) at ``positions`` (B, S),
+    causal unless ``causal=False``, which also returns the layer's compact
+    KV cache {"k", "v"} (B, S, KV, hd) in x's dtype.  ``dist``:
+    tensor-parallel over the mesh's model axis (the module's docstring);
+    the cache then holds the rank's kv heads, or all of them where they
+    replicate."""
     tp = _tp(p, cfg, dist)
     if tp is not None:
         x = collectives.copy_to_model(x, tp)
     q, k, v = _project_qkv(p, cfg, x, positions, tp)
-    causal = positions[:, :, None] >= positions[:, None, :]
+    mask = (positions[:, :, None] >= positions[:, None, :] if causal
+            else None)
     ka, va = _local_kv(k, v, cfg, tp, q.shape[2])
-    return _out(p, _attend(q, ka, va, causal), tp), {"k": k, "v": v}
+    return _out(p, _attend(q, ka, va, mask), tp), {"k": k, "v": v}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -209,7 +246,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def decode_self_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                           cache: Dict[str, torch.Tensor], pos: torch.Tensor,
-                          dist=None) -> torch.Tensor:
+                          dist=None, seq=None) -> torch.Tensor:
     """Single-token decode of x (B, 1, D) against ``cache`` {"k","v"}
     (B, T, KV, hd), where ``pos`` (B,) int is each row's own sequence
     offset (a continuous-batching slot pool).  Each row's new k/v is
@@ -220,7 +257,9 @@ def decode_self_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``dist``: tensor-parallel over the mesh's model axis, as prefill is:
     the cache is this rank's shard (``sharding.cache_pspecs``: its kv
     heads, or all of them where they replicate), the new k/v of those
-    heads go into it, and each q head reads its kv head."""
+    heads go into it, and each q head reads its kv head.  ``seq``: the
+    cache holds slice ``seq.index`` of the sequence, global positions
+    [index * T, (index + 1) * T) (the module's docstring)."""
     tp = _tp(p, cfg, dist)
     if tp is not None:
         x = collectives.copy_to_model(x, tp)
@@ -228,29 +267,64 @@ def decode_self_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     posb = pos.reshape(B, 1)
     q, k_new, v_new = _project_qkv(p, cfg, x, posb, tp)
     rows = torch.arange(B, device=x.device)
-    cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
-    valid = torch.arange(T, device=x.device)[None, None, :] <= posb[:, :, None]
+    lo = 0 if seq is None else seq.index * T
+    if seq is None:
+        cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+    else:       # only the rank holding position pos writes it
+        at = pos - lo
+        owned = ((at >= 0) & (at < T))[:, None, None]
+        at = at.clamp(0, T - 1)
+        for key, new in (("k", k_new), ("v", v_new)):
+            buf = cache[key]
+            buf[rows, at] = torch.where(owned, new[:, 0].to(buf.dtype),
+                                        buf[rows, at])
+    keys = lo + torch.arange(T, device=x.device)
+    valid = keys[None, None, :] <= posb[:, :, None]
     ka, va = _local_kv(cache["k"], cache["v"], cfg, tp, q.shape[2])
-    o = _attend(q, ka.to(x.dtype), va.to(x.dtype), valid)
+    ka, va = ka.to(x.dtype), va.to(x.dtype)
+    o = (_attend(q, ka, va, valid) if seq is None
+         else _attend_seq(q, ka, va, valid, seq, dist))
     return _out(p, o, tp)
 
 
+def cross_kv(p: Attention, cfg: ModelConfig, kv_x: torch.Tensor,
+             dist=None):
+    """The cross attention's keys and values (B, T, KV, hd) of the encoder
+    output kv_x (B, T, D) (``project_kv``); under a model axis the rank's
+    kv heads (or all of them where they replicate), kv_x's gradient summed
+    over the axis."""
+    tp = _tp(p, cfg, dist)
+    if tp is not None:
+        kv_x = collectives.copy_to_model(kv_x, tp)
+    return project_kv(p, cfg, kv_x, tp)
+
+
 def cross_attention_kv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                       k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+                       k: torch.Tensor, v: torch.Tensor, dist=None,
+                       seq=None) -> torch.Tensor:
     """Cross attention of the decoder states x (B, S, D) over the encoder
     frames' keys and values k / v (B, T, KV, hd), every frame (no mask,
     no RoPE); returns (B, S, D).  At decode (S = 1) ``k`` and ``v`` are
     the cached ones (the reference's ``encdec._dec_block`` decode
-    branch)."""
-    q = _project_q(p, cfg, x)
-    return _out(p, _attend(q, k.to(x.dtype), v.to(x.dtype), None))
+    branch).  ``dist`` and ``seq`` as in ``decode_self_attention``: k / v
+    are then the rank's kv heads and, with ``seq``, its slice of the
+    frames."""
+    tp = _tp(p, cfg, dist)
+    if tp is not None:
+        x = collectives.copy_to_model(x, tp)
+    q = _project_q(p, cfg, x, tp)
+    k, v = _local_kv(k, v, cfg, tp, q.shape[2])
+    k, v = k.to(x.dtype), v.to(x.dtype)
+    o = (_attend(q, k, v, None) if seq is None
+         else _attend_seq(q, k, v, None, seq, dist))
+    return _out(p, o, tp)
 
 
 def cross_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                    kv_x: torch.Tensor) -> torch.Tensor:
+                    kv_x: torch.Tensor, dist=None) -> torch.Tensor:
     """Encoder-decoder cross attention (whisper): queries from x
     (B, S, D), keys and values projected from the encoder output kv_x
     (B, T, D).  No RoPE, no causality; returns (B, S, D)."""
-    k, v = project_kv(p, cfg, kv_x)
-    return cross_attention_kv(p, cfg, x, k, v)
+    k, v = cross_kv(p, cfg, kv_x, dist)
+    return cross_attention_kv(p, cfg, x, k, v, dist)

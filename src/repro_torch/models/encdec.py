@@ -28,7 +28,17 @@ blocks (``norm1``, ``self_attn``, ``norm_x``, ``cross_attn``, ``norm2``,
 ``ffn``) and ``final_norm``; the reference stacks its blocks under a
 leading layer axis and scans them, here they are ModuleLists
 (``encdec_params_from_jax`` unstacks them).  The reference's ``remat``
-policy and its ``dist`` sharding hooks have no counterpart here.
+policy has no counterpart here.
+
+Under a mesh (``dist``, launch/sharding.DistContext) the module holds
+each rank's shards, and every mode runs as ``transformer.lm_apply``
+does: the vocab-parallel Bloom embedding, head and CE; the encoder's
+and the decoder's attention (self and cross) over the rank's heads and
+their SwiGLU over its d_ff columns where they divide the ``model`` axis,
+whole on every rank where they do not (whisper's 12 heads on 8 or 16);
+``frontend_proj`` replicated.  At decode the self-attention and cross
+caches are the rank's ``cache_pspecs`` shards, read slice by slice where
+their sequence splits (``dist.seq_shard``).
 """
 from __future__ import annotations
 
@@ -117,19 +127,16 @@ class EncDec(nn.Module):
     def forward(self, batch: Mapping[str, torch.Tensor], dist=None):
         """(loss, {"ce", "aux"}) of ``batch`` (see ``encdec_loss_fn``).
         ``dist`` may split the batch (its mean is the shards' mean, equal
-        shards); a model axis waits for ROADMAP A13b."""
-        if tf.tensor_parallel(dist):
-            raise NotImplementedError(
-                f"{self.cfg.name}: the audio family under a model axis "
-                "waits for ROADMAP A13b")
-        return encdec_loss_fn(self, self.cfg, batch)
+        shards) and the model (the module's docstring)."""
+        return encdec_loss_fn(self, self.cfg, batch, dist)
 
 
-def encode(model: EncDec, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(model: EncDec, cfg: ModelConfig, frames: torch.Tensor,
+           dist=None) -> torch.Tensor:
     """frames (B, S_enc, D) stub embeddings -> the encoder output
     (B, S_enc, D) in ``cfg.dtype``: ``frontend_proj``, then each block's
-    non-causal RoPE self-attention and SwiGLU, then ``enc_norm``."""
+    non-causal RoPE self-attention and SwiGLU, then ``enc_norm``
+    (tensor-parallel under ``dist``)."""
     dt = getattr(torch, cfg.dtype)
     x = frames.to(dt) @ model.frontend_proj.to(dt)
     B, S = x.shape[:2]
@@ -137,16 +144,16 @@ def encode(model: EncDec, cfg: ModelConfig,
     for blk in model.encoder:
         h = layers.rms_norm(blk.norm1, x, cfg.norm_eps)
         x = x + attention.self_attention(blk.attn, cfg, h, positions,
-                                         causal=False)
+                                         causal=False, dist=dist)
         h = layers.rms_norm(blk.norm2, x, cfg.norm_eps)
-        x = x + blk.ffn(h)
+        x = x + layers.swiglu_module(blk.ffn, h, cfg.d_ff, dist)
     return layers.rms_norm(model.enc_norm, x, cfg.norm_eps)
 
 
 def encdec_apply(model: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
                  mode: str = "prefill", caches=None,
                  pos: Optional[torch.Tensor] = None,
-                 embeds: Optional[torch.Tensor] = None) -> dict:
+                 embeds: Optional[torch.Tensor] = None, dist=None) -> dict:
     """Run the encoder-decoder on the decoder tokens (B, S) and, in train
     and prefill, the frames ``embeds`` (B, S_enc, D).
 
@@ -159,15 +166,17 @@ def encdec_apply(model: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
                self-attention k/v are updated in place; returned) and
                ``pos`` (B,) int, each row's position.
 
-    ``aux`` is 0 (no MoE), as in the reference.
+    ``aux`` is 0 (no MoE), as in the reference.  ``dist``: the module's
+    docstring (the logits are then this rank's columns where the vocab
+    is sharded).
     """
-    x = io.embed_tokens(model.embed, cfg, tokens)
+    x = io.embed_tokens(model.embed, cfg, tokens, dist)
     B, S = tokens.shape
     if mode in ("train", "prefill"):
         if embeds is None:
             raise ValueError(f"{mode} needs the encoder's frames (embeds)")
         positions = torch.arange(S, device=x.device).expand(B, S)
-        enc_out = encode(model, cfg, embeds)
+        enc_out = encode(model, cfg, embeds, dist)
         caches = [] if mode == "prefill" else None
     elif mode == "decode":
         if caches is None or pos is None:
@@ -177,27 +186,32 @@ def encdec_apply(model: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
                          f"got {mode!r}")
     for i, blk in enumerate(model.decoder):
         h = layers.rms_norm(blk.norm1, x, cfg.norm_eps)
+        seq = seq_x = None
+        if mode == "decode" and dist is not None:
+            seq, seq_x = dist.seq_shard(i, "k"), dist.seq_shard(i, "cross_k")
         if mode == "train":
-            y = attention.self_attention(blk.self_attn, cfg, h, positions)
+            y = attention.self_attention(blk.self_attn, cfg, h, positions,
+                                         dist=dist)
         elif mode == "prefill":
             y, kv = attention.self_attention_with_cache(blk.self_attn, cfg,
-                                                        h, positions)
+                                                        h, positions, dist)
         else:
             y = attention.decode_self_attention(blk.self_attn, cfg, h,
-                                                caches[i], pos)
+                                                caches[i], pos, dist, seq)
         x = x + y
         h = layers.rms_norm(blk.norm_x, x, cfg.norm_eps)
         if mode == "decode":
             ck, cv = caches[i]["cross_k"], caches[i]["cross_v"]
         else:
-            ck, cv = attention.project_kv(blk.cross_attn, cfg, enc_out)
-        x = x + attention.cross_attention_kv(blk.cross_attn, cfg, h, ck, cv)
+            ck, cv = attention.cross_kv(blk.cross_attn, cfg, enc_out, dist)
+        x = x + attention.cross_attention_kv(blk.cross_attn, cfg, h, ck, cv,
+                                             dist, seq_x)
         if mode == "prefill":
             caches.append({**kv, "cross_k": ck, "cross_v": cv})
         h = layers.rms_norm(blk.norm2, x, cfg.norm_eps)
-        x = x + blk.ffn(h)
+        x = x + layers.swiglu_module(blk.ffn, h, cfg.d_ff, dist)
     x = layers.rms_norm(model.final_norm, x, cfg.norm_eps)
-    logits = io.lm_logits(model.embed, model.head, cfg, x)
+    logits = io.lm_logits(model.embed, model.head, cfg, x, dist)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "train":
         return {"logits": logits, "aux": aux}
@@ -218,17 +232,19 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def encdec_loss_fn(model: EncDec, cfg: ModelConfig,
-                   batch: Mapping[str, torch.Tensor]):
+                   batch: Mapping[str, torch.Tensor], dist=None):
     """Next-token CE of the decoder.  batch: {"tokens" (B, S), "embeds"
     (B, S_enc, D)} and optionally {"loss_mask" (B, S - 1)}.  Returns
     (loss, {"ce", "aux"}): the mean of the per-token losses over every
     predicted position, masked ones counted as 0 — the reference's
-    ``loss_tok.mean()``, not ``lm_loss_fn``'s mean over the mask."""
+    ``loss_tok.mean()``, not ``lm_loss_fn``'s mean over the mask.  Under
+    ``dist`` the batch is this rank's rows (equal shards, so the shards'
+    mean is the global mean)."""
     tokens = batch["tokens"]
     out = encdec_apply(model, cfg, tokens, mode="train",
-                       embeds=batch["embeds"])
+                       embeds=batch["embeds"], dist=dist)
     loss_tok = io.lm_loss(cfg, out["logits"][:, :-1], tokens[:, 1:],
-                          batch.get("loss_mask"))
+                          batch.get("loss_mask"), dist)
     loss = loss_tok.mean()
     return loss, {"ce": loss, "aux": out["aux"]}
 

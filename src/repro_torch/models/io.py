@@ -23,7 +23,7 @@ rank its columns of the logits (the input's gradient summed over the
 axis); ``lm_loss`` runs the ranged Bloom CE (``ops.bloom_ce_sharded``):
 each rank's local lse and hit sum, the global lse from the gathered local
 ones, and the backward's dz exact on each shard.  A quantized
-``table_dtype`` under a model axis waits for ROADMAP A13b.
+``table_dtype`` under a model axis waits for ROADMAP A13b item 4.
 """
 from __future__ import annotations
 
@@ -95,7 +95,7 @@ def embed_tokens(embed: torch.Tensor, cfg: ModelConfig,
         if td is not None:
             raise NotImplementedError(
                 f"table_dtype={td} under a model axis: the quantized "
-                "vocab-parallel embedding waits for ROADMAP A13b")
+                "vocab-parallel embedding waits for ROADMAP A13b item 4")
         if spec is None:
             rel = tokens.long() - lo
             inside = (rel >= 0) & (rel < embed.shape[0])

@@ -65,13 +65,17 @@ def embed_init(shape, generator: torch.Generator | None = None
 
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, dist=None) -> torch.Tensor:
     """RMSNorm over the last axis, computed in f32 and cast back to x's
-    dtype (``scale`` is the f32 (D,) gain)."""
+    dtype (``scale`` is the f32 (D,) gain).  Under ``dist`` the last axis
+    is this rank's equal slice of one split over ``model``: the sum of
+    squares is all-reduced both ways (``collectives.all_reduce_model``)
+    and the mean taken over the whole width."""
     dt = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps) * scale).to(dt)
+    ss = collectives.all_reduce_model(x.square().sum(-1, keepdim=True), dist)
+    width = x.shape[-1] * (1 if dist is None else dist.n_model)
+    return (x * torch.rsqrt(ss / width + eps) * scale).to(dt)
 
 
 def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,

@@ -39,14 +39,17 @@ the reference's placement rules by it).
 
 Under a mesh (``dist``, launch/sharding.DistContext) with a ``model``
 axis of more than one, the module holds each rank's local shard of every
-param (``sharding.shard_module``) and ``lm_apply`` runs the dense and MoE
-families tensor-parallel: the vocab-parallel Bloom embedding and head
-(models/io.py), the attention's heads and the SwiGLU's d_ff columns
-split over ``model`` with the row-parallel outputs all-reduced, and the
-MoE's experts split (``moe_impl="ep"``).  The train, prefill and decode
-modes run so (decode against this rank's cache shards); the other
-families wait for ROADMAP A13b item 3 (``launch/steps.py`` refuses
-them).
+param (``sharding.shard_module``) and ``lm_apply`` runs every family
+tensor-parallel: the vocab-parallel Bloom embedding and head
+(models/io.py), the attention's heads, the SwiGLU's d_ff columns and the
+Mamba-2 mixer's heads split over ``model`` with the row-parallel outputs
+all-reduced, and the MoE's experts split (``moe_impl="ep"``), each where
+the reference's rules split it (a layer whose dim does not divide the
+axis runs whole on every rank).  The ``vlm`` frontend's ``frontend_proj``
+is replicated and its embeddings join the token embeddings before the
+first block.  The train, prefill and decode modes run so; decode reads
+this rank's cache shards, an attention cache whose sequence splits slice
+by slice (``dist.seq_shard``, models/attention.py).
 """
 from __future__ import annotations
 
@@ -61,12 +64,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import collectives
 from repro_torch.models import attention, io, layers, mamba2, moe
 from repro_torch.models.layers import SwiGLU
-
-
-def tensor_parallel(dist) -> bool:
-    """Whether ``dist`` splits the model over a ``model`` axis of more
-    than one rank."""
-    return dist is not None and dist.n_model > 1
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -240,15 +237,10 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
 
     ``aux`` is the f32 sum of the MoE layers' load-balance losses (0
     without MoE).  ``dist`` runs the model tensor-parallel over its
-    ``model`` axis (the dense and MoE families): the logits are then this
-    rank's columns of the m-dim logits when the vocab is sharded, and the
-    caches (returned by prefill, taken and returned by decode) its
-    shards.
+    ``model`` axis: the logits are then this rank's columns of the m-dim
+    logits when the vocab is sharded, and the caches (returned by
+    prefill, taken and returned by decode) its shards.
     """
-    if tensor_parallel(dist) and cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: {mode} of the {cfg.family} family under a model "
-            "axis waits for ROADMAP A13b item 3")
     x = io.embed_tokens(model.embed, cfg, tokens, dist)
     if mode != "decode":
         x = frontend_concat(model, x, embeds)
@@ -274,15 +266,18 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
                     blk.attn, cfg, h, positions, dist=dist)
                 caches.append(kv)
             else:
-                y = attention.decode_self_attention(blk.attn, cfg, h,
-                                                    caches[i], pos, dist)
+                y = attention.decode_self_attention(
+                    blk.attn, cfg, h, caches[i], pos, dist,
+                    None if dist is None else dist.seq_shard(i, "k"))
         elif mode == "train":
-            y = mamba2.mamba_apply(blk.mamba, cfg, h)
+            y = mamba2.mamba_apply(blk.mamba, cfg, h, dist=dist)
         elif mode == "prefill":
-            y, mc = mamba2.mamba_apply(blk.mamba, cfg, h, return_cache=True)
+            y, mc = mamba2.mamba_apply(blk.mamba, cfg, h, return_cache=True,
+                                       dist=dist)
             caches.append(mc)
         else:
-            y, _ = mamba2.mamba_decode_step(blk.mamba, cfg, h, caches[i])
+            y, _ = mamba2.mamba_decode_step(blk.mamba, cfg, h, caches[i],
+                                            dist)
         x = x + y
         if blk.ffn_kind == "none":
             continue

@@ -1,20 +1,23 @@
 """The port's dry run (``launch/dryrun.py``) against the JAX package's
 shard placement, and its own invariants.
 
-* Each dense and MoE cell's per-rank ``argument_bytes`` (this rank's
-  parameter, optimizer-state, batch and cache shards on the 16x16 mesh)
+* Each of the 32 cells' per-rank ``argument_bytes`` (this rank's
+  parameter, optimizer-state, batch and cache shards on the 16x16 mesh,
+  the ssm, hybrid, audio and vlm families' among them: whisper's
+  sequence-split self cache, long_500k's cache split over ``data``)
   equals the sum of the reference's shard shapes: one subprocess forces
   256 XLA host devices and evaluates only the reference's
   ``param_pspecs`` / ``opt_state_pspecs`` / ``batch_pspecs`` /
   ``cache_pspecs`` on its ``eval_shape`` trees, with no compile.
 * The reference's L1 / L2 extrapolation of the ``reduced`` block equals
   the full-depth count exactly (smoke configs at 5 layers, mesh 2x2).
-* The 14 cells of the ssm, hybrid, audio and vlm families raise, naming
-  ROADMAP A13b item 3; ``main --all`` prints 18 ``OK``, 14 ``WAIT`` and
-  no ``FAIL`` on the production mesh and the multi-pod one, every
-  artifact with the reference's keys.  To keep the suite quick, these two
-  and the experiment twins run at a depth of one layer period (the
-  full-depth grid is ``python -m repro_torch.launch.dryrun --all``).
+* ``main --all`` prints 32 ``OK`` and no ``FAIL`` on the production
+  mesh and the multi-pod one, every artifact with the reference's keys
+  (``test_main_all_prints_18_ok_and_14_wait`` keeps the name it had
+  when 14 cells waited for ROADMAP A13b item 3).  To keep the suite
+  quick, these two and the experiment twins run at a depth of one layer
+  period, the encoder-decoder's encoder at one layer (the full-depth
+  grid is ``python -m repro_torch.launch.dryrun --all``).
 * The experiment twins run with their reference arguments; XLA-only
   overrides are recorded and reported; ZeRO-1 raises.
 """
@@ -38,10 +41,7 @@ from repro_torch.models import transformer as t_tf
 from conftest import subprocess_env
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DENSE_MOE = [(a, s) for a, s, ok, _ in tconfigs.all_cells()
-             if ok and tconfigs.get_config(a).family in ("dense", "moe")]
-WAITING = [(a, s) for a, s, ok, _ in tconfigs.all_cells()
-           if ok and (a, s) not in DENSE_MOE]
+CELLS = [(a, s) for a, s, ok, _ in tconfigs.all_cells() if ok]
 
 REFERENCE_SHARDS = r'''
 import json, os, sys
@@ -103,13 +103,13 @@ def reference_shard_bytes():
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
     env["JAX_PLATFORMS"] = "cpu"
     out = subprocess.run([sys.executable, "-c", REFERENCE_SHARDS,
-                          json.dumps(DENSE_MOE)], capture_output=True,
+                          json.dumps(CELLS)], capture_output=True,
                          text=True, timeout=120, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("arch,shape", DENSE_MOE)
+@pytest.mark.parametrize("arch,shape", CELLS)
 def test_argument_bytes_equal_the_reference_shards(arch, shape,
                                                    reference_shard_bytes):
     cfg = tconfigs.get_config(arch)
@@ -123,13 +123,16 @@ def test_argument_bytes_equal_the_reference_shards(arch, shape,
 
 def _cut(monkeypatch, layers=None):
     """``configs.get_config`` at a depth of ``layers`` (default: one layer
-    period), the rest of the config as it is."""
+    period; the encoder-decoder one layer each), the rest of the config
+    as it is."""
     full = tconfigs.get_config
 
     def get_config(arch, bloom=True, **over):
         cfg = full(arch, bloom=bloom, **over)
-        n = layers or t_tf.period_of(cfg) if cfg.family != "audio" else 1
-        return dataclasses.replace(cfg, num_layers=n)
+        if cfg.family == "audio":
+            return dataclasses.replace(cfg, num_layers=1, encoder_layers=1)
+        return dataclasses.replace(cfg, num_layers=layers
+                                   or t_tf.period_of(cfg))
 
     monkeypatch.setattr(tconfigs, "get_config", get_config)
 
@@ -152,12 +155,6 @@ def test_reduced_counts_extrapolate_to_the_full_depth_count(
     assert res["roofline"]["flops_dev"] == full["flops_dev"]
 
 
-@pytest.mark.parametrize("arch,shape", WAITING)
-def test_waiting_cells_raise_naming_item_3(arch, shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b item 3"):
-        dryrun.run_cell(arch, shape, out_dir=None)
-
-
 REF_KEYS = {"arch", "shape", "mesh", "bloom", "n_devices", "param_count",
             "model_flops_global", "full"}
 FULL_KEYS = {"flops_dev", "bytes_dev", "collectives", "memory",
@@ -177,13 +174,11 @@ def test_main_all_prints_18_ok_and_14_wait(multi_pod, monkeypatch, capsys,
         dryrun.main(argv + (["--multi-pod"] if multi_pod else []))
     assert done.value.code == 0
     lines = capsys.readouterr().out.splitlines()
-    assert sum(ln.startswith("OK ") for ln in lines) == 18
-    assert sum(ln.startswith("WAIT ") for ln in lines) == 14
-    assert not any(ln.startswith("FAIL") for ln in lines)
-    assert lines[-1] == ("done: 18/32 cells passed, 14 wait for ROADMAP "
-                         "A13b item 3")
+    assert sum(ln.startswith("OK ") for ln in lines) == 32
+    assert not any(ln.startswith(("WAIT", "FAIL")) for ln in lines)
+    assert lines[-1] == "done: 32/32 cells passed"
     tag = "multipod" if multi_pod else "singlepod"
-    for arch, shape in DENSE_MOE:
+    for arch, shape in CELLS:
         with open(tmp_path / f"{arch}__{shape}__{tag}.json") as f:
             art = json.load(f)
         assert REF_KEYS <= set(art) and FULL_KEYS <= set(art["full"])
@@ -194,7 +189,9 @@ def test_main_all_prints_18_ok_and_14_wait(multi_pod, monkeypatch, capsys,
                              "bloom_ce_fwd.range", "bloom_ce_bwd.range"},
                 "prefill_32k": {"bloom_embed.hash.range"},
                 "decode_32k": {"bloom_embed.hash.range",
-                               "bloom_decode_topk"}}[shape]
+                               "bloom_decode_topk"}}[
+                                   "decode_32k" if shape == "long_500k"
+                                   else shape]
         assert set(kernels) == want, (arch, shape)
 
 
@@ -229,7 +226,7 @@ def test_overrides_zero_and_op_bytes(monkeypatch, capsys):
                                          "remat": "dots",
                                          "attn_chunk_q": 512}
     assert "change nothing" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ZeRO-1"):
+    with pytest.raises(NotImplementedError, match="ZeRO-1.*A13b item 5"):
         dryrun.run_cell("qwen1.5-0.5b", "train_4k", zero=True, out_dir=None)
     x = torch.empty(4, 8, device="meta")
     aten = torch.ops.aten
@@ -258,11 +255,11 @@ def test_experiment_twins_run_with_their_reference_arguments(
     assert "MODEL/HLO flops" in out
     optimized_decode.main()
     out = capsys.readouterr().out.splitlines()
-    assert sum(ln.startswith("OK ") for ln in out) == 6
-    assert sum(ln.startswith("WAIT ") for ln in out) == 6
+    assert sum(ln.startswith("OK ") for ln in out) == 12
+    assert not any(ln.startswith(("WAIT", "FAIL")) for ln in out)
     assert out[-1] == "done"
     optimized_grid.main()
     out = capsys.readouterr().out.splitlines()
-    assert sum(ln.startswith("OK ") for ln in out) == 18
-    assert out[-1] == "done, failures=0, waits=14"
+    assert sum(ln.startswith("OK ") for ln in out) == 32
+    assert out[-1] == "done, failures=0"
     assert os.path.isdir("experiments/dryrun_opt_torch")

@@ -392,23 +392,25 @@ def test_global_norm_counts_each_leaf_once():
 
 
 def test_what_the_parallel_step_refuses():
-    """Under a model axis: decode of a cache whose sequence splits (over
-    ``model``, where neither the heads nor the kv heads divide the axis;
-    over the batch axes, where the batch does not divide them), the
-    mamba / hybrid / audio / vlm families' tensor parallelism and a
-    quantized table raise, naming what they wait for.  Decode whose
-    heads divide the axis builds."""
+    """Under a model axis only a quantized table raises (naming A13b
+    item 4), and a decode step called without its caches' specs
+    (``sharding.decode_dist``).  Decode of a cache whose sequence splits
+    (over ``model``, where neither the heads nor the kv heads divide the
+    axis; over the batch axes, where the batch does not divide them) and
+    the mamba / hybrid / audio / vlm families' tensor parallelism build
+    and run (tests/test_torch_parallel_families_gloo.py)."""
     dist = _port_dist(2, 1)
     cfg = tconfigs.get_smoke_config("qwen3-4b")
     t_steps.make_decode_step(cfg, 4, "cpu", dist)
-    with pytest.raises(NotImplementedError, match="A13b item 3"):
-        t_steps.make_decode_step(cfg, 4, "cpu", _port_dist(8, 1))
-    with pytest.raises(NotImplementedError, match="A13b item 3"):
-        t_steps.check_decode(cfg, _port_dist(2, 2), 3)
+    t_steps.make_decode_step(cfg, 4, "cpu", _port_dist(8, 1))
     for arch in ("mamba2-1.3b", "jamba-v0.1-52b", "whisper-small",
                  "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            t_steps.check_parallel(tconfigs.get_smoke_config(arch), dist)
+        acfg = tconfigs.get_smoke_config(arch)
+        t_steps.make_train_step(acfg, TrainConfig(), dist)
+        t_steps.make_prefill_step(acfg, dist)
+        step = t_steps.make_decode_step(acfg, 4, "cpu", dist)
+        with pytest.raises(ValueError, match="decode_dist"):
+            step(None, torch.zeros(2, 1, dtype=torch.long), [], 3)
     qcfg = dataclasses.replace(cfg, table_dtype="int8")
     with pytest.raises(NotImplementedError, match="A13b"):
         t_io.embed_tokens(torch.zeros(cfg.m_vocab // 2, cfg.d_model), qcfg,
