@@ -7,6 +7,8 @@
         # step; no result line); nccl needs four cards on one host
     python3 chip_smoke.py --phase serve-parallel-families
         # build, then phase 17e alone (no result line)
+    python3 chip_smoke.py --phase train-long
+        # build, then phase 17a alone (no result line)
     python3 chip_smoke.py --parent DIR   # also time the parent commit's
         # csrc/bloom_ce.cu (copied into DIR) beside this tree's: phase 18
 
@@ -336,6 +338,28 @@ Phases, one line of numbers each:
                 and train_lm_100m --steps 4 into a temporary checkpoint
                 directory under build/, each with its launches, and each
                 launch held against its plain version as in phase 16;
+ 17a. train-long — the chunked flash-style attention and the remat
+                policy on qwen1.5-0.5b at full width, one rank: (a) 4 of
+                24 layers, f32, batch 2 x 2,048 tokens (two 1,024-key
+                chunks), one step's loss and gradients through chunked
+                attention with remat none, full and dots, and causal_skip
+                (1,024-row q chunks), against attn_impl naive with remat
+                none: within 1e-5 relative of it; full and dots within
+                1e-6 of none (bit for bit expected); each run's wall and
+                peak memory; (b) full depth with the configs' defaults
+                (bf16, chunked, remat full), 8 steps at batch 4 x 4,096
+                tokens through launch/train.run, counts reset just before
+                and read just after: each Bloom kernel launched 8 times,
+                losses finite and falling; step walls, tokens/s and
+                max_memory_allocated beside the dry run's count of the
+                same step on mesh 1x1 (defaults, and naive without
+                remat); then one step of a 4-layer cut at (b)'s batch with
+                every launch held against its plain version; (c)
+                serve.generate of one 32,768-token prompt and 4 tokens,
+                f32, chunked and causal_skip (2,048-row q chunks), every
+                launch held: tokens equal, top-k ids equal but at ties,
+                scores within 1e-4 (17c's rule); each prefill's ms and
+                peak memory.  ``--phase train-long`` runs it alone;
  17b. train-parallel — the tensor-, expert- and data-parallel training
                 step on four ranks sharing the one card over gloo
                 (launch/train.spawn; the kernels built here first).  In
@@ -368,9 +392,9 @@ Phases, one line of numbers each:
                 m = 30,208, k = 4), B = 4, prompt 32, 12 tokens, on mesh
                 1x4 and 2x2, and olmoe-1b-7b at full width and 2 of 16
                 layers on mesh 1x4 with moe_impl="ep", f32 (a bf16 split
-                rounds partial sums that one rank does not: the bf16 1x4
-                run's gap is printed, not held), from the weights rank 0
-                draws on the card.  Every token and every top-k id equals
+                rounds partial sums that one rank does not; the bf16 1x4
+                side run, not held, is left out for the time limit),
+                from the weights rank 0 draws on the card.  Every token and every top-k id equals
                 the same weights' one-rank run here, the top-k scores
                 within 1e-4 (two ids whose one-rank scores tie within
                 1e-4 may swap, the last of the top k with the one-rank
@@ -386,7 +410,10 @@ Phases, one line of numbers each:
                 H100's rates), started in a subprocess just before the
                 build, beside it on the host's cores, and read right
                 after it: exactly 32 ``OK`` lines and no ``WAIT`` or
-                ``FAIL``;
+                ``FAIL``; then every train_4k cell's argument + temp
+                bytes a rank from its artifact (the configs' defaults:
+                chunked attention, remat full), the eight of
+                ``FIT_80GB`` held under 80 GB;
  17e. serve-parallel-families — the ssm, audio and vlm families tensor-
                 parallel (and mamba2's training step), ranks sharing the
                 card over gloo, f32, from the weights rank 0 draws on the
@@ -395,7 +422,7 @@ Phases, one line of numbers each:
                 within 1e-4; every launch of every rank held against its
                 plain version; each decode step's wall, collective seconds
                 and busy share printed): (a) mamba2-1.3b at full width and
-                depth (48 layers, 64 SSD heads: 16 a rank) on mesh 1x4, B
+                24 of 48 layers (64 SSD heads: 16 a rank) on mesh 1x4, B
                 = 4, prompt 32, 8 tokens, then 2 training steps at batch
                 4 x seq 64 whose losses equal one rank's within rtol
                 1e-5; (b) whisper-small at full width and depth (12 + 12
@@ -425,6 +452,7 @@ without the repository's src/ beside this file, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -4383,7 +4411,6 @@ def phase_serve_parallel(torch, common):
     # qwen1.5-0.5b at 8 of its 24 layers: the script's time limit (the
     # full depth's run is recorded in PERF.md section 6)
     q32 = configs.get_config("qwen1.5-0.5b", dtype="float32", num_layers=8)
-    q16 = configs.get_config("qwen1.5-0.5b", num_layers=8)
     o32 = dataclasses.replace(configs.get_config(
         "olmoe-1b-7b", dtype="float32", moe_impl="ep"), num_layers=2)
     rng = np.random.default_rng(27)
@@ -4396,10 +4423,8 @@ def phase_serve_parallel(torch, common):
                     np.int32)}
 
     jobs = [job((1, 4), q32, torch.float32), job((2, 2), q32, torch.float32),
-            job((1, 4), o32, torch.float32),
-            job((1, 4), q16, torch.bfloat16)]
+            job((1, 4), o32, torch.float32)]
     jobs[1]["prompts"] = jobs[0]["prompts"]
-    jobs[3]["prompts"] = jobs[0]["prompts"]
     t0 = time.perf_counter()
     want = [_one_rank_generation(torch, j["cfg"], j, torch.device("cuda"))
             for j in jobs]
@@ -4424,14 +4449,9 @@ def phase_serve_parallel(torch, common):
             for n, e in r["errs"].items():
                 errs[n] = max(errs.get(n, 0.0), e)
             walls, coll = r["walls"], r["coll"]
-            if cfg.dtype == "float32":
-                err = _held_generation(f"{label} rank {rank}", r, w, 1e-4)
-                held = f"tokens and top-k ids held, scores within {err:.3e}"
-            else:
-                same = int((r["ids"] == w["ids"]).sum())
-                held = (f"not held (bf16): {same} of {w['ids'].size} "
-                        "tokens equal the one rank's")
-            print(f"{label} rank {rank}: {held}; step walls "
+            err = _held_generation(f"{label} rank {rank}", r, w, 1e-4)
+            print(f"{label} rank {rank}: tokens and top-k ids held, scores "
+                  f"within {err:.3e}; step walls "
                   f"{[round(x * 1e3, 3) for x in walls]} ms (the first "
                   f"from the generation's start: prefill and step 1; one "
                   f"rank {w['wall'] * 1e3:.3f} ms in all), collective "
@@ -4482,7 +4502,9 @@ def phase_serve_parallel_families(torch, common):
     phase = "serve-parallel-families"
     rng = np.random.default_rng(28)
     S, gen, topk = 32, 8, 8
-    m32 = configs.get_config("mamba2-1.3b", dtype="float32")
+    # mamba2 at 24 of its 48 layers: the script's time limit (the full
+    # depth's run is recorded in PERF.md section 6)
+    m32 = configs.get_config("mamba2-1.3b", dtype="float32", num_layers=24)
     w32 = configs.get_config("whisper-small", dtype="float32")
     # pixtral at 2 of its 40 layers: the draw and the broadcast of one
     # rank's f32 copy stay within the script's time limit
@@ -4568,6 +4590,268 @@ def phase_serve_parallel_families(torch, common):
     return counts, errs
 
 
+# --------------------------------------------------------------------------
+# phase 17a: train-long
+# --------------------------------------------------------------------------
+
+# (a)'s runs: the chunked paths against the naive oracle without remat
+LONG_VARIANTS = {"chunked, remat full": {},
+                 "chunked, remat none": {"remat": "none"},
+                 "chunked, remat dots": {"remat": "dots"},
+                 "causal_skip, remat full": {"causal_skip": True},
+                 "naive, remat none": {"attn_impl": "naive", "remat": "none"}}
+
+
+def _rel_err(torch, got, want) -> float:
+    """max |got - want| over max |want| (the tensor's own scale)."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale if scale else 0.0
+
+
+def _long_hold(torch, common, errs):
+    """(a): qwen1.5-0.5b at full width and 4 of 24 layers, f32, batch 2 x
+    2,048 tokens (two 1,024-key chunks; causal_skip with 1,024-row q
+    chunks): one step's loss and gradients through each of
+    ``LONG_VARIANTS``, every launch held against its plain version.  The
+    chunked paths within 1e-5 relative of the naive oracle; remat full and
+    dots within 1e-6 of none (bit for bit expected).  Returns the launches
+    by kernel."""
+    from repro_torch import configs
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tf
+    base = configs.get_config("qwen1.5-0.5b", num_layers=4, dtype="float32",
+                              attn_chunk_q=1024, attn_chunk_k=1024)
+    dev = torch.device("cuda")
+    model = tf.TransformerLM(base, torch.Generator().manual_seed(0)).to(dev)
+    tokens = torch.randint(0, base.vocab, (2, 2048), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    runs = {}
+    common.reset_launches()
+    with held_to_plain(torch, common, "train-long hold", errs):
+        for label, over in LONG_VARIANTS.items():
+            model.cfg = cfg = dataclasses.replace(base, **over)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _, grads = steps_lib.value_and_grad(model, cfg,
+                                                      {"tokens": tokens})
+            torch.cuda.synchronize()
+            runs[label] = (loss, grads, time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated())
+    counts = dict(common.LAUNCHES)
+    model.cfg = base
+    oracle, none = runs["naive, remat none"], runs["chunked, remat none"]
+    for label, (loss, grads, wall, peak) in runs.items():
+        to_oracle = max([_rel_err(torch, loss, oracle[0])]
+                        + [_rel_err(torch, g, oracle[1][n])
+                           for n, g in grads.items()])
+        _check(to_oracle <= 1e-5, f"train-long {label}: {to_oracle} "
+               "relative to the naive oracle")
+        line = (f"train-long hold: {label}: loss {float(loss):.9f}, loss "
+                f"and {len(grads)} gradients within {to_oracle:.3e} "
+                f"relative of naive/none")
+        if "remat" in label and "chunked" in label and label != \
+                "chunked, remat none":
+            to_none = max([_rel_err(torch, loss, none[0])]
+                          + [_rel_err(torch, g, none[1][n])
+                             for n, g in grads.items()])
+            bits = torch.equal(loss, none[0]) and all(
+                torch.equal(g, none[1][n]) for n, g in grads.items())
+            _check(to_none <= 1e-6, f"train-long {label}: {to_none} "
+                   "relative to remat none")
+            line += (f", of chunked/none within {to_none:.3e} (bit for "
+                     f"bit: {bits})")
+        print(f"{line}; wall {wall * 1e3:.3f} ms, peak memory "
+              f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    print(f"train-long hold: {base.name} 4 of 24 layers, d_model "
+          f"{base.d_model}, f32, batch 2 x 2048 tokens, kv chunks 1024, "
+          f"q chunks 1024 (causal_skip); launches {counts}; {_card()}",
+          flush=True)
+    del model, runs, oracle, none
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _train_counts(torch, cfg, batch: int, tokens: int):
+    """The dry run's count of one train step of ``cfg`` at batch x tokens
+    on mesh 1x1 (``roofline_share``'s), for the defaults and for
+    attn_impl naive, remat none: {label: count}, and the count's
+    ``shape``."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import dryrun, sharding
+    from repro_torch.launch.mesh import counting_mesh
+    shape = ShapeConfig("train_long", tokens, batch, "train")
+    tc = TrainConfig(optimizer="adamw", learning_rate=3e-3,
+                     grad_clip_norm=1.0, steps=8, warmup_steps=10)
+    dist = sharding.DistContext(counting_mesh((1, 1)))
+    out = {"shape": shape}
+    for label, over in (("defaults", {}),
+                        ("naive/none", {"attn_impl": "naive",
+                                        "remat": "none"})):
+        c = dataclasses.replace(cfg, **over)
+        out[label] = dryrun.count_step(*dryrun.step_variant(c, shape, dist,
+                                                            tc),
+                                       dist.mesh.transport)
+    return out
+
+
+def _long_train(torch, common, names):
+    """(b): qwen1.5-0.5b at full width and depth with the configs'
+    defaults (bf16 compute, chunked attention, remat full), 8 steps at
+    batch 4 x 4,096 tokens through launch/train.run, counts reset just
+    before and read just after: each Bloom kernel launched once a step,
+    losses finite and falling; then the dry run's count of the same step
+    (defaults and naive/none).  Returns the launches by kernel."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import train
+    cfg = configs.get_config("qwen1.5-0.5b")
+    n_steps, batch, tokens = 8, 4, 4096
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    # windows of seq + 1 tokens: the model sees 4,096 a row
+    _, hist = train.run("qwen1.5-0.5b", steps=n_steps, batch=batch,
+                        seq=tokens - 1, full=True, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(common.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in names:
+        _check(counts.get(name, 0) == n_steps,
+               f"train-long: {counts.get(name, 0)} {name} launches for "
+               f"{n_steps} steps")
+    losses = [h["loss"] for h in hist]
+    _check(len(losses) == n_steps and all(map(math.isfinite, losses)),
+           f"train-long: losses {losses}")
+    _check(losses[-1] < losses[0], f"train-long: loss did not fall {losses}")
+    step_ms = [h["step_s"] * 1e3 for h in hist[1:]]
+    med = float(np.median(step_ms))
+    print(f"train-long: {cfg.name} {cfg.num_layers}L d_model {cfg.d_model} "
+          f"{cfg.dtype}, remat {cfg.remat}, attention {cfg.attn_impl} (kv "
+          f"chunks {cfg.attn_chunk_k}), batch {batch} x {tokens} tokens, "
+          f"{n_steps} steps in {wall:.3f} s with set-up: losses {losses}; "
+          f"median step wall {med:.6f} ms (steps 2-{n_steps}: "
+          f"{[round(x, 3) for x in step_ms]}), "
+          f"{batch * tokens / med * 1e3:.1f} tokens/s, max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB, launches {counts}; {_card()}",
+          flush=True)
+    roofline = _rates()
+    counted = _train_counts(torch, cfg, batch, tokens)
+    mf = roofline.model_flops(cfg, counted.pop("shape"))
+    print(f"train-long roofline: model FLOPs {mf:.6e} over (median step "
+          f"{med:.6f} ms x bf16 peak {roofline.PEAK_FLOPS:.4e}) = "
+          f"{mf / (med / 1e3 * roofline.PEAK_FLOPS):.6f}", flush=True)
+    for label, c in counted.items():
+        terms = roofline.roofline_terms(c["flops_dev"], c["bytes_dev"], 0.0)
+        mem = c["memory"]
+        print(f"train-long count ({label}, meta, mesh 1x1): "
+              f"{c['flops_dev']:.6e} FLOPs, {c['bytes_dev']:.6e} bytes, "
+              f"bound {terms['step_time_s'] * 1e3:.6f} ms "
+              f"({terms['dominant']}) = "
+              f"{terms['step_time_s'] * 1e3 / med:.6f} of the measured "
+              f"step; argument + temp "
+              f"{(mem['argument_bytes'] + mem['temp_bytes']) / 2 ** 30:.3f} "
+              f"GiB (temp {mem['temp_bytes'] / 2 ** 30:.3f}) beside "
+              f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; counted in "
+              f"{c['compile_s']:.3f} s on the host", flush=True)
+    return counts
+
+
+def _long_shapes_held(torch, common, errs):
+    """One step of a 4-layer cut of (b)'s model at (b)'s batch, every
+    launch held against its plain version: the Bloom kernels at (b)'s
+    shapes (they do not depend on the depth).  Returns the launches."""
+    from repro_torch import configs
+    from repro_torch.launch import steps as steps_lib
+    cfg = configs.get_config("qwen1.5-0.5b", num_layers=4)
+    dev = torch.device("cuda")
+    model = steps_lib.init_fn_for(cfg)(0).to(dev)
+    tokens = torch.randint(0, cfg.vocab, (4, 4096), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(2)).to(dev)
+    common.reset_launches()
+    with held_to_plain(torch, common, "train-long shapes", errs):
+        loss = steps_lib.value_and_grad(model, cfg, {"tokens": tokens})[0]
+    _check(math.isfinite(float(loss)), f"train-long shapes: loss {loss}")
+    counts = dict(common.LAUNCHES)
+    print(f"train-long shapes: one step of 4 layers at batch 4 x 4096, "
+          f"bf16, every launch held against its plain version: {counts}; "
+          f"held max abs errors {errs}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _long_prefill(torch, common, errs):
+    """(c): serve.generate of one 32,768-token prompt and 4 new tokens,
+    qwen1.5-0.5b at full width and depth in f32 (f32 caches), once
+    chunked (kv chunks 1,024) and once causal_skip (q chunks 2,048),
+    every launch held against its plain version: tokens equal, top-k ids
+    equal but at near ties and scores within 1e-4 (phase 17c's rule,
+    ``_held_generation``).  The naive path is not run: one layer's scores
+    would take 64 GiB.  Returns the launches by kernel."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    base = configs.get_config("qwen1.5-0.5b", dtype="float32")
+    model = serve.build_model(base, 0, "cuda")
+    prompt = np.random.default_rng(5).integers(
+        0, base.vocab, (1, 32768)).astype(np.int32)
+    topk, runs = 8, {}
+    common.reset_launches()
+    with held_to_plain(torch, common, "train-long prefill", errs):
+        for label, over, k in (
+                ("chunked", {}, topk),
+                ("causal_skip", {"causal_skip": True, "attn_chunk_q": 2048},
+                 topk + 1)):
+            cfg = dataclasses.replace(base, **over)
+            steps = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ids, t_pre, t_dec = serve.generate(
+                cfg, model, prompt, 4, k, cache_dtype=torch.float32,
+                on_step=lambda t, out: steps.append(
+                    {n: out[n].cpu().numpy()
+                     for n in ("topk_ids", "topk_scores")}))
+            runs[label] = {"ids": ids, "steps": steps}
+            print(f"train-long prefill: {label}: 32768 tokens, prefill "
+                  f"{t_pre * 1e3:.3f} ms, 3 decode steps {t_dec * 1e3:.3f} "
+                  f"ms, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+                  f"tokens {ids[0].tolist()}", flush=True)
+    counts = dict(common.LAUNCHES)
+    err = _held_generation("train-long prefill", runs["chunked"],
+                           runs["causal_skip"], 1e-4)
+    _check(np.array_equal(runs["chunked"]["ids"], runs["causal_skip"]["ids"]),
+           "train-long prefill: chunked and causal_skip tokens differ")
+    print(f"train-long prefill: chunked and causal_skip tokens equal, top-k "
+          f"ids equal but at ties, scores within {err:.3e} (held 1e-4); "
+          f"launches {counts}; {_card()}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_long(torch, common, names):
+    """Phase 17a (the module's docstring).  Returns (launches by kernel,
+    the largest held error by kernel)."""
+    errs, total, walls = {}, {}, {}
+    for label, part in (
+            ("hold", lambda: _long_hold(torch, common, errs)),
+            ("train", lambda: _long_train(torch, common, names)),
+            ("shapes", lambda: _long_shapes_held(torch, common, errs)),
+            ("prefill", lambda: _long_prefill(torch, common, errs))):
+        t0 = time.perf_counter()
+        for n, c in part().items():
+            total[n] = total.get(n, 0) + c
+        walls[label] = time.perf_counter() - t0
+    print("train-long walls: " + ", ".join(f"{n} {w:.3f} s"
+                                          for n, w in walls.items()),
+          flush=True)
+    return total, errs
+
+
 class _Background:
     """A command run beside the phases in its own process group, its
     output in ``log``; ``stop`` ends it and every process it started."""
@@ -4602,8 +4886,18 @@ def start_dryrun() -> _Background:
                        build / "dryrun_torch.log")
 
 
+# the train_4k cells whose rank must fit an 80 GB card with the configs'
+# defaults (chunked attention, remat full); pixtral-12b and jamba are
+# printed, not held
+FIT_80GB = ("qwen1.5-0.5b", "qwen3-4b", "granite-8b", "phi3-mini-3.8b",
+            "deepseek-moe-16b", "olmoe-1b-7b", "mamba2-1.3b",
+            "whisper-small")
+
+
 def phase_dryrun(dry: _Background) -> None:
-    """Phase 17d: the dry run's 32 OK and no WAIT or FAIL lines."""
+    """Phase 17d: the dry run's 32 OK and no WAIT or FAIL lines; every
+    train_4k cell's argument + temp bytes from its artifact, those of
+    ``FIT_80GB`` under 80 GB."""
     t0 = time.perf_counter()
     rc = dry.wait(timeout=600)
     lines = dry.log.read_text().splitlines()
@@ -4619,6 +4913,23 @@ def phase_dryrun(dry: _Background) -> None:
     _check(rc == 0 and len(ok) == 32 and not wait and not fail,
            f"dryrun: exit {rc}, {len(ok)} OK, {len(wait)} WAIT, "
            f"{len(fail)} FAIL; tail {lines[-5:]}")
+    from repro_torch import configs
+    over = []
+    for arch in configs.ARCH_NAMES:
+        art = json.loads((dry.log.parent / "dryrun_torch" /
+                          f"{arch}__train_4k__singlepod.json").read_text())
+        mem = art["full"]["memory"]
+        held = mem["argument_bytes"] + mem["temp_bytes"]
+        if arch in FIT_80GB and held >= 80e9:
+            over.append(arch)
+        print(f"dryrun: {arch} train_4k one rank of 16x16 "
+              f"({art['execution']}): argument + temp "
+              f"{held / 2 ** 30:.3f} GiB (argument "
+              f"{mem['argument_bytes'] / 2 ** 30:.3f}, temp "
+              f"{mem['temp_bytes'] / 2 ** 30:.3f}); "
+              f"{'held under 80 GB' if arch in FIT_80GB else 'printed'}",
+              flush=True)
+    _check(not over, f"dryrun: train_4k over 80 GB a rank: {over}")
 
 
 def parent_ce(torch, ce, common, old):
@@ -4697,7 +5008,8 @@ def main() -> int:
             [], ["--transport", "gloo"], ["--transport", "nccl"]):
         phase_only = "train-parallel"
         transport = sys.argv[4] if sys.argv[3:] else transport
-    elif sys.argv[1:] == ["--phase", "serve-parallel-families"]:
+    elif sys.argv[1:] in (["--phase", "serve-parallel-families"],
+                          ["--phase", "train-long"]):
         phase_only = sys.argv[2]
     elif sys.argv[1:2] == ["--parent"]:
         # a directory holding the parent commit's csrc/bloom_ce.cu, to
@@ -4706,7 +5018,8 @@ def main() -> int:
     elif sys.argv[1:]:
         print("usage: chip_smoke.py [--parent DIR | --phase "
               "train-parallel [--transport gloo|nccl] | --phase "
-              "serve-parallel-families]", file=sys.stderr)
+              "serve-parallel-families | --phase train-long]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4749,6 +5062,12 @@ def main() -> int:
         prows, pcounts = phase_train_parallel(torch, be, ce, csr, common,
                                               transport)
         print(json.dumps({"kernels": prows, "other_launches": pcounts}))
+        return 0
+    if phase_only == "train-long":
+        counts, errs = phase_train_long(torch, common, [
+            be.NAME + ".hash", csr.BIN, csr.NAME, ce.FWD, ce.BWD])
+        _wall(phase_only, t_start)
+        print(json.dumps({"launches": counts, "max_abs_err": errs}))
         return 0
     if phase_only:
         counts, errs = phase_serve_parallel_families(torch, common)
@@ -4838,6 +5157,8 @@ def main() -> int:
                                                           common)),
             ("bench-serving", lambda: phase_bench_serving(torch, common)),
             ("examples", lambda: phase_examples(torch, common, [
+                embed_row["name"], csr.BIN, csr.NAME, ce.FWD, ce.BWD])),
+            ("train-long", lambda: phase_train_long(torch, common, [
                 embed_row["name"], csr.BIN, csr.NAME, ce.FWD, ce.BWD]))):
         counts, errs = run()
         t0 = _wall(name, t0)

@@ -6,19 +6,27 @@ every model family reads (the MoE FFN and its period, the Mamba-2 mixer,
 the hybrid's attention period and offset, the encoder-decoder's
 ``encoder_layers`` and the stub frontend's ``frontend`` and
 ``frontend_frac``), its layer-role predicates and its ``param_count``;
-and ``TrainConfig`` whole.  Left out: ``param_dtype``; ``io_impl`` (the
-port's IO path follows the tensors' device: kernel on CUDA, plain version on
-the CPU); the XLA execution knobs (``scan_layers``, ``remat``,
-``attn_chunk_*``, ``attn_impl``, ``causal_skip``, ``attn_bf16_scores``,
-``unroll_for_analysis``).  ``moe_impl`` picks the MoE path as in the
+and ``TrainConfig`` whole.  The execution knobs keep the reference's
+defaults and meanings: ``remat`` (none|full|dots, the checkpoint policy
+of each super-block in training, ``models/transformer.py``), ``attn_impl``
+(chunked|naive), ``attn_chunk_q`` / ``attn_chunk_k`` (the flash-style
+attention's q and kv block sizes), ``causal_skip`` (q chunks that scan
+only the kv chunks up to their own end) and ``attn_bf16_scores`` (the
+score chain in bf16, its softmax statistics f32; ``models/
+attention.py``).  Left out: ``param_dtype``; ``io_impl`` (the port's IO
+path follows the tensors' device: kernel on CUDA, plain version on the
+CPU); ``scan_layers`` and ``unroll_for_analysis``, which size XLA's HLO
+and its cost analysis (the port's layers are a Python loop, and its dry
+run counts every op).  ``moe_impl`` picks the MoE path as in the
 reference: "dense" (every expert on the rank, the single-device path) or
 "ep" (expert parallelism over the mesh's ``model`` axis,
 ``models/moe.py``).  ``ShapeConfig``, the four ``SHAPES`` cells and
 ``MeshConfig`` (the production mesh's shape and axes) are copied whole.
 ``bwd_impl`` picks the Bloom embedding's backward, "csr" (the CSR
 scatter-add) or "dense" (the dense m-tile sweep), as in the reference.
-``table_dtype``, ``bwd_impl`` and ``moe_impl`` are validated when the
-config is made: an unknown value raises ``ValueError``.
+``table_dtype``, ``bwd_impl``, ``moe_impl`` and the execution knobs are
+validated when the config is made: an unknown value raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ from repro_torch.kernels.common import resolve_bwd_impl
 
 
 MOE_IMPLS = ("dense", "ep")
+REMATS = ("none", "full", "dots")
+ATTN_IMPLS = ("chunked", "naive")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,13 +123,32 @@ class ModelConfig:
                                   # scatter-add) | dense (m-tile sweep)
     moe_impl: str = "dense"       # dense (every expert local) | ep
                                   # (experts over the `model` axis)
+    # --- execution knobs ---
+    remat: str = "full"           # none|full|dots (checkpoint policy)
+    attn_chunk_q: int = 2048      # chunked-attention block sizes
+    attn_chunk_k: int = 1024
+    attn_impl: str = "chunked"    # chunked|naive (oracle)
+    causal_skip: bool = False     # triangular kv-chunk skipping
+    attn_bf16_scores: bool = False  # bf16 score/prob chain (f32 softmax
+                                    # stats kept)
 
     def __post_init__(self):
         quant.resolve_table_dtype(self.table_dtype, allow_auto=True)
         resolve_bwd_impl(self.bwd_impl)
-        if self.moe_impl not in MOE_IMPLS:
-            raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
-                             f"{self.moe_impl!r}")
+        for name, allowed in (("moe_impl", MOE_IMPLS), ("remat", REMATS),
+                              ("attn_impl", ATTN_IMPLS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{getattr(self, name)!r}")
+        for name in ("attn_chunk_q", "attn_chunk_k"):
+            n = getattr(self, name)
+            if isinstance(n, bool) or not isinstance(n, int) or n < 1:
+                raise ValueError(f"{name} must be a positive int, got "
+                                 f"{n!r}")
+        for name in ("causal_skip", "attn_bf16_scores"):
+            if not isinstance(getattr(self, name), bool):
+                raise ValueError(f"{name} must be a bool, got "
+                                 f"{getattr(self, name)!r}")
 
     @property
     def resolved_head_dim(self) -> int:

@@ -6,10 +6,9 @@ Simplification note (as in the JAX package): the HF model's dense first
 layer is made MoE like the rest so every layer has the same roles;
 expert dims follow the assignment.
 
-Copied from the JAX package's ``configs/deepseek_moe_16b.py``, less
-``moe_impl`` (the port has the one single-device MoE path; expert
-parallelism waits for ROADMAP A13) and, in the smoke variant, the
-attention chunk sizes, which the port has no field for.
+Copied from the JAX package's ``configs/deepseek_moe_16b.py``; the smoke
+variant leaves ``moe_impl`` at its default, "dense", as the reference's
+sets it.
 """
 import dataclasses
 
@@ -41,7 +40,8 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         config(),
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
-        d_ff=32, vocab=512, dtype="float32",
+        d_ff=32, vocab=512, dtype="float32", attn_chunk_q=16,
+        attn_chunk_k=16,
         moe=MoEConfig(num_experts=8, top_k=2, num_shared=1, d_ff_expert=32,
                       capacity_factor=8.0),
         bloom=BloomConfig(enabled=True, m_ratio=0.25, k=3),

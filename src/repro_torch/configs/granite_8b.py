@@ -1,9 +1,7 @@
 """granite-8b [dense]: llama-arch code model.  36L d_model=4096 32H
 (GQA kv=8) d_ff=14336 vocab=49152.  [arXiv:2405.04324; hf]
 
-Copied from the JAX package's ``configs/granite_8b.py``; the smoke
-variant drops only the reference's attention chunk sizes, which the port
-has no field for.
+Copied from the JAX package's ``configs/granite_8b.py``.
 """
 import dataclasses
 
@@ -32,6 +30,7 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         config(),
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
-        d_ff=128, vocab=512, dtype="float32",
+        d_ff=128, vocab=512, dtype="float32", attn_chunk_q=16,
+        attn_chunk_k=16,
         bloom=BloomConfig(enabled=True, m_ratio=0.25, k=3),
     )

@@ -7,10 +7,9 @@ mamba), MoE FFN on odd layers.  Jamba's attention uses no positional
 encoding (use_rope=False); the SSM follows the Mamba-2 SSD block with
 Jamba's d_state=16 (the JAX package's Mamba-1 -> SSD substitution).
 
-Copied from the JAX package's ``configs/jamba_v0_1_52b.py``, less
-``moe_impl`` (the port has the one single-device MoE path; expert
-parallelism waits for ROADMAP A13) and, in the smoke variant, the
-attention chunk sizes, which the port has no field for.
+Copied from the JAX package's ``configs/jamba_v0_1_52b.py``; the smoke
+variant leaves ``moe_impl`` at its default, "dense", as the reference's
+sets it.
 """
 import dataclasses
 
@@ -47,7 +46,8 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         config(),
         num_layers=8, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
-        d_ff=128, vocab=512, dtype="float32",
+        d_ff=128, vocab=512, dtype="float32", attn_chunk_q=16,
+        attn_chunk_k=16,
         moe=MoEConfig(num_experts=4, top_k=2, num_shared=0, d_ff_expert=64,
                       capacity_factor=8.0),
         mamba=MambaConfig(d_state=8, d_conv=4, expand=2, head_dim=16,

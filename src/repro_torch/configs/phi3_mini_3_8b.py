@@ -1,9 +1,7 @@
 """phi3-mini-3.8b [dense]: RoPE SwiGLU GQA.  32L d_model=3072 32H
 (GQA kv=32, i.e. MHA) d_ff=8192 vocab=32064.  [arXiv:2404.14219; unverified]
 
-Copied from the JAX package's ``configs/phi3_mini_3_8b.py``; the smoke
-variant drops only the reference's attention chunk sizes, which the port
-has no field for.
+Copied from the JAX package's ``configs/phi3_mini_3_8b.py``.
 """
 import dataclasses
 
@@ -32,6 +30,7 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         config(),
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
-        d_ff=128, vocab=512, dtype="float32",
+        d_ff=128, vocab=512, dtype="float32", attn_chunk_q=16,
+        attn_chunk_k=16,
         bloom=BloomConfig(enabled=True, m_ratio=0.25, k=3),
     )

@@ -2,9 +2,7 @@
 decoder.  40L d_model=5120 32H (GQA kv=8, head_dim=128) d_ff=14336
 vocab=131072.  [hf:mistralai/Pixtral-12B-2409; unverified]
 
-Copied from the JAX package's ``configs/pixtral_12b.py``; the smoke
-variant drops only the reference's attention chunk sizes, which the port
-has no field for.
+Copied from the JAX package's ``configs/pixtral_12b.py``.
 """
 import dataclasses
 
@@ -35,6 +33,7 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         config(),
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
-        d_ff=128, vocab=512, dtype="float32",
+        d_ff=128, vocab=512, dtype="float32", attn_chunk_q=16,
+        attn_chunk_k=16,
         bloom=BloomConfig(enabled=True, m_ratio=0.25, k=3),
     )

@@ -5,9 +5,7 @@ Vocab-dominated model: the 151,936 x 1024 embedding is ~34% of all
 parameters — the paper's '99.9%' regime scaled to 2024; Bloom IO at
 m/d=0.2 removes ~27% of the entire model.
 
-Copied from the JAX package's ``configs/qwen1_5_0_5b.py``; the smoke
-variant drops only the reference's attention chunk sizes, which the port
-has no field for.
+Copied from the JAX package's ``configs/qwen1_5_0_5b.py``.
 """
 import dataclasses
 
@@ -38,6 +36,7 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         config(),
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
-        d_ff=128, vocab=512, dtype="float32",
+        d_ff=128, vocab=512, dtype="float32", attn_chunk_q=16,
+        attn_chunk_k=16,
         bloom=BloomConfig(enabled=True, m_ratio=0.25, k=3),
     )

@@ -4,9 +4,7 @@ head_dim=128) d_ff=9728 vocab=151936.  [hf:Qwen/Qwen3-8B; hf]
 Largest vocab of the pool — the most paper-representative cell: the
 Bloom IO layer removes ~78% of the 151,936-row embedding + head.
 
-Copied from the JAX package's ``configs/qwen3_4b.py``; the smoke variant
-drops only the reference's attention chunk sizes, which the port has no
-field for.
+Copied from the JAX package's ``configs/qwen3_4b.py``.
 """
 import dataclasses
 
@@ -36,6 +34,7 @@ def smoke() -> ModelConfig:
     return dataclasses.replace(
         config(),
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
-        d_ff=128, vocab=512, dtype="float32",
+        d_ff=128, vocab=512, dtype="float32", attn_chunk_q=16,
+        attn_chunk_k=16,
         bloom=BloomConfig(enabled=True, m_ratio=0.25, k=3),
     )

@@ -6,9 +6,7 @@ Deviation notes: RoPE replaces whisper's sinusoidal/learned positions
 (the frontend is a stub anyway); norms are RMSNorm like the rest of the
 zoo.  Bloom IO applies to the decoder vocabulary.
 
-Copied from the JAX package's ``configs/whisper_small.py``; the smoke
-variant drops only the reference's attention chunk sizes, which the port
-has no field for.
+Copied from the JAX package's ``configs/whisper_small.py``.
 """
 import dataclasses
 
@@ -39,5 +37,6 @@ def smoke() -> ModelConfig:
         config(),
         num_layers=2, encoder_layers=2, d_model=64, num_heads=4,
         num_kv_heads=4, head_dim=16, d_ff=128, vocab=512, dtype="float32",
+        attn_chunk_q=16, attn_chunk_k=16,
         bloom=BloomConfig(enabled=True, m_ratio=0.25, k=3),
     )

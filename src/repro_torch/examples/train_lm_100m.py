@@ -7,11 +7,9 @@ m = 9,984 (m/d ~= 0.2, aligned to 256; k=4).  Checkpoint/resume, LR
 schedule, grad clipping: the full production train loop
 (``repro_torch.launch.train.run``) at laptop scale, on ``--device``.
 
-The twin of ``examples/train_lm_100m.py``.  Its config leaves out the
-reference's ``attn_chunk_q``, ``attn_chunk_k`` and ``remat``: the port's
-``ModelConfig`` has no such fields (attention is not chunked and every
-activation is kept).  The loss is logged every 10 steps, or every step
-when fewer are run.
+The twin of ``examples/train_lm_100m.py``, with the reference's config
+whole (64-wide attention chunks, no remat).  The loss is logged every
+10 steps, or every step when fewer are run.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.train_lm_100m \\
           [--steps 300] [--ckpt DIR] [--device cpu]
@@ -40,6 +38,9 @@ def config_100m() -> ModelConfig:
         d_ff=2048,
         vocab=50_304,
         dtype="float32",
+        attn_chunk_q=64,
+        attn_chunk_k=64,
+        remat="none",
         bloom=BloomConfig(enabled=True, m_ratio=0.2, k=4),
     )
 

@@ -41,8 +41,15 @@ Every family runs: the decode step reads its caches by their specs
 heads on a 16-way axis, long_500k's B = 1 over the batch axes) slice by
 slice, its softmax partials merged by one all-gather that the counting
 transport records.  ``zero=True`` (ZeRO-1) raises: its optimizer specs
-exist, their execution does not (ROADMAP A13b item 5).  The reference's
-XLA execution knobs (``XLA_ONLY_OVERRIDES``) have no counterpart here:
+exist, their execution does not (ROADMAP A13b item 5).  The step runs
+the config's execution knobs as the card would: chunked attention and
+``remat`` (a training step counts each super-block's recompute in the
+backward, as the reference's HLO does; ``remat="dots"``'s
+selective-checkpoint mode sits inside the counters, so an op it keeps is
+counted once, where the forward ran it).  ``remat``, ``causal_skip`` and
+``attn_*`` overrides change the count and are recorded with the config.
+Only ``scan_layers`` and ``unroll_for_analysis`` (``XLA_ONLY_OVERRIDES``,
+which size XLA's HLO and cost analysis) have no counterpart here:
 ``run_cell`` drops them from the config, records them under
 ``xla_only_overrides`` and says so.  An MoE config's
 ``moe_impl="dense"`` keeps every expert on the rank, which a ``model``
@@ -82,8 +89,10 @@ from repro_torch.models import transformer as tf
 aten = torch.ops.aten
 
 # the reference's XLA execution knobs, which the port has no counterpart of
-XLA_ONLY_OVERRIDES = ("remat", "causal_skip", "scan_layers",
-                      "unroll_for_analysis")
+XLA_ONLY_OVERRIDES = ("scan_layers", "unroll_for_analysis")
+# the execution knobs the artifact records (configs/base.py)
+EXECUTION_KNOBS = ("remat", "attn_impl", "attn_chunk_q", "attn_chunk_k",
+                   "causal_skip", "attn_bf16_scores")
 OUT_DIR = "experiments/dryrun_torch"
 
 # ops that read the rows they gather (the index and twice the output)
@@ -309,7 +318,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     (256 ranks either way)."""
     overrides = dict(overrides or {})
     xla_only = {k: overrides.pop(k) for k in list(overrides)
-                if k in XLA_ONLY_OVERRIDES or k.startswith("attn_")}
+                if k in XLA_ONLY_OVERRIDES}
     cfg = configs.get_config(arch, bloom=bloom, **overrides)
     shape = SHAPE_BY_NAME[shape_name]
     ok, reason = configs.cell_is_runnable(cfg, shape)
@@ -338,6 +347,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
               "model_flops_global": roofline.model_flops(cfg, shape),
               "device": "H100 SXM (launch/roofline.py rates)",
               "moe_impl": cfg.moe_impl if cfg.moe is not None else None,
+              "execution": {k: getattr(cfg, k) for k in EXECUTION_KNOBS},
               "xla_only_overrides": xla_only}
 
     def count(c):
@@ -348,8 +358,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         period = tf.period_of(cfg)
         ext = {}
         for name, L in (("L1", period), ("L2", 2 * period)):
-            ext[name] = count(_reduced(cfg, L))
-            ext[name]["layers"] = L
+            # a config at its own depth is the full count: not recounted
+            ext[name] = dict(result["full"] if L == cfg.num_layers
+                             else count(_reduced(cfg, L)), layers=L)
         full = result["full"]
         flops, bytes_ = full["flops_dev"], full["bytes_dev"]
         coll = full["collectives"]["total_bytes"]

@@ -27,8 +27,12 @@ head, ``frontend_proj`` (D, D) in its (in, out) layout, the encoder blocks
 blocks (``norm1``, ``self_attn``, ``norm_x``, ``cross_attn``, ``norm2``,
 ``ffn``) and ``final_norm``; the reference stacks its blocks under a
 leading layer axis and scans them, here they are ModuleLists
-(``encdec_params_from_jax`` unstacks them).  The reference's ``remat``
-policy has no counterpart here.
+(``encdec_params_from_jax`` unstacks them).  With gradients wanted, each
+encoder block and each decoder block in training runs under
+``cfg.remat``'s checkpoint policy (``transformer.remat_apply``), as the
+reference's ``jax.checkpoint`` wraps each (``encdec.py:84``, ``:169``);
+a prefill runs without.  The attention is chunked over the frames
+(models/attention.py).
 
 Under a mesh (``dist``, launch/sharding.DistContext) the module holds
 each rank's shards, and every mode runs as ``transformer.lm_apply``
@@ -142,12 +146,51 @@ def encode(model: EncDec, cfg: ModelConfig, frames: torch.Tensor,
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     for blk in model.encoder:
-        h = layers.rms_norm(blk.norm1, x, cfg.norm_eps)
-        x = x + attention.self_attention(blk.attn, cfg, h, positions,
-                                         causal=False, dist=dist)
-        h = layers.rms_norm(blk.norm2, x, cfg.norm_eps)
-        x = x + layers.swiglu_module(blk.ffn, h, cfg.d_ff, dist)
+        x = tf.remat_apply(cfg, [blk], _enc_block, blk, cfg, x, positions,
+                           dist)
     return layers.rms_norm(model.enc_norm, x, cfg.norm_eps)
+
+
+def _enc_block(blk: EncBlock, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, dist) -> torch.Tensor:
+    h = layers.rms_norm(blk.norm1, x, cfg.norm_eps)
+    x = x + attention.self_attention(blk.attn, cfg, h, positions,
+                                     causal=False, dist=dist)
+    h = layers.rms_norm(blk.norm2, x, cfg.norm_eps)
+    return x + layers.swiglu_module(blk.ffn, h, cfg.d_ff, dist)
+
+
+def _dec_block(blk: DecBlock, cfg: ModelConfig, i: int, x: torch.Tensor,
+               positions, enc_out, mode: str, caches, pos,
+               dist) -> torch.Tensor:
+    """Decoder layer i, the block ``blk``, in ``mode``: prefill appends
+    its caches to ``caches``, decode updates ``caches[i]``."""
+    h = layers.rms_norm(blk.norm1, x, cfg.norm_eps)
+    seq = seq_x = None
+    if mode == "decode" and dist is not None:
+        seq, seq_x = dist.seq_shard(i, "k"), dist.seq_shard(i, "cross_k")
+    if mode == "train":
+        y = attention.self_attention(blk.self_attn, cfg, h, positions,
+                                     dist=dist)
+    elif mode == "prefill":
+        y, kv = attention.self_attention_with_cache(blk.self_attn, cfg,
+                                                    h, positions, dist)
+    else:
+        y = attention.decode_self_attention(blk.self_attn, cfg, h,
+                                            caches[i], pos, dist, seq)
+    x = x + y
+    h = layers.rms_norm(blk.norm_x, x, cfg.norm_eps)
+    if mode == "decode":
+        ck, cv = caches[i]["cross_k"], caches[i]["cross_v"]
+    else:
+        ck, cv = attention.cross_kv(blk.cross_attn, cfg, enc_out, dist)
+    x = x + attention.cross_attention_kv(blk.cross_attn, cfg, h, ck, cv,
+                                         dist, seq_x,
+                                         decode=mode == "decode")
+    if mode == "prefill":
+        caches.append({**kv, "cross_k": ck, "cross_v": cv})
+    h = layers.rms_norm(blk.norm2, x, cfg.norm_eps)
+    return x + layers.swiglu_module(blk.ffn, h, cfg.d_ff, dist)
 
 
 def encdec_apply(model: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
@@ -181,35 +224,14 @@ def encdec_apply(model: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
     elif mode == "decode":
         if caches is None or pos is None:
             raise ValueError("decode needs caches and pos")
+        positions = enc_out = None
     else:
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                          f"got {mode!r}")
     for i, blk in enumerate(model.decoder):
-        h = layers.rms_norm(blk.norm1, x, cfg.norm_eps)
-        seq = seq_x = None
-        if mode == "decode" and dist is not None:
-            seq, seq_x = dist.seq_shard(i, "k"), dist.seq_shard(i, "cross_k")
-        if mode == "train":
-            y = attention.self_attention(blk.self_attn, cfg, h, positions,
-                                         dist=dist)
-        elif mode == "prefill":
-            y, kv = attention.self_attention_with_cache(blk.self_attn, cfg,
-                                                        h, positions, dist)
-        else:
-            y = attention.decode_self_attention(blk.self_attn, cfg, h,
-                                                caches[i], pos, dist, seq)
-        x = x + y
-        h = layers.rms_norm(blk.norm_x, x, cfg.norm_eps)
-        if mode == "decode":
-            ck, cv = caches[i]["cross_k"], caches[i]["cross_v"]
-        else:
-            ck, cv = attention.cross_kv(blk.cross_attn, cfg, enc_out, dist)
-        x = x + attention.cross_attention_kv(blk.cross_attn, cfg, h, ck, cv,
-                                             dist, seq_x)
-        if mode == "prefill":
-            caches.append({**kv, "cross_k": ck, "cross_v": cv})
-        h = layers.rms_norm(blk.norm2, x, cfg.norm_eps)
-        x = x + layers.swiglu_module(blk.ffn, h, cfg.d_ff, dist)
+        args = (blk, cfg, i, x, positions, enc_out, mode, caches, pos, dist)
+        x = (tf.remat_apply(cfg, [blk], _dec_block, *args)
+             if mode == "train" else _dec_block(*args))
     x = layers.rms_norm(model.final_norm, x, cfg.norm_eps)
     logits = io.lm_logits(model.embed, model.head, cfg, x, dist)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

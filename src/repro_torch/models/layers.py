@@ -1,6 +1,6 @@
 """Shared neural building blocks: initialisers, RMSNorm, LayerNorm, RoPE,
-SwiGLU (the function, the module holding its weights, and
-``swiglu_module``, which runs it tensor-parallel under a mesh's
+SwiGLU (the function, the module holding its weights, ``swiglu_apply``
+and ``swiglu_module``, which runs it tensor-parallel under a mesh's
 ``model`` axis: each rank holds d_ff / n columns of ``w_gate`` / ``w_up``
 and the matching rows of ``w_down``, and the row-parallel output is
 all-reduced).
@@ -136,19 +136,25 @@ class SwiGLU(nn.Module):
         self.w_down = nn.Parameter(
             truncated_normal((d_ff, d_model), 1.0, generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu(self.w_gate, self.w_up, self.w_down, x)
+
+
+def swiglu_apply(ffn: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    """``swiglu`` with ``ffn``'s weights.  A function, not the module's
+    ``forward``: a block calls no module, so nothing that hooks modules
+    (``FlopCounterMode``'s tracker) holds on to a remat recompute."""
+    return swiglu(ffn.w_gate, ffn.w_up, ffn.w_down, x)
 
 
 def swiglu_module(ffn: SwiGLU, x: torch.Tensor, d_ff: int,
                   dist=None) -> torch.Tensor:
-    """``ffn(x)``, where the FFN's full hidden width is ``d_ff``.  Under a
+    """``swiglu_apply(ffn, x)``, where the FFN's full hidden width is
+    ``d_ff``.  Under a
     model axis of more than one, with ``ffn`` holding its local d_ff
     columns, tensor-parallel: x's gradient is summed over the axis
     (``copy_to_model``) and the row-parallel output's parts are summed
     (``reduce_from_model``).  An FFN whose d_ff did not divide the axis
     holds all of it and runs whole on every rank."""
     if dist is None or dist.n_model == 1 or ffn.w_gate.shape[1] == d_ff:
-        return ffn(x)
+        return swiglu_apply(ffn, x)
     x = collectives.copy_to_model(x, dist)
-    return collectives.reduce_from_model(ffn(x), dist)
+    return collectives.reduce_from_model(swiglu_apply(ffn, x), dist)

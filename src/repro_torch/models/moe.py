@@ -239,7 +239,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, dist=None):
     gate = torch.where(r.keep, r.gate.reshape(-1), 0.0).to(dt)
     out = (y_pad[r.slot] * gate[:, None]).reshape(T, k, D).sum(1)
     if mo.num_shared:
-        out = out + p.shared(x_flat)
+        out = out + layers.swiglu_apply(p.shared, x_flat)
     return out.reshape(B, S, D), r.aux
 
 
@@ -278,9 +278,9 @@ def _moe_ep(p: MoE, x: torch.Tensor, cfg: ModelConfig, dist):
     shared_whole = None
     if mo.num_shared:
         if p.shared.w_gate.shape[1] == mo.num_shared * mo.d_ff_expert:
-            shared_whole = p.shared(x_flat)
+            shared_whole = layers.swiglu_apply(p.shared, x_flat)
         else:
-            part = part + p.shared(xr)
+            part = part + layers.swiglu_apply(p.shared, xr)
     out = collectives.reduce_from_model(part, dist)
     if shared_whole is not None:
         out = out + shared_whole
@@ -309,5 +309,5 @@ def moe_apply_reference(p: MoE, x: torch.Tensor, cfg: ModelConfig
     w = (mask * gate[..., None]).sum(1)                       # (T, E)
     out = torch.einsum("ted,te->td", y, w.to(dt))
     if mo.num_shared:
-        out = out + p.shared(x_flat)
+        out = out + layers.swiglu_apply(p.shared, x_flat)
     return out.reshape(B, S, D)

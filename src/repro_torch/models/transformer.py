@@ -16,8 +16,8 @@ is ``none``, RMSNorm -> FFN -> residual.  ``lm_apply`` runs it:
 
   train   — a full sequence from position 0, no caches; all-position
             logits and the MoE auxiliary loss for the objective
-            (``lm_loss_fn``), differentiated by autograd (no remat: the
-            reference's ``remat`` policy has no counterpart here);
+            (``lm_loss_fn``), differentiated by autograd, each super-block
+            under ``cfg.remat``'s checkpoint policy (``remat_apply``);
   prefill — the same, and also each layer's decode cache: compact KV for
             an attention layer, conv history and SSM state for a Mamba
             layer;
@@ -31,7 +31,20 @@ other parameters (the train step's compute-dtype copies).
 
 The JAX package stacks its super-blocks under a leading ``(n_super,
 ...)`` axis and scans them; here they are a Python loop over the
-ModuleList (PyTorch runs eagerly, so there is nothing to compile).  The
+ModuleList, one super-block of ``period_of(cfg)`` layers at a time
+(PyTorch runs eagerly, so there is nothing to compile).  In training,
+with gradients wanted, each super-block runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference's
+``jax.checkpoint`` wraps each: ``remat="full"`` keeps only the block's
+inputs and recomputes the rest in the backward; ``"dots"`` also keeps
+the outputs of the matmuls with no batch dims (a selective-checkpoint
+policy, the counterpart of ``dots_with_no_batch_dims_saveable``);
+``"none"`` keeps every activation.  The Bloom embedding, the head and
+the CE stay outside every checkpoint, so a step launches each Bloom
+kernel once; the collectives inside a block (the Megatron pair, the
+MoE's count all-gather under a data axis, the Mamba norm's all-reduce)
+run again in the recompute, in the same order on every rank, and the
+MoE's auxiliary loss is an output of the block.  The
 encoder-decoder family (``audio``) is ``models/encdec.py``.
 ``reference_path`` maps each param name to its leaf in the reference's
 tree (``lm_params_from_jax`` loads by it, and launch/sharding.py reads
@@ -53,12 +66,15 @@ by slice (``dist.seq_shard``, models/attention.py).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import collectives
@@ -105,6 +121,64 @@ def num_superblocks(cfg: ModelConfig) -> int:
         raise ValueError(f"num_layers {cfg.num_layers} must divide into "
                          f"period {p}")
     return cfg.num_layers // p
+
+
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the matmuls with no batch
+    dims (``mm``, ``addmm``, and a ``bmm`` over a batch of one, which is
+    how ``torch.einsum`` runs a product that contracts no batch axis, the
+    projections'), recompute everything else (the attention's and the
+    experts' batched products among it)."""
+    if op in _NO_BATCH_DOTS or (op is torch.ops.aten.bmm.default
+                                and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _rebound(bound):
+    """Bind each (module, name, tensor) of ``bound`` as the module's param
+    ``name`` for the block, as ``torch.func.functional_call`` binds them
+    (in the module's ``_parameters``), and restore what was there."""
+    held = [(m, n, m._parameters[n]) for m, n, _ in bound]
+    for m, n, t in bound:
+        m._parameters[n] = t
+    try:
+        yield
+    finally:
+        for m, n, t in held:
+            m._parameters[n] = t
+
+
+def remat_apply(cfg: ModelConfig, modules, fn, *args):
+    """``fn(*args)``, a block that reads the params of ``modules``, under
+    ``cfg.remat``'s checkpoint policy when gradients are wanted (the
+    module's docstring); plainly under ``remat="none"`` or without
+    gradients.  The recompute reads the params the forward read: the
+    train step binds compute-dtype copies of them in a functional call
+    of its own (``steps.value_and_grad``), which has ended by the time
+    the backward recomputes, so they are rebound around each run.  No
+    module is called (a module's hooks, e.g. ``FlopCounterMode``'s, would
+    hold on to the recompute's graph).  The blocks draw no random
+    numbers, so no RNG state is kept."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    bound = [(m, n, t) for mod in modules for m in mod.modules()
+             for n, t in m._parameters.items()]
+
+    def run(*a):
+        with _rebound(bound):
+            return fn(*a)
+
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return ckpt.checkpoint(run, *args, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
 
 
 def compute_cast(name: str, p: torch.Tensor) -> bool:
@@ -219,6 +293,58 @@ def frontend_concat(model: TransformerLM, x_tokens: torch.Tensor,
     return torch.cat([pre, x_tokens], dim=1)
 
 
+def _layer_apply(blk: Block, cfg: ModelConfig, i: int, x: torch.Tensor,
+                 positions, mode: str, caches, pos, dist):
+    """Layer i, the block ``blk``, in ``mode``: (x, the MoE loss or
+    None); prefill appends the layer's cache to ``caches``, decode
+    updates ``caches[i]``."""
+    h = layers.rms_norm(blk.norm1, x, cfg.norm_eps)
+    if blk.mixer == "attn":
+        if mode == "train":
+            y = attention.self_attention(blk.attn, cfg, h, positions,
+                                         dist=dist)
+        elif mode == "prefill":
+            y, kv = attention.self_attention_with_cache(
+                blk.attn, cfg, h, positions, dist=dist)
+            caches.append(kv)
+        else:
+            y = attention.decode_self_attention(
+                blk.attn, cfg, h, caches[i], pos, dist,
+                None if dist is None else dist.seq_shard(i, "k"))
+    elif mode == "train":
+        y = mamba2.mamba_apply(blk.mamba, cfg, h, dist=dist)
+    elif mode == "prefill":
+        y, mc = mamba2.mamba_apply(blk.mamba, cfg, h, return_cache=True,
+                                   dist=dist)
+        caches.append(mc)
+    else:
+        y, _ = mamba2.mamba_decode_step(blk.mamba, cfg, h, caches[i], dist)
+    x = x + y
+    if blk.ffn_kind == "none":
+        return x, None
+    h = layers.rms_norm(blk.norm2, x, cfg.norm_eps)
+    aux = None
+    if blk.ffn_kind == "moe":
+        y, aux = moe.moe_apply(blk.ffn, h, cfg, dist)
+    else:
+        y = layers.swiglu_module(blk.ffn, h, cfg.d_ff, dist)
+    return x + y, aux
+
+
+def _superblock_apply(blocks, first: int, cfg: ModelConfig,
+                      x: torch.Tensor, positions, mode: str, caches, pos,
+                      dist):
+    """One super-block, layers ``first`` ... of ``blocks``: (x, the f32
+    sum of its MoE losses)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j, blk in enumerate(blocks):
+        x, a = _layer_apply(blk, cfg, first + j, x, positions, mode, caches,
+                            pos, dist)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
              mode: str = "prefill", caches=None,
              pos: Optional[torch.Tensor] = None,
@@ -251,43 +377,18 @@ def lm_apply(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
     elif mode == "decode":
         if caches is None or pos is None:
             raise ValueError("decode needs caches and pos")
+        positions = None
     else:
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                          f"got {mode!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, blk in enumerate(model.blocks):
-        h = layers.rms_norm(blk.norm1, x, cfg.norm_eps)
-        if blk.mixer == "attn":
-            if mode == "train":
-                y = attention.self_attention(blk.attn, cfg, h, positions,
-                                             dist=dist)
-            elif mode == "prefill":
-                y, kv = attention.self_attention_with_cache(
-                    blk.attn, cfg, h, positions, dist=dist)
-                caches.append(kv)
-            else:
-                y = attention.decode_self_attention(
-                    blk.attn, cfg, h, caches[i], pos, dist,
-                    None if dist is None else dist.seq_shard(i, "k"))
-        elif mode == "train":
-            y = mamba2.mamba_apply(blk.mamba, cfg, h, dist=dist)
-        elif mode == "prefill":
-            y, mc = mamba2.mamba_apply(blk.mamba, cfg, h, return_cache=True,
-                                       dist=dist)
-            caches.append(mc)
-        else:
-            y, _ = mamba2.mamba_decode_step(blk.mamba, cfg, h, caches[i],
-                                            dist)
-        x = x + y
-        if blk.ffn_kind == "none":
-            continue
-        h = layers.rms_norm(blk.norm2, x, cfg.norm_eps)
-        if blk.ffn_kind == "moe":
-            y, a = moe.moe_apply(blk.ffn, h, cfg, dist)
-            aux = aux + a
-        else:
-            y = layers.swiglu_module(blk.ffn, h, cfg.d_ff, dist)
-        x = x + y
+    period = period_of(cfg)
+    for first in range(0, len(model.blocks), period):
+        span = list(model.blocks[first:first + period])
+        args = (span, first, cfg, x, positions, mode, caches, pos, dist)
+        x, a = (remat_apply(cfg, span, _superblock_apply, *args)
+                if mode == "train" else _superblock_apply(*args))
+        aux = aux + a
     x = layers.rms_norm(model.final_norm, x, cfg.norm_eps)
     logits = io.lm_logits(model.embed, model.head, cfg, x, dist)
     if mode == "train":

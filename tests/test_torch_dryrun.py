@@ -10,7 +10,8 @@ shard placement, and its own invariants.
   ``param_pspecs`` / ``opt_state_pspecs`` / ``batch_pspecs`` /
   ``cache_pspecs`` on its ``eval_shape`` trees, with no compile.
 * The reference's L1 / L2 extrapolation of the ``reduced`` block equals
-  the full-depth count exactly (smoke configs at 5 layers, mesh 2x2).
+  the full-depth count exactly (smoke configs at 5 layers with the
+  production attention chunks, mesh 2x2).
 * ``main --all`` prints 32 ``OK`` and no ``FAIL`` on the production
   mesh and the multi-pod one, every artifact with the reference's keys
   (``test_main_all_prints_18_ok_and_14_wait`` keeps the name it had
@@ -18,8 +19,11 @@ shard placement, and its own invariants.
   quick, these two and the experiment twins run at a depth of one layer
   period, the encoder-decoder's encoder at one layer (the full-depth
   grid is ``python -m repro_torch.launch.dryrun --all``).
-* The experiment twins run with their reference arguments; XLA-only
-  overrides are recorded and reported; ZeRO-1 raises.
+* The experiment twins run with their reference arguments; the
+  execution knobs (``remat``, ``causal_skip``, ``attn_*``) change the
+  count and are recorded as config, the XLA-only overrides
+  (``scan_layers``, ``unroll_for_analysis``) recorded and reported;
+  ZeRO-1 raises.
 """
 import dataclasses
 import json
@@ -141,7 +145,10 @@ def _cut(monkeypatch, layers=None):
 @pytest.mark.parametrize("arch", ["qwen3-4b", "olmoe-1b-7b"])
 def test_reduced_counts_extrapolate_to_the_full_depth_count(
         arch, shape, monkeypatch):
-    smoke = tconfigs.get_smoke_config(arch)
+    # the smoke widths with the production attention chunks: a few kv
+    # chunks a layer, not the smoke config's 2,048 at 32,768 tokens
+    smoke = tconfigs.get_smoke_config(arch, attn_chunk_q=2048,
+                                      attn_chunk_k=1024)
     monkeypatch.setattr(tconfigs, "get_config", lambda a, bloom=True, **o:
                         dataclasses.replace(smoke, num_layers=5, **o))
     res = dryrun.run_cell(arch, shape, mesh_shape=(2, 2), out_dir=None)
@@ -220,12 +227,26 @@ def test_overrides_zero_and_op_bytes(monkeypatch, capsys):
     _cut(monkeypatch)
     res = dryrun.run_cell("qwen1.5-0.5b", "decode_32k", out_dir=None,
                           roofline_pass=False,
-                          overrides={"causal_skip": True, "remat": "dots",
-                                     "attn_chunk_q": 512})
-    assert res["xla_only_overrides"] == {"causal_skip": True,
-                                         "remat": "dots",
-                                         "attn_chunk_q": 512}
+                          overrides={"scan_layers": False,
+                                     "unroll_for_analysis": True})
+    assert res["xla_only_overrides"] == {"scan_layers": False,
+                                         "unroll_for_analysis": True}
     assert "change nothing" in capsys.readouterr().out
+    # the execution knobs act: recorded as config, they change the count
+    base = dryrun.run_cell("qwen1.5-0.5b", "train_4k", out_dir=None,
+                           roofline_pass=False)
+    assert base["execution"] == {
+        "remat": "full", "attn_impl": "chunked", "attn_chunk_q": 2048,
+        "attn_chunk_k": 1024, "causal_skip": False,
+        "attn_bf16_scores": False}
+    for over in ({"causal_skip": True}, {"remat": "dots"},
+                 {"remat": "none", "attn_chunk_k": 512}):
+        res = dryrun.run_cell("qwen1.5-0.5b", "train_4k", out_dir=None,
+                              roofline_pass=False, overrides=over)
+        assert res["xla_only_overrides"] == {}
+        assert over.items() <= res["execution"].items()
+        assert res["full"]["flops_dev"] < base["full"]["flops_dev"], over
+    assert "change nothing" not in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="ZeRO-1.*A13b item 5"):
         dryrun.run_cell("qwen1.5-0.5b", "train_4k", zero=True, out_dir=None)
     x = torch.empty(4, 8, device="meta")
@@ -245,7 +266,13 @@ def test_experiment_twins_run_with_their_reference_arguments(
     out = capsys.readouterr().out
     assert [ln.split()[0] for ln in out.splitlines()
             if ln.startswith("bloom=")] == ["bloom=True", "bloom=False"]
-    assert out.count("{'causal_skip': True}") == 2
+    assert "change nothing" not in out       # causal_skip acts
+    for suffix in ("", "__dense"):
+        with open(f"experiments/perf_torch/qwen3-4b__train_4k__cmp{suffix}"
+                  ".json") as f:
+            art = json.load(f)
+        assert art["execution"]["causal_skip"] is True
+        assert art["xla_only_overrides"] == {}
     dryrun.run_cell("qwen1.5-0.5b", "decode_32k",
                     out_dir=dryrun.OUT_DIR)
     hillclimb.main(["--arch", "qwen1.5-0.5b", "--shape", "decode_32k",

@@ -152,8 +152,8 @@ def test_quickstart_matches_the_reference(capsys):
 
 
 def test_train_lm_100m_config_matches_the_reference():
-    """Every field of the reference's config but the three the port's
-    ModelConfig lacks (``attn_chunk_q``, ``attn_chunk_k``, ``remat``); the
+    """Every field of the reference's config, the attention chunks and
+    ``remat`` among them: none it sets is left out of the port's; the
     reference's other fields stay at their defaults."""
     ref = _reference_example("train_lm_100m")
     got, want = train_lm_100m.config_100m(), ref.config_100m()
@@ -172,7 +172,9 @@ def test_train_lm_100m_config_matches_the_reference():
                 want, f.name)), f.name
     left_out = {f.name for f in dataclasses.fields(want)
                 if f.name not in names and getattr(want, f.name) != default(f)}
-    assert left_out == {"attn_chunk_q", "attn_chunk_k", "remat"}
+    assert left_out == set()
+    assert (got.attn_chunk_q, got.attn_chunk_k, got.remat) == (64, 64,
+                                                               "none")
     assert got.param_count() == want.param_count()
     assert got.m_vocab == want.m_vocab
     assert (dataclasses.replace(got, bloom=BloomConfig(enabled=False))
