@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phase train-parallel [--transport nccl]
         # build, then that phase alone (a quick check of the parallel
         # step; no result line); nccl needs four cards on one host
+    python3 chip_smoke.py --phase serve-parallel
+        # build, then phase 17c alone (no result line)
     python3 chip_smoke.py --phase serve-parallel-families
         # build, then phase 17e alone (no result line)
     python3 chip_smoke.py --phase train-long
@@ -377,12 +379,31 @@ Phases, one line of numbers each:
                 1e-5, and the same in bf16 (its loss gap printed); (b)
                 olmoe-1b-7b at full width and 2 of 16 layers (memory
                 below), mesh 1x4, moe_impl="ep": one prefill and 2 steps
-                against the single-rank dense-MoE path.  Each rank resets
-                its counts before its runs and reads them after; its
-                ranged embed, binning, scatter and CE launches are held
-                against their plain versions on its own shard; it prints
-                its step walls, its collective seconds per step and each
-                collective's branch (device buffer or host-staged);
+                against the single-rank dense-MoE path; (c) qwen1.5-0.5b
+                as (a) in f32 at 4 of 24 layers with an int8 table (each
+                rank quantizes its own vocab rows), every launch of its 3
+                steps held against its plain version as it happens, its
+                losses equal to a single-rank int8 run here within rtol
+                1e-5; (d) (a) with
+                ZeRO-1 (each Adam moment split over ``data``, the update
+                on the slices, each slice all-gathered into its param):
+                after 3 steps its params, gathered whole on rank 0, equal
+                (a)'s bit for bit, its losses equal (a)'s, and every split
+                moment holds exactly 1/2 of (a)'s bytes; it prints its
+                moments' bytes, peak memory, step walls and all-gather
+                seconds beside (a)'s.  Each rank resets its counts before
+                its runs and reads them after; its ranged embed, binning,
+                scatter and CE launches are held against their plain
+                versions on its own shard; it prints its step walls, its
+                collective seconds per step and each collective's branch
+                (device buffer or host-staged).  Before the ranks, in this
+                process: the ranged quantized embed entry
+                (``bloom_embed.<storage>.hash.range``; int8, bf16, fp8
+                into bf16 and f32, T = 1, 8, 260, 520, D = 1024 and 1000)
+                at lo = 0 bit-identical to the unranged entry and at the
+                half range to its plain version, the half's quantized rows
+                and scales equal to the whole table's, and each storage
+                timed at T = 520 beside a masked ``F.embedding_bag``;
  17c. serve-parallel — whole-batch serving (launch/serve.generate under
                 a mesh: prefill, then the decode step against each rank's
                 cache shards, the vocab-parallel logits all-gathered over
@@ -390,7 +411,8 @@ Phases, one line of numbers each:
                 sharing the card over gloo: qwen1.5-0.5b at full width and
                 8 of 24 layers (d_model 1024, 16 heads and 16 kv heads,
                 m = 30,208, k = 4), B = 4, prompt 32, 12 tokens, on mesh
-                1x4 and 2x2, and olmoe-1b-7b at full width and 2 of 16
+                1x4 and 2x2, the same on 1x4 with an int8 table, and
+                olmoe-1b-7b at full width and 2 of 16
                 layers on mesh 1x4 with moe_impl="ep", f32 (a bf16 split
                 rounds partial sums that one rank does not; the bf16 1x4
                 side run, not held, is left out for the time limit),
@@ -413,7 +435,13 @@ Phases, one line of numbers each:
                 ``FAIL``; then every train_4k cell's argument + temp
                 bytes a rank from its artifact (the configs' defaults:
                 chunked attention, remat full), the eight of
-                ``FIT_80GB`` held under 80 GB;
+                ``FIT_80GB`` held under 80 GB.  Beside the grid, in the
+                same subprocess, ``dryrun.run_cell(zero=True)`` counts
+                pixtral-12b train_4k, so it too overlaps the build: its
+                argument + temp bytes with ZeRO-1 beside the plain count
+                (argument below it, collective term above), then
+                ``benchmarks/roofline_table.fmt_table`` over 17d's
+                artifacts, one row for each of the 32;
  17e. serve-parallel-families — the ssm, audio and vlm families tensor-
                 parallel (and mamba2's training step), ranks sharing the
                 card over gloo, f32, from the weights rank 0 draws on the
@@ -422,11 +450,11 @@ Phases, one line of numbers each:
                 within 1e-4; every launch of every rank held against its
                 plain version; each decode step's wall, collective seconds
                 and busy share printed): (a) mamba2-1.3b at full width and
-                24 of 48 layers (64 SSD heads: 16 a rank) on mesh 1x4, B
+                12 of 48 layers (64 SSD heads: 16 a rank) on mesh 1x4, B
                 = 4, prompt 32, 8 tokens, then 2 training steps at batch
                 4 x seq 64 whose losses equal one rank's within rtol
-                1e-5; (b) whisper-small at full width and depth (12 + 12
-                layers, 12 heads) on mesh 1x8: neither 12 heads nor 12 kv
+                1e-5; (b) whisper-small at full width and 4 + 4 of its
+                12 + 12 layers (12 heads) on mesh 1x8: neither 12 heads nor 12 kv
                 heads divide 8, so every attention runs whole on every
                 rank and the self cache (prompt 32 + 8 tokens) and the
                 cross cache (64 frames) split their sequence over
@@ -451,12 +479,14 @@ without the repository's src/ beside this file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
 import json
 import math
 import os
+import shlex
 import shutil
 import signal
 import subprocess
@@ -1093,12 +1123,24 @@ def _cold_line(cold) -> str:
     return ", ".join(f"{n} {c:.6f}" for n, c in cold.items())
 
 
+def _library_bins(torch, idx, m: int, lo: int = 0):
+    """The library call that gives the CSR binning's order and offsets:
+    ``torch.sort(stable=True)`` of the flat indices (shifted by ``lo``,
+    those outside the m rows clamped to one bin on either side) and
+    ``torch.bincount`` of them, summed into offsets (a host sync: timed
+    back to back)."""
+    keys = (idx.reshape(-1).long() - lo).clamp(-1, m) + 1
+    _, order = torch.sort(keys, stable=True)
+    return torch.bincount(keys, minlength=m + 2).cumsum(0), order
+
+
 def _time_csr(torch, csr, common, T, k, D, m, gen, phase):
     """The CSR scatter-add (bf16 gradient rows) and the card's binning at
-    (T, k, D, m) on seeded indices, timed beside their plain versions and
-    ``index_add_``, with their bounds; prints one line and returns (times,
-    (bound ms, by) of the scatter, (bound ms, by) of the binning, and the
-    call as the backward makes it, binning plus kernel)."""
+    (T, k, D, m) on seeded indices, timed beside their plain versions,
+    ``index_add_`` and (the binning's) ``_library_bins``, with their
+    bounds; prints one line and returns (times, (bound ms, by) of the
+    scatter, (bound ms, by) of the binning, and the call as the backward
+    makes it, binning plus kernel)."""
     dev = torch.device("cuda")
     g = torch.randn(T, D, generator=gen).to(torch.bfloat16).to(dev)
     idx = torch.randint(0, m, (T, k), generator=gen,
@@ -1114,6 +1156,8 @@ def _time_csr(torch, csr, common, T, k, D, m, gen, phase):
         "plain binning": lambda: csr.bin_csr_plain(idx, m),
         "library": lambda: torch.zeros(m, D, device=dev).index_add_(
             0, flat, g[rows].float())})
+    lib = common.time_ms(lambda: _library_bins(torch, idx, m), 20, 3)
+    times["library binning"] = (lib, lib)
     nbytes = csr.min_bytes(T * k, T, m, D, 2)
     bound = _bound(nbytes, T * k * D)
     bin_bytes = csr.bin_min_bytes(T * k, m)
@@ -1183,7 +1227,7 @@ def phase_csr(torch, csr, common):
              "launches": None, "max_abs_err": 0.0,
              "ms": times["binning"][0], "plain_ms": times["plain binning"][0],
              "bound_ms": bin_bound_ms, "bound_by": bin_by,
-             "library_ms": None}]
+             "library_ms": times["library binning"][0]}]
 
 
 def phase_train_lm(torch, common, names):
@@ -3571,9 +3615,9 @@ def _plain_checks(torch):
                       "bloom_embed token entry", lo)
 
     def embed_tok_q(out, qtable, scales, toks, spec,
-                    out_dtype=torch.float32, want_idx=False):
+                    out_dtype=torch.float32, want_idx=False, lo=None):
         return tokens(out, want_idx, qtable, scales, toks, spec, out_dtype,
-                      "bloom_embed token entry (stored table)")
+                      "bloom_embed token entry (stored table)", lo)
 
     def embed_bwd(out, g, idx, m, lo=None):
         return equal(out.cpu(), be.bloom_embed_bwd_plain(g.cpu(), idx.cpu(),
@@ -3852,14 +3896,41 @@ def _rank_twins(torch, be, ce, csr, cfg, model, batch, dist_ctx):
             "ce_bwd": _max_abs_err(dz, pdz)}
 
 
+def _moment_bytes(state):
+    """name -> the bytes of each Adam moment leaf ("mu/<param>",
+    "nu/<param>") of an optimizer state."""
+    out = {}
+
+    def walk(st):
+        if isinstance(st, dict) and "mu" in st and "nu" in st:
+            for key in ("mu", "nu"):
+                for n, t in st[key].items():
+                    out[f"{key}/{n}"] = t.numel() * t.element_size()
+        elif isinstance(st, dict):
+            for v in st.values():
+                walk(v)
+        elif isinstance(st, (tuple, list)):
+            for v in st:
+                walk(v)
+
+    walk(state)
+    return out
+
+
 def _rank_parallel(mesh, jobs):
-    """One rank of phase train-parallel: each job ({shape, cfg, tc, seed,
-    batches, prefill}) in turn on a (data, model) mesh of its shape over
-    the same four ranks, from weights rank 0 draws on the card and
+    """One rank of phase train-parallel: each job ({label, shape, cfg,
+    tc, seed, batches, prefill}, and optionally ``zero`` (ZeRO-1),
+    ``held`` (every launch held against its plain version as it happens),
+    ``keep`` (a name to keep the params, gathered whole on rank 0, and
+    the moments' bytes under) and ``against`` (a kept name: rank 0 holds
+    this job's gathered params to its bit for bit, every rank its
+    moments' bytes to its)) in turn on a (data, model) mesh of its shape
+    over the same four ranks, from weights rank 0 draws on the card and
     broadcasts.  Returns per job its losses, step walls, collective
-    seconds per step, the transport's branches, its launch counts (reset
-    just before the job's prefill and steps, read just after), the twin
-    checks' errors and its peak memory."""
+    seconds per step (all, and the all-gathers'), the transport's
+    branches, its launch counts (reset just before the job's prefill and
+    steps, read just after), the held and twin checks' errors, its
+    moments' bytes and its peak memory."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3872,46 +3943,76 @@ def _rank_parallel(mesh, jobs):
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train
     tr, dev = mesh.transport, mesh.device
-    results = []
+    results, kept = [], {}
     for job in jobs:
-        cfg, tc = job["cfg"], job["tc"]
+        cfg, tc, zero = job["cfg"], job["tc"], job.get("zero", False)
         dist_ctx = sharding.DistContext(
             mesh if job["shape"] == mesh.sizes else mesh_lib.world_mesh(
                 job["shape"], mesh.axis_names, dev, tr))
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        step, optimizer = steps_lib.make_train_step(cfg, tc, dist_ctx)
+        step, optimizer = steps_lib.make_train_step(cfg, tc, dist_ctx, zero)
         full = (dict(_draw(torch, cfg, job["seed"], dev).named_parameters())
                 if mesh.rank == 0 else None)
-        model, opt_state, _, _, _, _ = train.parallel_state(
-            cfg, optimizer, job["seed"], None, dist_ctx, full)
+        model, opt_state, _, _, specs, _ = train.parallel_state(
+            cfg, optimizer, job["seed"], None, dist_ctx, full, zero)
         del full
         torch.cuda.synchronize()
         r = {"setup_s": time.perf_counter() - t0}
         common.reset_launches()
         tr.branches.clear()
-        tr.seconds, tr.timed = 0.0, True
-        if job["prefill"] is not None:
-            out = steps_lib.make_prefill_step(cfg, dist_ctx)(
-                model, torch.as_tensor(job["prefill"]).to(dev))
-            r["last_logits"] = out["last_logits"].float().cpu().numpy()
-            r["aux"] = float(out["aux"])
-        r.update(losses=[], walls=[], coll=[])
-        for b in job["batches"]:
-            batch = {"tokens": torch.as_tensor(b["tokens"]).to(dev)}
-            torch.cuda.synchronize()
-            c0, t1 = tr.seconds, time.perf_counter()
-            opt_state, m = step(model, opt_state, batch)
-            torch.cuda.synchronize()
-            r["walls"].append(time.perf_counter() - t1)
-            r["coll"].append(tr.seconds - c0)
-            r["losses"].append(float(m["loss"]))
-        r["counts"] = dict(common.LAUNCHES)
+        tr.op_seconds.clear()
+        tr.timed = True
+        errs = {}
+        hold = (held_to_plain(torch, common, f"train-parallel "
+                              f"{job['label']} rank {mesh.rank}", errs)
+                if job.get("held") else contextlib.nullcontext())
+        with hold:
+            if job["prefill"] is not None:
+                out = steps_lib.make_prefill_step(cfg, dist_ctx)(
+                    model, torch.as_tensor(job["prefill"]).to(dev))
+                r["last_logits"] = out["last_logits"].float().cpu().numpy()
+                r["aux"] = float(out["aux"])
+            r.update(losses=[], walls=[], coll=[], gather=[])
+            for b in job["batches"]:
+                batch = {"tokens": torch.as_tensor(b["tokens"]).to(dev)}
+                torch.cuda.synchronize()
+                c0, g0 = tr.seconds, tr.op_seconds["all_gather"]
+                t1 = time.perf_counter()
+                opt_state, m = step(model, opt_state, batch)
+                torch.cuda.synchronize()
+                r["walls"].append(time.perf_counter() - t1)
+                r["coll"].append(tr.seconds - c0)
+                r["gather"].append(tr.op_seconds["all_gather"] - g0)
+                r["losses"].append(float(m["loss"]))
+        r["counts"], r["held"] = dict(common.LAUNCHES), errs
         r["branches"] = {f"{op} {b}": n for (op, b), n in
                          sorted(tr.branches.items())}
         tr.timed = False
+        r["steps_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        r["moments"] = _moment_bytes(opt_state)
+        if zero:
+            r["zero_dims"] = steps_lib.zero_specs(cfg, optimizer, model,
+                                                  dist_ctx)
+        if job.get("keep") or job.get("against"):
+            whole = sharding.gather_state_dict(
+                dict(model.named_parameters()), specs, dist_ctx.mesh)
+            if job.get("keep"):
+                kept[job["keep"]] = {
+                    "params": whole if mesh.rank == 0 else None,
+                    "moments": r["moments"]}
+            if job.get("against"):
+                ref = kept.pop(job["against"])
+                r["against_moments"] = ref["moments"]
+                if mesh.rank == 0:
+                    r["params_differ"] = [n for n, t in whole.items()
+                                          if not torch.equal(
+                                              t, ref["params"][n])]
+                    r["params_checked"] = len(whole)
+            del whole
         r["twins"] = _rank_twins(torch, be, ce, csr, cfg, model,
                                  job["batches"][0], dist_ctx)
+        # as before the ZeRO-1 job: set-up, steps and the twin checks
         r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         del model, opt_state
         torch.cuda.empty_cache()
@@ -4055,7 +4156,8 @@ def _ranged_kernels(torch, be, ce, csr, common):
         "unranged": lambda: csr.bin_csr_cuda(idx_b, m),
         "full": lambda: csr.bin_csr_cuda(idx_b, m, 0),
         "kernel": lambda: csr.bin_csr_cuda(idx_b, half, half)}, {
-        "plain": lambda: csr.bin_csr_plain(idx_b, half, half)})
+        "plain": lambda: csr.bin_csr_plain(idx_b, half, half),
+        "library": lambda: _library_bins(torch, idx_b, half, half)})
     g_b = torch.randn(T, D, generator=gen).to(torch.bfloat16).to(dev)
     dense = _times_kernels(common, {
         "unranged": lambda: be.bloom_embed_bwd_cuda(g_b, idx_b, m),
@@ -4069,7 +4171,8 @@ def _ranged_kernels(torch, be, ce, csr, common):
     bound_ms, by = _bound_int(nbytes, T * k + half)
     print(f"train-parallel: bloom_csr.bin.range T={T} k={k}: the half "
           f"range (m = {half}, lo = {half}) and the full range beside the "
-          f"unranged binning (m = {m}): {_times_line(times)}, bound "
+          f"unranged binning (m = {m}): {_times_line(times)} (library: "
+          f"torch.sort(stable=True) + torch.bincount), bound "
           f"{bound_ms * 1e3:.3f} us ({by}, {nbytes} bytes) at the half "
           "range", flush=True)
     rows_out[csr.BIN_RANGE] = {
@@ -4078,7 +4181,7 @@ def _ranged_kernels(torch, be, ce, csr, common):
         "replaces": "src/repro/kernels/bloom_csr.py:110",
         "launches": 0, "max_abs_err": 0.0, "ms": times["kernel"][0],
         "plain_ms": times["plain"][0], "bound_ms": bound_ms,
-        "bound_by": by, "library_ms": None}
+        "bound_by": by, "library_ms": times["library"][0]}
 
     T = 512
     zh = z[:, half:].contiguous()
@@ -4129,6 +4232,120 @@ def _ranged_kernels(torch, be, ce, csr, common):
     return rows_out
 
 
+def _same_bits(torch, a, b) -> bool:
+    """Equal stored bytes (NaN payloads too for the 1-byte storages)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.element_size() == 1:
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    return torch.equal(a, b)
+
+
+def _ranged_quantized(torch, be, common, quant):
+    """The ranged quantized token entry in this process (qwen1.5-0.5b's
+    spec: m = 30,208, k = 4): for each storage (int8, bf16, fp8_e4m3) into
+    bf16 and f32, T = 1, 8, 260 and 520, D = 1024 and 1000, at lo = 0
+    over every row bit-identical to the unranged quantized entry, and at
+    the half range (rows [15,104, 30,208)) to its plain version on the
+    half's own quantization, whose rows and scales equal the whole
+    table's; then timed at T = 520, D = 1024 into f32 beside the unranged
+    entry, the plain version and a masked ``F.embedding_bag`` over the
+    shard widened ahead.  Returns {name: row} of the kernels line for the
+    main path's storage (int8)."""
+    from repro_torch import configs
+    from repro_torch.models import io as io_lib
+    dev = torch.device("cuda")
+    cfg = configs.get_config("qwen1.5-0.5b")
+    spec = io_lib.vocab_spec(cfg)
+    m, D, k = spec.m, cfg.d_model, spec.k
+    half = m // 2
+    gen = torch.Generator().manual_seed(30)
+    base = torch.randn(m, D, generator=gen).to(dev)
+    tds = ("int8", "bfloat16", "fp8_e4m3")
+    n = 0
+    for td in tds:
+        for Dc in (D, 1000):
+            q, sc = quant.quantize_table(base[:, :Dc].contiguous(), td)
+            qh, sh = quant.quantize_table(base[half:, :Dc].contiguous(), td)
+            _check(_same_bits(torch, qh, q[half:]) and (
+                sc is None or torch.equal(sh, sc[half:])),
+                f"{td} D={Dc}: the half's quantized rows or scales != the "
+                "whole table's")
+            for od in (torch.bfloat16, torch.float32):
+                for T in (1, 8, 260, 520):
+                    tok = torch.randint(-1, spec.d, (T,),
+                                        generator=gen).to(dev)
+                    whole, _ = be.bloom_embed_tokens_quantized_cuda(
+                        q, sc, tok, spec, od)
+                    full, _ = be.bloom_embed_tokens_quantized_cuda(
+                        q, sc, tok, spec, od, False, 0)
+                    got, idx = be.bloom_embed_tokens_quantized_cuda(
+                        qh, sh, tok, spec, od, True, half)
+                    want, pidx = be.bloom_embed_tokens_plain(
+                        qh, sh, tok, spec, od, half)
+                    torch.cuda.synchronize()
+                    what = f"{td} into {od} T={T} D={Dc}"
+                    _check(torch.equal(full, whole),
+                           f"ranged quantized embed lo=0 {what} != the "
+                           "unranged entry")
+                    _check(torch.equal(got, want) and torch.equal(idx, pidx),
+                           f"ranged quantized embed half {what} != its "
+                           "plain version")
+                    n += 1
+    print(f"train-parallel: bloom_embed.<storage>.hash.range ({', '.join(tds)}"
+          f"; into bf16 and f32; T = 1, 8, 260, 520; D = {D}, 1000; m = {m}"
+          f"): {n} cases, at lo = 0 over every row bit-identical to the "
+          f"unranged quantized entry, at the half range (lo = {half}) to "
+          "the plain version; the half's quantized rows and scales equal "
+          "the whole table's", flush=True)
+
+    T = 520
+    tok = torch.randint(0, spec.d, (T,), generator=gen).to(dev)
+    rel = spec.indices_for(tok).long() - half
+    inside = (rel >= 0) & (rel < half)
+    relc = rel.clamp(0, half - 1)
+    n_rows = int(torch.unique(rel[inside]).numel())
+    rows_out = {}
+
+    def timed(td):
+        q, sc = quant.quantize_table(base, td)
+        qh, sh = quant.quantize_table(base[half:].contiguous(), td)
+        wide = quant.dequantize_table(qh, sh)
+        f32 = torch.float32
+        return qh, sh, _times_kernels(common, {
+            "unranged": lambda: be.bloom_embed_tokens_quantized_cuda(
+                q, sc, tok, spec, f32),
+            "kernel": lambda: be.bloom_embed_tokens_quantized_cuda(
+                qh, sh, tok, spec, f32, False, half)}, {
+            "plain": lambda: be.bloom_embed_tokens_plain(
+                qh, sh, tok, spec, f32, half),
+            "library": lambda: torch.nn.functional.embedding_bag(
+                relc, wide, mode="sum", per_sample_weights=inside.float())})
+
+    for td in tds:
+        qh, sh, times = timed(td)
+        nbytes = be.min_bytes(n_rows, T, k, D, qh.element_size(), 4,
+                              sh is not None, token_itemsize=8)
+        bound_ms, by = _bound(nbytes, T * k * D)
+        name = be.token_variant_name(spec, qh.dtype) + be.RANGE
+        print(f"train-parallel: {name} into f32 T={T} D={D} k={k}: the half "
+              f"range (rows [{half}, {m})) beside the unranged entry, device "
+              f"ms (graph) / back-to-back ms (events): "
+              f"{_times_line(times)}; bound {bound_ms * 1e3:.3f} us ({by}, "
+              f"{nbytes} bytes, {n_rows} rows); library: F.embedding_bag "
+              f"masked over the shard widened ahead; {_card()}", flush=True)
+        if td == "int8":
+            rows_out[name] = {
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/bloom_embed.cu",
+                "replaces": "src/repro/kernels/bloom_embed.py:271",
+                "launches": 0, "max_abs_err": 0.0,
+                "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+                "bound_ms": bound_ms, "bound_by": by,
+                "library_ms": times["library"][0]}
+    return rows_out
+
+
 def phase_train_parallel(torch, be, ce, csr, common, transport="gloo"):
     """Phase 17b (the module's docstring), the ranks exchanging over
     ``transport`` (gloo: four ranks on one card; nccl: a card each).
@@ -4138,14 +4355,19 @@ def phase_train_parallel(torch, be, ce, csr, common, transport="gloo"):
     import numpy as np
     from repro_torch import configs
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import quant
     from repro_torch.launch import train
     rows = _ranged_kernels(torch, be, ce, csr, common)
+    rows.update(_ranged_quantized(torch, be, common, quant))
     tc = TrainConfig(optimizer="adamw", learning_rate=3e-3,
                      grad_clip_norm=1.0, warmup_steps=0)
     # qwen1.5-0.5b at 8 of its 24 layers: the script's time limit (the
     # full depth's run is recorded in PERF.md section 6)
     q32 = configs.get_config("qwen1.5-0.5b", dtype="float32", num_layers=8)
     q16 = configs.get_config("qwen1.5-0.5b", num_layers=8)
+    # (c)'s int8 run at 4 layers: the script's time limit; (d) keeps (a)'s
+    # 8, whose params it is held to bit for bit
+    q8 = dataclasses.replace(q32, table_dtype="int8", num_layers=4)
     qb = _parallel_batches(q32, 8, 64, 3, seed=5)
     # olmoe at 2 of its 16 layers: 0.88B params (2 x 420M: attention 16.8M
     # and 64 experts x 6.3M a layer; embed and head 20.4M each); the
@@ -4166,16 +4388,26 @@ def phase_train_parallel(torch, be, ce, csr, common, transport="gloo"):
     t0 = time.perf_counter()
     ref = {"q32": _single_rank(torch, q32, tc, qb, 0),
            "q16": dict(_single_rank(torch, q16, tc, qb, 0), dtype="bf16"),
-           "o32": _single_rank(torch, o32, tc, ob, 0, prefill)}
+           "o32": _single_rank(torch, o32, tc, ob, 0, prefill),
+           "q8": dict(_single_rank(torch, q8, tc, qb, 0), dtype="f32 int8")}
     ref_s = time.perf_counter() - t0
-    jobs = [{"shape": (2, 2), "cfg": c, "tc": tc, "seed": 0, "batches": qb,
-             "prefill": None} for c in (q32, q16)]
-    jobs.append({"shape": (1, 4), "cfg": o32, "tc": tc, "seed": 0,
-                 "batches": ob, "prefill": prefill})
+    jobs = [{"label": label, "shape": (2, 2), "cfg": c, "tc": tc, "seed": 0,
+             "batches": qb, "prefill": None}
+            for label, c in (("q32", q32), ("q16", q16))]
+    jobs[0]["keep"] = "q32"
+    jobs.append({"label": "o32", "shape": (1, 4), "cfg": o32, "tc": tc,
+                 "seed": 0, "batches": ob, "prefill": prefill})
+    # (c) an int8 table under the model axis, every launch held; (d)
+    # ZeRO-1, held to the plain f32 job (a) bit for bit
+    jobs.append({"label": "q8", "shape": (2, 2), "cfg": q8, "tc": tc,
+                 "seed": 0, "batches": qb, "prefill": None, "held": True})
+    jobs.append({"label": "zero", "shape": (2, 2), "cfg": q32, "tc": tc,
+                 "seed": 0, "batches": qb, "prefill": None, "zero": True,
+                 "against": "q32"})
     t0 = time.perf_counter()
     out = train.spawn(_rank_parallel, (2, 2), transport, "cuda", (jobs,),
                       timeout=600)
-    dense, ep = [r[:2] for r in out], [r[2:] for r in out]
+    dense, ep = [r[:2] for r in out], [r[2:3] for r in out]
     print(f"train-parallel: single-rank runs {ref_s:.3f} s; the four "
           f"ranks over {transport} {time.perf_counter() - t0:.3f} s "
           "(start, and per job: draw, broadcast, shard, steps, checks)",
@@ -4199,7 +4431,8 @@ def phase_train_parallel(torch, be, ce, csr, common, transport="gloo"):
                       f"(single rank {want['step_s'] * 1e3:.3f} ms), "
                       f"collective time per step "
                       f"{[round(c * 1e3, 3) for c in r['coll']]} ms, set-up "
-                      f"{r['setup_s']:.3f} s, peak {r['peak_gib']:.3f} GiB, "
+                      f"{r['setup_s']:.3f} s, peak {r['peak_gib']:.3f} GiB "
+                      f"(set-up and steps {r['steps_peak_gib']:.3f}), "
                       f"branches {r['branches']}, launches {r['counts']}, "
                       f"twins {r['twins']}", flush=True)
     for r in dense:
@@ -4228,12 +4461,72 @@ def phase_train_parallel(torch, be, ce, csr, common, transport="gloo"):
           f"logits within 1e-4 x max |logit| ({scale:.3f}), aux within "
           f"rtol 1e-4 ({want['aux']}), losses within rtol 1e-5 of the "
           "single-rank dense-MoE path", flush=True)
+    held = {}
+    int8_name = next(n for n in rows if ".int8." in n)
+    for rank, per_job in enumerate(out):
+        r, z = per_job[3], per_job[4]
+        for job in (r, z):
+            for n, c in job["counts"].items():
+                counts[n] = counts.get(n, 0) + c
+            for n, e in job["twins"].items():
+                errs[n] = max(errs.get(n, 0.0), e)
+        for n, e in r["held"].items():
+            held[n] = max(held.get(n, 0.0), e)
+        _check(r["counts"].get(int8_name, 0) == len(qb),
+               f"train-parallel int8 rank {rank}: {int8_name} launched "
+               f"{r['counts'].get(int8_name, 0)} times in {len(qb)} steps")
+        np.testing.assert_allclose(r["losses"], ref["q8"]["losses"],
+                                   rtol=1e-5)
+        print(f"train-parallel: qwen1.5-0.5b {q8.num_layers}L 2x2 f32 "
+              f"table int8 rank {rank}: losses {r['losses']} (single rank "
+              f"{ref['q8']['losses']}; within rtol 1e-5), step walls "
+              f"{[round(w * 1e3, 3) for w in r['walls']]} ms (single rank "
+              f"{ref['q8']['step_s'] * 1e3:.3f} ms), collective "
+              f"{[round(c * 1e3, 3) for c in r['coll']]} ms, peak "
+              f"{r['peak_gib']:.3f} GiB, launches {r['counts']}, every "
+              f"launch held: {r['held']}", flush=True)
+        # ZeRO-1: the plain f32 job's params bit for bit, half of every
+        # split moment's bytes
+        plain = dense[rank][0]
+        _check(z["losses"] == plain["losses"],
+               f"train-parallel ZeRO-1 rank {rank}: losses {z['losses']} "
+               f"!= the plain job's {plain['losses']}")
+        if rank == 0:
+            _check(z["params_checked"] > 0 and not z["params_differ"],
+                   f"train-parallel ZeRO-1: params differ from the plain "
+                   f"job's: {z['params_differ'][:5]}")
+        dims, mine, theirs = z["zero_dims"], z["moments"], \
+            z["against_moments"]
+        _check(dims and set(mine) == set(theirs) and all(
+            mine[key] * (2 if key.split("/", 1)[1] in dims else 1)
+            == theirs[key] for key in mine),
+            f"train-parallel ZeRO-1 rank {rank}: split moments do not hold "
+            "1/2 of their bytes")
+        gib = 2 ** 30
+        also = (f" and params ({z['params_checked']} leaves, gathered "
+                "whole) bit for bit" if rank == 0 else "")
+        print(f"train-parallel: qwen1.5-0.5b {q32.num_layers}L 2x2 f32 "
+              f"ZeRO-1 rank {rank}: losses equal the plain job's{also}"
+              f"; moments {sum(mine.values()) / gib:.4f} GiB (plain "
+              f"{sum(theirs.values()) / gib:.4f} GiB; {len(dims)} of "
+              f"{len(mine) // 2} leaves split, each exactly 1/2), peak "
+              f"{z['steps_peak_gib']:.3f} GiB in set-up and steps (plain "
+              f"{plain['steps_peak_gib']:.3f}), "
+              f"step walls {[round(w * 1e3, 3) for w in z['walls']]} ms "
+              f"(plain {[round(w * 1e3, 3) for w in plain['walls']]}), "
+              f"all-gather seconds a step "
+              f"{[round(g * 1e3, 3) for g in z['gather']]} ms (plain "
+              f"{[round(g * 1e3, 3) for g in plain['gather']]}), branches "
+              f"{z['branches']}; {_card()}", flush=True)
     for name, row in rows.items():
         row["launches"] = counts.pop(name, 0)
     rows[ce.FWD_RANGE]["max_abs_err"] = max(
         rows[ce.FWD_RANGE]["max_abs_err"], errs.get("ce_fwd", 0.0))
     rows[ce.BWD_RANGE]["max_abs_err"] = max(
         rows[ce.BWD_RANGE]["max_abs_err"], errs.get("ce_bwd", 0.0))
+    for name, e in held.items():
+        if name in rows:
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     return list(rows.values()), counts
 
 
@@ -4300,7 +4593,8 @@ def _rank_serve(mesh, jobs):
         sync()
         common.reset_launches()
         tr.branches.clear()
-        tr.seconds, tr.timed = 0.0, True
+        tr.op_seconds.clear()
+        tr.timed = True
         clock.update(t=time.perf_counter(), c=0.0)
         with held_to_plain(torch, common, f"{job['phase']} rank "
                            f"{mesh.rank}", errs):
@@ -4413,6 +4707,12 @@ def phase_serve_parallel(torch, common):
     q32 = configs.get_config("qwen1.5-0.5b", dtype="float32", num_layers=8)
     o32 = dataclasses.replace(configs.get_config(
         "olmoe-1b-7b", dtype="float32", moe_impl="ep"), num_layers=2)
+    # the int8 run keeps 8 layers: at 4 the random model's logp rows are
+    # near uniform, most ids' int8 sums tie exactly, and a rounding-level
+    # difference of the ranks' logits moves one stored value, so that
+    # another id of the tie is the lowest in 2 of the 4 rows (a rule of
+    # at most 1)
+    q8 = dataclasses.replace(q32, table_dtype="int8")
     rng = np.random.default_rng(27)
     B, S, gen, topk = 4, 32, 12, 8
 
@@ -4423,7 +4723,7 @@ def phase_serve_parallel(torch, common):
                     np.int32)}
 
     jobs = [job((1, 4), q32, torch.float32), job((2, 2), q32, torch.float32),
-            job((1, 4), o32, torch.float32)]
+            job((1, 4), o32, torch.float32), job((1, 4), q8, torch.float32)]
     jobs[1]["prompts"] = jobs[0]["prompts"]
     t0 = time.perf_counter()
     want = [_one_rank_generation(torch, j["cfg"], j, torch.device("cuda"))
@@ -4441,7 +4741,9 @@ def phase_serve_parallel(torch, common):
         cfg = j["cfg"]
         label = (f"serve-parallel: {cfg.name} {cfg.num_layers}L "
                  f"{cfg.dtype} {'x'.join(map(str, j['shape']))}"
-                 + (" ep" if cfg.moe is not None else ""))
+                 + (" ep" if cfg.moe is not None else "")
+                 + ("" if cfg.table_dtype == "auto"
+                    else f" table {cfg.table_dtype}"))
         for rank, per_job in enumerate(out):
             r = per_job[i]
             for n, c in r["counts"].items():
@@ -4502,10 +4804,12 @@ def phase_serve_parallel_families(torch, common):
     phase = "serve-parallel-families"
     rng = np.random.default_rng(28)
     S, gen, topk = 32, 8, 8
-    # mamba2 at 24 of its 48 layers: the script's time limit (the full
+    # mamba2 at 12 of its 48 layers: the script's time limit (the full
     # depth's run is recorded in PERF.md section 6)
-    m32 = configs.get_config("mamba2-1.3b", dtype="float32", num_layers=24)
-    w32 = configs.get_config("whisper-small", dtype="float32")
+    m32 = configs.get_config("mamba2-1.3b", dtype="float32", num_layers=12)
+    # whisper at 4 + 4 of its 12 + 12 layers: the script's time limit
+    w32 = configs.get_config("whisper-small", dtype="float32", num_layers=4,
+                             encoder_layers=4)
     # pixtral at 2 of its 40 layers: the draw and the broadcast of one
     # rank's f32 copy stay within the script's time limit
     p32 = configs.get_config("pixtral-12b", dtype="float32", num_layers=2)
@@ -4877,13 +5181,34 @@ class _Background:
         self._out.close()
 
 
-def start_dryrun() -> _Background:
-    """Phase 17d's subprocess: the dry run of the production grid."""
+ZERO_CELL = ("pixtral-12b", "train_4k")
+
+
+def _dry_logs() -> tuple:
+    """Phase 17d's logs: the dry run's, then the ZeRO-1 count's."""
     build = SRC.parent / "build"
-    return _Background([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        "--all", "--jobs", "6", "--out",
-                        str(build / "dryrun_torch")],
-                       build / "dryrun_torch.log")
+    return build / "dryrun_torch.log", build / "dryrun_zero.log"
+
+
+def start_dryrun() -> _Background:
+    """Phase 17d's subprocess, started just before the build: one shell
+    that runs two counts side by side, each into its own log
+    (``_dry_logs``): the dry run of the production grid, and
+    ``ZERO_CELL`` with ZeRO-1 (``dryrun.run_cell(zero=True)``, tag
+    ``zero``).  Exit 1: the grid failed; 2: the ZeRO-1 count."""
+    build = SRC.parent / "build"
+    arch, shape = ZERO_CELL
+    grid = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+            "--jobs", "6", "--out", str(build / "dryrun_torch")]
+    zero = [sys.executable, "-c",
+            "from repro_torch.launch import dryrun; "
+            f"dryrun.run_cell({arch!r}, {shape!r}, zero=True, tag='zero', "
+            f"out_dir={str(build / 'perf_torch')!r})"]
+    grid_log, zero_log = (shlex.quote(str(p)) for p in _dry_logs())
+    return _Background(["sh", "-c", f"{shlex.join(grid)} > {grid_log} 2>&1 "
+                        f"& g=$!; {shlex.join(zero)} > {zero_log} 2>&1 & "
+                        "z=$!; wait $g || exit 1; wait $z || exit 2"],
+                       build / "dryrun_sh.log")
 
 
 # the train_4k cells whose rank must fit an 80 GB card with the configs'
@@ -4897,10 +5222,12 @@ FIT_80GB = ("qwen1.5-0.5b", "qwen3-4b", "granite-8b", "phi3-mini-3.8b",
 def phase_dryrun(dry: _Background) -> None:
     """Phase 17d: the dry run's 32 OK and no WAIT or FAIL lines; every
     train_4k cell's argument + temp bytes from its artifact, those of
-    ``FIT_80GB`` under 80 GB."""
+    ``FIT_80GB`` under 80 GB; then the ZeRO-1 count
+    (``phase_dryrun_zero``)."""
     t0 = time.perf_counter()
     rc = dry.wait(timeout=600)
-    lines = dry.log.read_text().splitlines()
+    path = _dry_logs()[0]
+    lines = path.read_text().splitlines() if path.exists() else []
     ok = [ln for ln in lines if ln.startswith("OK ")]
     wait = [ln for ln in lines if ln.startswith("WAIT ")]
     fail = [ln for ln in lines if ln.startswith("FAIL")]
@@ -4910,13 +5237,13 @@ def phase_dryrun(dry: _Background) -> None:
           f"waited {time.perf_counter() - t0:.3f} s after the build); "
           f"roofline at the H100's rates (launch/roofline.py), counted on "
           f"meta tensors", flush=True)
-    _check(rc == 0 and len(ok) == 32 and not wait and not fail,
+    _check(rc != 1 and len(ok) == 32 and not wait and not fail,
            f"dryrun: exit {rc}, {len(ok)} OK, {len(wait)} WAIT, "
            f"{len(fail)} FAIL; tail {lines[-5:]}")
     from repro_torch import configs
     over = []
     for arch in configs.ARCH_NAMES:
-        art = json.loads((dry.log.parent / "dryrun_torch" /
+        art = json.loads((path.parent / "dryrun_torch" /
                           f"{arch}__train_4k__singlepod.json").read_text())
         mem = art["full"]["memory"]
         held = mem["argument_bytes"] + mem["temp_bytes"]
@@ -4930,6 +5257,63 @@ def phase_dryrun(dry: _Background) -> None:
               f"{'held under 80 GB' if arch in FIT_80GB else 'printed'}",
               flush=True)
     _check(not over, f"dryrun: train_4k over 80 GB a rank: {over}")
+    phase_dryrun_zero(rc)
+
+
+def phase_dryrun_zero(rc: int) -> None:
+    """Phase 17d's second half (``rc``: the subprocess's exit):
+    ``ZERO_CELL``'s ZeRO-1 count (one rank of 16x16, Adam's moments split
+    over the 16 data ranks) beside the plain count, argument + temp GiB;
+    then ``roofline_table.fmt_table`` over 17d's artifacts, one row for
+    each artifact with a roofline."""
+    from repro_torch.benchmarks import roofline_table
+    path = _dry_logs()[1]
+    lines = path.read_text().splitlines() if path.exists() else []
+    _check(rc == 0, f"dryrun-zero: the ZeRO-1 count's exit {rc}; tail "
+           f"{lines[-8:]}")
+    arch, shape = ZERO_CELL
+    build = SRC.parent / "build"
+    arts, counts = {}, {}
+    for label, path in (
+            ("plain", build / "dryrun_torch" / f"{arch}__{shape}__"
+             "singlepod.json"),
+            ("zero", build / "perf_torch" / f"{arch}__{shape}__zero.json")):
+        art = json.loads(path.read_text())
+        _check(art.get("zero", False) == (label == "zero"),
+               f"dryrun-zero: {path.name} zero={art.get('zero')}")
+        arts[label], counts[label] = art, art["full"]
+    gib = 2 ** 30
+    mem = {k: v["memory"] for k, v in counts.items()}
+    held = {k: (m["argument_bytes"] + m["temp_bytes"]) / gib
+            for k, m in mem.items()}
+    _check(mem["zero"]["argument_bytes"] < mem["plain"]["argument_bytes"]
+           and counts["zero"]["collectives"]["total_bytes"]
+           > counts["plain"]["collectives"]["total_bytes"],
+           f"dryrun-zero: the ZeRO-1 count {mem['zero']} is not below the "
+           f"plain {mem['plain']}, or its collective term not above")
+    print(f"dryrun-zero: {arch} {shape} one rank of 16x16, ZeRO-1 (Adam's "
+          f"moments split over the 16 data ranks): argument + temp "
+          f"{held['zero']:.3f} GiB (argument "
+          f"{mem['zero']['argument_bytes'] / gib:.3f}, temp "
+          f"{mem['zero']['temp_bytes'] / gib:.3f}); plain "
+          f"{held['plain']:.3f} GiB (argument "
+          f"{mem['plain']['argument_bytes'] / gib:.3f}, temp "
+          f"{mem['plain']['temp_bytes'] / gib:.3f}); collective bytes a "
+          f"rank {counts['zero']['collectives']['total_bytes']:.0f} (plain "
+          f"{counts['plain']['collectives']['total_bytes']:.0f})",
+          flush=True)
+    roof = {k: v["roofline"] for k, v in arts.items()}
+    print("dryrun-zero: roofline s, ZeRO-1 (plain): " + ", ".join(
+        f"{key} {roof['zero'][key]:.4f} ({roof['plain'][key]:.4f})"
+        for key in ("compute_s", "memory_s", "collective_s",
+                    "step_time_s")), flush=True)
+    rows = roofline_table.load_cells(str(build / "dryrun_torch"))
+    table = roofline_table.fmt_table(rows)
+    n = len(table.splitlines()) - 2
+    _check(n == sum("roofline" in d for d in rows) == 32,
+           f"dryrun-zero: the roofline table has {n} rows")
+    for ln in table.splitlines():
+        print(f"roofline: {ln}", flush=True)
 
 
 def parent_ce(torch, ce, common, old):
@@ -5009,6 +5393,7 @@ def main() -> int:
         phase_only = "train-parallel"
         transport = sys.argv[4] if sys.argv[3:] else transport
     elif sys.argv[1:] in (["--phase", "serve-parallel-families"],
+                          ["--phase", "serve-parallel"],
                           ["--phase", "train-long"]):
         phase_only = sys.argv[2]
     elif sys.argv[1:2] == ["--parent"]:
@@ -5018,8 +5403,8 @@ def main() -> int:
     elif sys.argv[1:]:
         print("usage: chip_smoke.py [--parent DIR | --phase "
               "train-parallel [--transport gloo|nccl] | --phase "
-              "serve-parallel-families | --phase train-long]",
-              file=sys.stderr)
+              "serve-parallel | --phase serve-parallel-families | --phase "
+              "train-long]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5066,6 +5451,11 @@ def main() -> int:
     if phase_only == "train-long":
         counts, errs = phase_train_long(torch, common, [
             be.NAME + ".hash", csr.BIN, csr.NAME, ce.FWD, ce.BWD])
+        _wall(phase_only, t_start)
+        print(json.dumps({"launches": counts, "max_abs_err": errs}))
+        return 0
+    if phase_only == "serve-parallel":
+        counts, errs = phase_serve_parallel(torch, common)
         _wall(phase_only, t_start)
         print(json.dumps({"launches": counts, "max_abs_err": errs}))
         return 0

@@ -9,8 +9,12 @@ rows of ``bench_serving`` (the utilization, or for a ``.speedup`` row the
 continuous/static decode-step speedup, as derived; the run's wall in
 us_per_call), held to ``BENCH_serving.json`` but never written to it
 (the reference refreshes the file; a difference from it is printed to
-stderr).  The reference's ``kernels`` and ``roofline`` parts are not
-ported (ROADMAP A14b).
+stderr); and the ``roofline`` part, a row for each dry-run artifact with
+a roofline (``roofline_table``, reading ``experiments/dryrun_torch/``,
+which ``python -m repro_torch.launch.dryrun --all`` writes): the dominant
+term's seconds as us_per_call and MODEL/counted FLOPs as derived.  The
+reference's ``kernels`` part is not ported (ROADMAP A14b: its regression
+gate waits for the benchmark PR).
 
 Full-budget run: PYTHONHASHSEED=0 PYTHONPATH=src python -m repro_torch.benchmarks.run
 Quick run:       PYTHONHASHSEED=0 PYTHONPATH=src python -m repro_torch.benchmarks.run --quick
@@ -21,8 +25,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-PARTS = ("fig1", "fig2", "fig3", "table3", "table5", "serving")
-UNPORTED = ("kernels", "roofline")
+PARTS = ("fig1", "fig2", "fig3", "table3", "table5", "serving",
+         "roofline")
+UNPORTED = ("kernels",)
 
 
 def fig1_rows(tasks, steps, scale, device):
@@ -77,6 +82,15 @@ def serving_rows(device):
               file=sys.stderr)
 
 
+def roofline_rows():
+    from repro_torch.benchmarks import roofline_table as rt
+    for row in rt.run():
+        yield (f"roofline.{row['arch']}.{row['shape']}",
+               1e6 * max(row["compute_s"], row["memory_s"],
+                         row["collective_s"]),
+               row["model_flops_ratio"])
+
+
 def csv_line(name, us, derived) -> str:
     return f"{name},{us:.2f},{derived:.4f}"
 
@@ -96,8 +110,8 @@ def main(argv=None) -> None:
     if only is not None and not only <= set(PARTS):
         bad = sorted(only - set(PARTS))
         ap.error(f"unknown or unported parts {bad}: the port has "
-                 f"{','.join(PARTS)} ({','.join(UNPORTED)} are not ported, "
-                 f"ROADMAP A14b)")
+                 f"{','.join(PARTS)} ({','.join(UNPORTED)} is not ported: "
+                 f"ROADMAP A14b, its gate waits for the benchmark PR)")
     from repro_torch.kernels.common import resolve_device
     device = resolve_device(args.device)
 
@@ -124,6 +138,8 @@ def main(argv=None) -> None:
             steps, scale, device))
     if want("serving"):
         parts.append(serving_rows(device))
+    if want("roofline"):
+        parts.append(roofline_rows())
     for rows in parts:
         for row in rows:
             print(csv_line(*row), flush=True)

@@ -136,7 +136,9 @@ def cached_quantized_table(spec: BloomSpec, table: torch.Tensor,
     reload) or updated in place (the port's train step writes into its
     params) miss and requantize, so the cache never serves stale values.
     A table without a version counter (an inference-mode tensor) is
-    quantized on every call."""
+    quantized on every call.  Under a model axis each rank process holds
+    one entry, its own shard of the table (``ops.bloom_embed``'s
+    ``lo``)."""
     td = quant.resolve_table_dtype(table_dtype)
     key = (spec, td, str(table.device))
     version = None if table.is_inference() else table._version

@@ -48,10 +48,12 @@ the reference's custom VJP does.
   of the full (m, D) table, the indices are the full table's (hashed from
   the spec as ever), and an index outside the range adds 0.0, so each
   rank's output is its part of the sum (the caller all-reduces the
-  parts).  The token entry takes it (``lo``, f32 or bf16 tables read as
-  they are; counted as ``token_variant_name(spec) + ".range"``), and so do
-  both backwards (the CSR binning, ``bloom_csr.bin.range``, and the dense
-  sweep, ``bloom_embed_bwd.range``), which sum into the shard's rows only.
+  parts).  The token entry takes it (``lo``, a table read as it is or a
+  stored one; counted as ``token_variant_name(spec, storage) +
+  ".range"``: ``bloom_embed.hash.range``, ``bloom_embed.int8.hash.range``
+  and so on), and so do both backwards (the CSR binning,
+  ``bloom_csr.bin.range``, and the dense sweep, ``bloom_embed_bwd.range``),
+  which sum into the shard's rows only.
   ``lo = 0`` over the whole table is the unranged function, bit for bit.
 * ``bloom_embed`` is the differentiable entry: an ``autograd.Function``
   over (T, k) indices, or with ``spec`` over (T,) token ids, whose forward
@@ -346,14 +348,19 @@ def bloom_embed_tokens_quantized_cuda(qtable: torch.Tensor,
                                       scales: Optional[torch.Tensor],
                                       tokens: torch.Tensor, spec: BloomSpec,
                                       out_dtype: torch.dtype = torch.float32,
-                                      want_idx: bool = False):
+                                      want_idx: bool = False,
+                                      lo: Optional[int] = None):
     """The token entry over a stored table (as
     ``bloom_embed_quantized_cuda``), counted as
-    ``token_variant_name(spec, qtable.dtype)``.  Returns (out, indices or
-    None) as ``bloom_embed_tokens_cuda`` does."""
+    ``token_variant_name(spec, qtable.dtype)``.  With ``lo`` the stored
+    table (and its scales) holds the rows [lo, lo + rows) of the spec's m,
+    counted with ``.range`` appended.  Returns (out, indices or None) as
+    ``bloom_embed_tokens_cuda`` does."""
     _check_storage(qtable, scales, out_dtype)
-    return _launch(qtable, scales, tokens, out_dtype,
-                   token_variant_name(spec, qtable.dtype), spec, want_idx)
+    name = (token_variant_name(spec, qtable.dtype)
+            + ("" if lo is None else RANGE))
+    return _launch(qtable, scales, tokens, out_dtype, name, spec, want_idx,
+                   lo=lo)
 
 
 def bloom_embed_fwd_quantized(qtable: torch.Tensor,
@@ -374,15 +381,17 @@ def bloom_embed_fwd_quantized(qtable: torch.Tensor,
 def bloom_embed_tokens_fwd_quantized(qtable: torch.Tensor,
                                      scales: Optional[torch.Tensor],
                                      tokens: torch.Tensor, spec: BloomSpec,
-                                     out_dtype: torch.dtype = torch.float32
+                                     out_dtype: torch.dtype = torch.float32,
+                                     lo: Optional[int] = None
                                      ) -> torch.Tensor:
     """``bloom_embed_fwd_quantized`` from (T,) token ids: the token kernel
-    for CUDA tensors, ``bloom_embed_tokens_plain`` for CPU tensors."""
+    for CUDA tensors, ``bloom_embed_tokens_plain`` for CPU tensors; with
+    ``lo`` over one rank's stored rows [lo, lo + rows) of the spec's m."""
     if common.resolve_impl(qtable, scales, tokens) == "kernel":
         return bloom_embed_tokens_quantized_cuda(qtable, scales, tokens,
-                                                 spec, out_dtype)[0]
+                                                 spec, out_dtype, lo=lo)[0]
     return bloom_embed_tokens_plain(qtable, scales, tokens, spec,
-                                    out_dtype)[0]
+                                    out_dtype, lo)[0]
 
 
 def default_out_dtype(table_dtype: Optional[str],
@@ -490,11 +499,6 @@ def _forward(table, ids, spec, table_dtype, out_dtype, want_idx, lo=None):
     """The forward of ``bloom_embed``: (out, the indices its backward
     reads, or None for the token entry without ``want_idx``)."""
     kernel = common.resolve_impl(table, ids) == "kernel"
-    if lo is not None:
-        if not kernel:
-            return _tokens_plain(table, None, ids, spec, table.dtype, False,
-                                 want_idx, lo)
-        return bloom_embed_tokens_cuda(table, ids, spec, want_idx, lo)
     if table_dtype is None:
         q, scales, od = table, None, table.dtype
     else:
@@ -508,11 +512,11 @@ def _forward(table, ids, spec, table_dtype, out_dtype, want_idx, lo=None):
         return bloom_embed_quantized_cuda(q, scales, ids, od), ids
     if not kernel:
         return _tokens_plain(q, scales, ids, spec, od,
-                             table_dtype is not None, want_idx)
+                             table_dtype is not None, want_idx, lo)
     if table_dtype is None:
-        return bloom_embed_tokens_cuda(q, ids, spec, want_idx)
+        return bloom_embed_tokens_cuda(q, ids, spec, want_idx, lo)
     return bloom_embed_tokens_quantized_cuda(q, scales, ids, spec, od,
-                                             want_idx)
+                                             want_idx, lo)
 
 
 class _BloomEmbed(torch.autograd.Function):
@@ -555,17 +559,18 @@ def bloom_embed(table: torch.Tensor, idx: torch.Tensor,
     ``table_dtype`` (core/quant.py) quantizes the table in the graph and
     gathers the stored rows (straight-through gradient into ``table``);
     ``out_dtype`` sets the output dtype (default ``default_out_dtype``).
-    ``lo`` (the token entry, a table read as it is) says the table holds
-    the rows [lo, lo + rows) of the spec's m: the output is this shard's
-    part of the sum, and the gradient lands on the shard's rows."""
+    ``lo`` (the token entry) says the table holds the rows [lo, lo +
+    rows) of the spec's m: the output is this shard's part of the sum
+    (with a ``table_dtype``, of the shard's rows quantized, which are the
+    whole table's rows quantized: core/quant.py quantizes row by row), and
+    the gradient lands on the shard's rows."""
     td = quant.resolve_table_dtype(table_dtype)
     common.resolve_bwd_impl(bwd_impl)
     if td is None and out_dtype not in (None, table.dtype):
         raise ValueError("out_dtype other than the table's needs a "
                          "table_dtype")
-    if lo is not None and (spec is None or td is not None):
-        raise ValueError("a row range needs the token entry (spec) and a "
-                         "table read as it is (no table_dtype)")
+    if lo is not None and spec is None:
+        raise ValueError("a row range needs the token entry (spec)")
     if not (torch.is_grad_enabled() and table.requires_grad):
         return _forward(table, idx, spec, td, out_dtype, False, lo)[0]
     return _BloomEmbed.apply(table, idx, spec, td, out_dtype, bwd_impl, lo)

@@ -73,9 +73,14 @@ def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
     reference.
 
     ``lo``: ``table`` holds the rows [lo, lo + rows) of the spec's m
-    (one rank's shard, read as it is): the output is this shard's part
-    of the sum (the embed kernel's row range, ``bloom_embed.hash.range``
-    and its kin), its gradient the shard's rows."""
+    (one rank's shard, read as it is or, with ``table_dtype``, quantized
+    row by row as the whole table would be): the output is this shard's
+    part of the sum (the embed kernel's row range,
+    ``bloom_embed.hash.range``, ``bloom_embed.int8.hash.range`` and their
+    kin), its gradient the shard's rows.  Forward-only, the shard's
+    quantized copy comes from ``cached_quantized_table`` like a whole
+    table's: its key (spec, table_dtype, device) is one entry per rank
+    process, each rank holding its own shard."""
     B, S = tokens.shape
     flat = tokens.reshape(-1).contiguous()
     td = quant.resolve_table_dtype(table_dtype)
@@ -84,7 +89,7 @@ def bloom_embed(table: torch.Tensor, tokens: torch.Tensor,
         qtable, scales = cached_quantized_table(spec, table, td)
         out = bloom_embed_tokens_fwd_quantized(
             qtable, scales, flat, spec,
-            torch.float32 if out_dtype is None else out_dtype)
+            torch.float32 if out_dtype is None else out_dtype, lo)
     else:
         out = _embed(table, flat, table_dtype=td, out_dtype=out_dtype,
                      bwd_impl=bwd_impl, spec=spec, lo=lo)

@@ -34,7 +34,8 @@ no CUDA ``all_gather``, so the gloo transport stages that one call
 through the host: a copy to the CPU, the gather there, a copy back.  The
 transport counts which branch each collective took (``branches``:
 ("all_reduce", "device") and so on), and with ``timed`` it synchronises
-the device around each call and adds up the seconds spent in them.
+the device around each call and adds up the seconds spent in them by
+collective (``op_seconds``; ``seconds`` is their sum).
 Only ``all_reduce``, ``all_gather`` and ``broadcast`` are used: gloo has
 no ``reduce_scatter``.
 
@@ -64,7 +65,8 @@ TIMEOUT = datetime.timedelta(seconds=300)
 
 class Transport:
     """The named backend of a world's collectives, with the branch each
-    call took and (``timed``) the seconds spent in them."""
+    call took and (``timed``) the seconds spent in them by collective
+    (``op_seconds``), in all (``seconds``)."""
 
     def __init__(self, name: str):
         if name not in TRANSPORTS:
@@ -73,7 +75,12 @@ class Transport:
         self.name = name
         self.branches: collections.Counter = collections.Counter()
         self.timed = False
-        self.seconds = 0.0
+        self.op_seconds: collections.Counter = collections.Counter()
+
+    @property
+    def seconds(self) -> float:
+        """The seconds spent in every timed collective together."""
+        return sum(self.op_seconds.values())
 
     def branch(self, op: str, t: torch.Tensor) -> str:
         """``device`` (the tensor's own buffer), ``host`` (gloo's staged
@@ -95,7 +102,7 @@ class Transport:
         out = fn(b)
         if t.is_cuda:
             torch.cuda.synchronize()
-        self.seconds += time.perf_counter() - t0
+        self.op_seconds[op] += time.perf_counter() - t0
         return out
 
     def all_reduce(self, t: torch.Tensor, group) -> torch.Tensor:

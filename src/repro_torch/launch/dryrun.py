@@ -40,8 +40,11 @@ Every family runs: the decode step reads its caches by their specs
 (``sharding.decode_dist``), a cache whose sequence splits (whisper's 12
 heads on a 16-way axis, long_500k's B = 1 over the batch axes) slice by
 slice, its softmax partials merged by one all-gather that the counting
-transport records.  ``zero=True`` (ZeRO-1) raises: its optimizer specs
-exist, their execution does not (ROADMAP A13b item 5).  The step runs
+transport records.  ``zero=True`` (ZeRO-1) counts the train step of
+``steps.make_train_step(zero=True)``: each Adam moment at this rank's
+slice over the batch axes in ``argument_bytes``, the update on the
+slices, and each updated slice's all-gather over the batch axes in the
+collective term.  The step runs
 the config's execution knobs as the card would: chunked attention and
 ``remat`` (a training step counts each super-block's recompute in the
 backward, as the reference's HLO does; ``remat="dots"``'s
@@ -246,16 +249,18 @@ def _meta_model(cfg, dist, serving: bool):
     return model.requires_grad_(not serving)
 
 
-def step_variant(cfg, shape, dist, tc: TrainConfig):
+def step_variant(cfg, shape, dist, tc: TrainConfig, zero: bool = False):
     """(run, arguments): a thunk running one rank's step of ``shape``'s
-    kind, and the step's arguments (this rank's shards)."""
+    kind, and the step's arguments (this rank's shards; with ``zero``,
+    ZeRO-1's moments)."""
     batch = configs.input_specs(cfg, shape)
     local = sharding.local_batch(batch, dist)
     if shape.kind == "train":
         model = _meta_model(cfg, dist, serving=False)
-        step, optimizer = steps.make_train_step(cfg, tc, dist)
+        step, optimizer = steps.make_train_step(cfg, tc, dist, zero)
         params = {n: p.detach() for n, p in model.named_parameters()}
-        opt_state = optimizer.init(params)
+        opt_state = steps.init_opt_state(cfg, optimizer, model, dist,
+                                         zero)[0]
         return (lambda: step(model, opt_state, batch),
                 (params, opt_state, local))
     model = _meta_model(cfg, dist, serving=True)
@@ -313,9 +318,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              mesh_shape=None, tag: str = "", zero: bool = False,
              optimizer: str = "adamw"):
     """Count one cell for one rank (the module's docstring) and write its
-    artifact (the reference's keys) under ``out_dir``.  mesh_shape: an
-    optional (data, model) override, e.g. (32, 8) for a model axis of 8
-    (256 ranks either way)."""
+    artifact (the reference's keys, and ``zero``) under ``out_dir``.
+    mesh_shape: an optional (data, model) override, e.g. (32, 8) for a
+    model axis of 8 (256 ranks either way).  ``zero``: ZeRO-1 (the
+    module's docstring)."""
     overrides = dict(overrides or {})
     xla_only = {k: overrides.pop(k) for k in list(overrides)
                 if k in XLA_ONLY_OVERRIDES}
@@ -324,11 +330,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     ok, reason = configs.cell_is_runnable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "skipped": reason}
-    if zero:
-        raise NotImplementedError(
-            "ZeRO-1: the optimizer-state specs exist (sharding."
-            "opt_state_pspecs), their execution waits for ROADMAP A13b "
-            "item 5")
     mesh = _mesh(multi_pod, mesh_shape)
     dist = sharding.DistContext(mesh)
     if cfg.moe is not None and dist.n_model > 1 and cfg.moe_impl == "dense":
@@ -348,10 +349,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
               "device": "H100 SXM (launch/roofline.py rates)",
               "moe_impl": cfg.moe_impl if cfg.moe is not None else None,
               "execution": {k: getattr(cfg, k) for k in EXECUTION_KNOBS},
-              "xla_only_overrides": xla_only}
+              "xla_only_overrides": xla_only, "zero": zero}
 
     def count(c):
-        return count_step(*step_variant(c, shape, dist, tc), mesh.transport)
+        return count_step(*step_variant(c, shape, dist, tc, zero),
+                          mesh.transport)
 
     result["full"] = count(cfg)
     if roofline_pass:

@@ -31,8 +31,13 @@ tensors back together through all-gathers.  On the port's one-device
 serving mesh a spec places no memory: it states which rows of a leaf each
 ``data`` shard (simulated host) owns (``slot_pool_pspecs``), and
 ``launch/steps.make_sharded_insert`` / ``make_compact_pool`` write only
-those rows.  ZeRO-1 (``opt_state_pspecs``'s ``zero_dist``) is specs only:
-its execution waits for ROADMAP A13b.
+those rows.  ZeRO-1 (``opt_state_pspecs``'s ``zero_dist``) shards each
+moment over the batch axes too, on a dim that its param's spec leaves
+whole (``zero_dim`` picks it); ``shard_tree`` / ``gather_tree`` carry
+such a moment like any other leaf, its batch axes one entry (a tuple on
+a mesh of several batch axes, gathered over the ``batch`` group), and
+``launch/steps.make_train_step(zero=True)`` runs the update on each
+rank's slice.
 """
 from __future__ import annotations
 
@@ -354,21 +359,17 @@ def opt_state_pspecs(opt_state, params_specs: Mapping[str, P],
     axes on its first still-unsharded dim that they divide.  The port's
     leaves have no stacked layer axis, so where the reference would pick
     that axis (n_super divisible by the batch axes) the port picks the
-    next; execution of ZeRO-1 waits for ROADMAP A13b."""
+    next.  Adafactor's factored moments and the counters stay as they
+    are, as the reference's specs say."""
     names = set(params_specs)
 
     def zero_extend(spec, shape):
         if zero_dist is None or params_shapes is None:
             return spec
-        n_data, axes = zero_dist.n_batch, zero_dist.batch_axes
-        parts = list(spec)
-        for i, (dim, ax) in enumerate(zip(shape, parts)):
-            if ax is None and dim % n_data == 0 and dim >= n_data:
-                parts[i] = axes if len(axes) > 1 else axes[0]
-                return P(*parts)
-        return spec
+        dim = zero_dim(spec, shape, zero_dist.n_batch)
+        return spec if dim is None else zero_spec(spec, dim, zero_dist)
 
-    def factored(spec):
+    def factor(spec):
         parts = tuple(spec)
         if len(parts) >= 2:
             nu = {"vr": P(*parts[:-1]), "vc": P(*(parts[:-2] + parts[-1:]))}
@@ -378,8 +379,8 @@ def opt_state_pspecs(opt_state, params_specs: Mapping[str, P],
 
     def map_state(st):
         if isinstance(st, Mapping) and set(st) == names and names:
-            if all(isinstance(v, Mapping) for v in st.values()):
-                return {n: factored(params_specs[n]) for n in st}
+            if factored(st, names):
+                return {n: factor(params_specs[n]) for n in st}
             return {n: zero_extend(params_specs[n],
                                    None if params_shapes is None
                                    else params_shapes[n]) for n in st}
@@ -390,6 +391,38 @@ def opt_state_pspecs(opt_state, params_specs: Mapping[str, P],
         return P()
 
     return map_state(opt_state)
+
+
+def zero_dim(spec: P, shape, n_batch: int) -> Optional[int]:
+    """ZeRO-1's split of one param's moments: the first dim that ``spec``
+    leaves whole and that ``n_batch`` shards divide, or None (the moments
+    keep the param's spec).  ``shape`` may be the full leaf's or a rank's
+    shard's: the two agree on every dim that the spec leaves whole."""
+    for i, (dim, ax) in enumerate(zip(shape, spec)):
+        if ax is None and dim % n_batch == 0 and dim >= n_batch:
+            return i
+    return None
+
+
+def zero_spec(spec: P, dim: int, dist: DistContext) -> P:
+    """``spec`` with the batch axes on ``dim`` (one entry, a tuple on a
+    mesh of several batch axes)."""
+    axes = dist.batch_axes
+    parts = list(spec) + [None] * (dim + 1 - len(spec))
+    parts[dim] = axes if len(axes) > 1 else axes[0]
+    return P(*parts)
+
+
+def factored(opt_state, names) -> bool:
+    """Whether ``opt_state`` holds per-param dicts keyed by the param
+    ``names`` (adafactor's factored moments), which ZeRO-1 leaves whole."""
+    if isinstance(opt_state, Mapping):
+        if names and set(opt_state) == set(names):
+            return all(isinstance(v, Mapping) for v in opt_state.values())
+        return any(factored(v, names) for v in opt_state.values())
+    if isinstance(opt_state, (tuple, list)):
+        return any(factored(v, names) for v in opt_state)
+    return False
 
 
 # --------------------------------------------------------------------------

@@ -34,7 +34,13 @@ gradients over the batch axes (``collectives.data_mean``; with
 ``grad_compression="bf16"`` rounded to bf16 before the all-reduce), then
 clips by the global norm over the shards (a model-sharded leaf's squares
 summed over ``model``, a replicated one counted once) and updates each
-rank's shards, the moments mirroring them.  The whole-batch decode step
+rank's shards, the moments mirroring them.  With ``zero=True`` (ZeRO-1)
+each moment holds only this rank's slice over the batch axes
+(``init_opt_state``): the clip's norm is taken on the whole gradients as
+before, the rest of the optimizer runs on the slices of the gradients
+and master params, and each updated slice is all-gathered over the batch
+axes into its param, so the params are the plain step's bit for bit.
+The whole-batch decode step
 takes the context too, carrying the caches' specs
 (``sharding.decode_dist``): the global tokens, this rank's cache shards
 (``sharding.cache_pspecs``: its batch rows where the batch divides the
@@ -50,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Dict
 
 import torch
 
@@ -128,7 +135,8 @@ def value_and_grad(model: torch.nn.Module, cfg: ModelConfig, batch,
             dict(zip(params, grads)))
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, dist=None):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, dist=None,
+                    zero: bool = False):
     """(step, optimizer): ``step(model, opt_state, batch) -> (opt_state,
     metrics)`` takes the loss and gradients (``value_and_grad``), runs the
     optimizer and writes ``(p + u).to(p.dtype)`` into the model's master
@@ -138,15 +146,22 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, dist=None):
 
     Under ``dist`` (the module's docstring) ``batch`` is the global batch
     and the model and optimizer state hold this rank's shards; the
-    metrics are averaged over the batch axes, the same on every rank."""
-    split = {}    # the model-sharded param names, from the first step
+    metrics are averaged over the batch axes, the same on every rank.
+    ``zero`` (ZeRO-1, under ``dist``): the optimizer state is
+    ``init_opt_state(..., zero=True)``'s, each moment this rank's slice
+    over the batch axes, and the update runs on the slices (the module's
+    docstring)."""
+    if zero and dist is None:
+        raise ValueError("ZeRO-1 shards the moments over a mesh's batch "
+                         "axes: pass dist")
+    # from the first step: the model-sharded param names and ZeRO-1's
+    # slice specs; on each step, the clip's norm
+    split = {}
     if dist is None:
         optimizer = trainer_lib.make_optimizer(tc)
     else:
         optimizer = trainer_lib.make_optimizer(
-            tc, norm_fn=lambda g: opt_lib.global_norm(
-                g, split["names"],
-                lambda t: collectives.all_reduce_sum(t, dist)))
+            tc, norm_fn=lambda g: split["norm"])
 
     def step(model, opt_state, batch):
         if dist is not None:
@@ -159,15 +174,75 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, dist=None):
                 split["names"] = (sharding.model_sharded(
                     sharding.param_pspecs(cfg, model, dist))
                     if dist.n_model > 1 else set())
+                split["zero"] = (zero_specs(cfg, optimizer, model, dist)
+                                 if zero else {})
         loss, metrics, grads = value_and_grad(model, cfg, batch, dist)
+        zspecs = {}
         if dist is not None:
             grads = collectives.data_mean(grads, dist, tc.grad_compression)
             loss, metrics = _batch_mean((loss, metrics), dist)
+            if tc.grad_clip_norm and tc.grad_clip_norm > 0:
+                # on the whole gradients, before ZeRO-1 slices them
+                split["norm"] = opt_lib.global_norm(
+                    grads, split["names"],
+                    lambda t: collectives.all_reduce_sum(t, dist))
+            zspecs = split["zero"]
+        params = dict(model.named_parameters())
+        mine = zero_slices(params, zspecs, dist)
         opt_state = trainer_lib.apply_gradients(
-            dict(model.named_parameters()), grads, optimizer, opt_state)
+            mine, zero_slices(grads, zspecs, dist), optimizer, opt_state)
+        with torch.no_grad():
+            for n, spec in zspecs.items():
+                params[n].copy_(sharding.gather_leaf(mine[n], spec,
+                                                     dist.mesh))
         return opt_state, {"loss": loss, **metrics}
 
     return step, optimizer
+
+
+def zero_specs(cfg: ModelConfig, optimizer, model: torch.nn.Module,
+               dist) -> Dict[str, sharding.P]:
+    """ZeRO-1's split of this rank's model shards: name -> the spec of
+    the slice over the batch axes (``sharding.zero_dim``, ``zero_spec``
+    on the param's own spec) that its moments hold, for every param whose
+    moments split.  None split where the batch axes are 1, nor under
+    adafactor, whose factored moments stay whole
+    (``sharding.factored``)."""
+    local = {n: p.detach() for n, p in model.named_parameters()}
+    meta = optimizer.init({n: torch.empty_like(t, device="meta")
+                           for n, t in local.items()})
+    if dist.n_batch == 1 or sharding.factored(meta, set(local)):
+        return {}
+    specs = sharding.param_pspecs(cfg, model, dist)
+    dims = {n: sharding.zero_dim(specs[n], t.shape, dist.n_batch)
+            for n, t in local.items()}
+    return {n: sharding.zero_spec(sharding.P(), d, dist) for n, d in dims.items()
+            if d is not None}
+
+
+def init_opt_state(cfg: ModelConfig, optimizer, model: torch.nn.Module,
+                   dist, zero: bool = False):
+    """(this rank's fresh optimizer state, its specs) for the model's
+    shards; with ``zero`` (ZeRO-1) each split moment is made at its slice
+    over the batch axes (``zero_specs``), never whole."""
+    local = {n: p.detach() for n, p in model.named_parameters()}
+    zspecs = zero_specs(cfg, optimizer, model, dist) if zero else {}
+    state = optimizer.init(zero_slices(local, zspecs, dist))
+    # a rank's shapes serve as the full ones: ``zero_dim`` reads only the
+    # dims that a param's spec leaves whole
+    return state, sharding.opt_state_pspecs(
+        state, sharding.param_pspecs(cfg, model, dist),
+        zero_dist=dist if zspecs else None,
+        params_shapes={n: tuple(t.shape) for n, t in local.items()})
+
+
+def zero_slices(tensors, zspecs, dist):
+    """name -> this rank's slice (``sharding.local_shard``, a copy) of
+    each tensor that ``zspecs`` (``zero_specs``) splits, the others as
+    they are."""
+    return {n: t if n not in zspecs else
+            sharding.local_shard(t.detach(), zspecs[n], dist.mesh)
+            for n, t in tensors.items()}
 
 
 def _batch_mean(tree, dist):

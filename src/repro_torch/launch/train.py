@@ -40,7 +40,11 @@ global batch.  A checkpoint is gathered to full tensors
 (``sharding.gather_state_dict``) and written by rank 0 in the reference's
 format, so a run resumes on any mesh.  ``--mesh 1x1`` (the default) is
 the one-process path.  The kernels are built once, before the ranks
-start.
+start.  ``run(..., zero=True)`` (ZeRO-1, as the reference's ``run_cell``
+takes it; no CLI flag, as in the reference) keeps on each rank only its
+slice of Adam's moments over the data axis
+(``steps.make_train_step(zero=True)``); its checkpoints gather the
+moments whole, so it resumes on any mesh, with or without ZeRO-1.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
@@ -99,11 +103,12 @@ def run(arch: str, steps: int = 100, batch: int = 8, seq: int = 64,
         bwd_impl: str | None = None, table_dtype: str | None = None,
         failpoints: str | None = None, device=None, mesh: str = "1x1",
         transport: str = "gloo", moe_impl: str | None = None,
-        timeout: float = 1800.0):
+        timeout: float = 1800.0, zero: bool = False):
     """Train; returns (model, history), history one {"step", "loss",
     "step_s"} per logged step.  With ``mesh`` other than "1x1" the run
     goes over D * M ranks (the module's docstring), which must end within
-    ``timeout`` seconds, and returns (None, rank 0's history)."""
+    ``timeout`` seconds, and returns (None, rank 0's history); ``zero``
+    (ZeRO-1) shards the moments over the data axis."""
     kw = dict(arch=arch, steps=steps, batch=batch, seq=seq,
               ckpt_dir=ckpt_dir, full=full, bloom=bloom,
               log_every=log_every, microbatch=microbatch,
@@ -113,7 +118,11 @@ def run(arch: str, steps: int = 100, batch: int = 8, seq: int = 64,
               failpoints=failpoints, moe_impl=moe_impl)
     shape = parse_mesh(mesh)
     if shape == (1, 1):
+        if zero:
+            raise ValueError("ZeRO-1 shards the moments over the data "
+                             "axis of a mesh: pass mesh DxM")
         return _train(device=resolve_device(device), **kw)
+    kw["zero"] = zero
     return None, spawn(_train_rank, shape, transport, device, (kw,),
                        timeout)[0]
 
@@ -136,7 +145,7 @@ def _config(arch, full, bloom, bwd_impl, table_dtype, moe_impl):
 def _train(arch, steps, batch, seq, ckpt_dir, full, bloom, log_every,
            microbatch, grad_compression, seed, fault_at, learning_rate,
            bwd_impl, table_dtype, failpoints, moe_impl, device,
-           dist_ctx=None):
+           dist_ctx=None, zero=False):
     if device.type == "cuda":
         kernels_common.build()     # nvcc at first use: not in the run's wall
     cfg = _config(arch, full, bloom, bwd_impl, table_dtype, moe_impl)
@@ -163,7 +172,7 @@ def _train(arch, steps, batch, seq, ckpt_dir, full, bloom, log_every,
                 dtype=getattr(torch, cfg.dtype), device=device)
         return b
 
-    step_fn, optimizer = steps_lib.make_train_step(cfg, tc, dist_ctx)
+    step_fn, optimizer = steps_lib.make_train_step(cfg, tc, dist_ctx, zero)
     ckpt = Checkpointer(ckpt_dir, keep=tc.keep_checkpoints,
                         async_write=True) if ckpt_dir and lead else None
     if dist_ctx is None:
@@ -184,7 +193,7 @@ def _train(arch, steps, batch, seq, ckpt_dir, full, bloom, log_every,
         specs = opt_specs = None
     else:
         model, opt_state, start_step, extra, specs, opt_specs = \
-            parallel_state(cfg, optimizer, seed, ckpt, dist_ctx)
+            parallel_state(cfg, optimizer, seed, ckpt, dist_ctx, zero=zero)
     if start_step:
         if "data" in extra:
             it.restore(extra["data"])
@@ -239,14 +248,15 @@ def _train(arch, steps, batch, seq, ckpt_dir, full, bloom, log_every,
 
 
 def parallel_state(cfg, optimizer, seed: int, ckpt, dist_ctx,
-                   full_params=None):
+                   full_params=None, zero: bool = False):
     """(model, opt_state, start_step, extra, param specs, opt-state
     specs) of one rank: rank 0 draws the full f32 params from ``seed``
     (or takes ``full_params``, name -> tensor) or restores the newest
     checkpoint of ``ckpt`` (params, optimizer state, step and extra),
     broadcasts them, and every rank keeps its shards (``param_pspecs``,
-    ``opt_state_pspecs``).  Without an ``optimizer`` (inference) the
-    state and its specs are None."""
+    ``opt_state_pspecs``; with ``zero``, ZeRO-1's, each moment also
+    split over the data axis: ``steps.init_opt_state``).  Without an
+    ``optimizer`` (inference) the state and its specs are None."""
     mesh = dist_ctx.mesh
     device, lead = mesh.device, mesh.rank == 0
     cls = steps_lib.model_class_for(cfg)
@@ -282,9 +292,8 @@ def parallel_state(cfg, optimizer, seed: int, ckpt, dist_ctx,
     sharding.shard_module(model, specs, mesh)
     if optimizer is None:
         return model, None, start_step, extra, specs, None
-    local = {n: p.detach() for n, p in model.named_parameters()}
-    opt_state = optimizer.init(local)
-    opt_specs = sharding.opt_state_pspecs(opt_state, specs)
+    opt_state, opt_specs = steps_lib.init_opt_state(cfg, optimizer, model,
+                                                    dist_ctx, zero)
     if has_opt:
         opt_state = sharding.shard_tree(opt_full, opt_specs, mesh)
     return model, opt_state, start_step, extra, specs, opt_specs
@@ -309,19 +318,20 @@ def _broadcast_tree(tree, mesh):
         mesh.transport.broadcast(tree, src=0)
 
 
-def train_job(mesh, cfg, tc, params, batches, first_grads=False):
+def train_job(mesh, cfg, tc, params, batches, first_grads=False,
+              zero=False):
     """One rank of a parallel run from given weights: ``params`` (name ->
     full f32 tensor or array, read on rank 0) trained on the global
     ``batches`` (a list of {name: array}) by ``make_train_step(cfg, tc,
-    dist)``.  Returns {"losses": one per step, the same on every rank},
-    and with ``first_grads`` on rank 0 {"grads": the first step's
+    dist, zero)``.  Returns {"losses": one per step, the same on every
+    rank}, and with ``first_grads`` on rank 0 {"grads": the first step's
     gradients, averaged over the batch axes and gathered whole (name ->
     numpy)}."""
     dist_ctx = sharding.DistContext(mesh)
-    step, optimizer = steps_lib.make_train_step(cfg, tc, dist_ctx)
+    step, optimizer = steps_lib.make_train_step(cfg, tc, dist_ctx, zero)
     full = {n: torch.as_tensor(v) for n, v in params.items()}
     model, opt_state, _, _, specs, _ = parallel_state(
-        cfg, optimizer, 0, None, dist_ctx, full)
+        cfg, optimizer, 0, None, dist_ctx, full, zero)
     out = {"losses": []}
     for i, b in enumerate(batches):
         batch = {k: torch.as_tensor(v).to(mesh.device) for k, v in b.items()}

@@ -23,7 +23,11 @@ rank its columns of the logits (the input's gradient summed over the
 axis); ``lm_loss`` runs the ranged Bloom CE (``ops.bloom_ce_sharded``):
 each rank's local lse and hit sum, the global lse from the gathered local
 ones, and the backward's dz exact on each shard.  A quantized
-``table_dtype`` under a model axis waits for ROADMAP A13b item 4.
+``table_dtype`` shards the same way: each rank quantizes its own rows
+(row by row, so they are the whole table's quantized rows), gathers from
+them through the embed kernel's row range, and its part of the sum is
+all-reduced as the f32 part is; the gradient is straight-through into
+the rank's master rows.
 """
 from __future__ import annotations
 
@@ -91,28 +95,21 @@ def embed_tokens(embed: torch.Tensor, cfg: ModelConfig,
     spec = vocab_spec(cfg)
     td = resolved_table_dtype(cfg)
     lo = vocab_lo(embed.shape[0], cfg, dist)
-    if lo is not None:
-        if td is not None:
-            raise NotImplementedError(
-                f"table_dtype={td} under a model axis: the quantized "
-                "vocab-parallel embedding waits for ROADMAP A13b item 4")
-        if spec is None:
-            rel = tokens.long() - lo
-            inside = (rel >= 0) & (rel < embed.shape[0])
-            part = torch.where(inside[..., None],
-                               embed[rel.clamp(0, embed.shape[0] - 1)], 0.0)
-            part = part.to(dt)
-        else:
-            part = ops.bloom_embed(embed.to(dt), tokens, spec,
-                                   bwd_impl=cfg.bwd_impl, lo=lo)
-        return collectives.reduce_from_model(part, dist)
     if spec is None:
-        return embed[tokens.long()].to(dt)
+        if lo is None:
+            return embed[tokens.long()].to(dt)
+        rel = tokens.long() - lo
+        inside = (rel >= 0) & (rel < embed.shape[0])
+        part = torch.where(inside[..., None],
+                           embed[rel.clamp(0, embed.shape[0] - 1)], 0.0)
+        return collectives.reduce_from_model(part.to(dt), dist)
     if td is None:
-        return ops.bloom_embed(embed.to(dt), tokens, spec,
-                               bwd_impl=cfg.bwd_impl)
-    return ops.bloom_embed(embed, tokens, spec, bwd_impl=cfg.bwd_impl,
-                           table_dtype=td, out_dtype=dt)
+        out = ops.bloom_embed(embed.to(dt), tokens, spec,
+                              bwd_impl=cfg.bwd_impl, lo=lo)
+    else:
+        out = ops.bloom_embed(embed, tokens, spec, bwd_impl=cfg.bwd_impl,
+                              table_dtype=td, out_dtype=dt, lo=lo)
+    return out if lo is None else collectives.reduce_from_model(out, dist)
 
 
 def lm_logits(embed: torch.Tensor, head: Optional[torch.Tensor],

@@ -37,6 +37,7 @@ from repro.launch import steps as j_steps
 from repro.train import trainer as j_trainer
 from repro_torch import configs as tconfigs
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import quant as t_quant
 from repro_torch.core.bloom import BloomSpec
 from repro_torch.kernels import bloom_ce as t_ce
 from repro_torch.kernels import bloom_csr as t_csr
@@ -392,9 +393,11 @@ def test_global_norm_counts_each_leaf_once():
 
 
 def test_what_the_parallel_step_refuses():
-    """Under a model axis only a quantized table raises (naming A13b
-    item 4), and a decode step called without its caches' specs
-    (``sharding.decode_dist``).  Decode of a cache whose sequence splits
+    """Under a model axis only a decode step called without its caches'
+    specs (``sharding.decode_dist``) raises; a quantized table runs: one
+    rank's int8 part of the embedding is the ranged gather-sum of its own
+    quantized rows, bit for bit, all-reduced over ``model`` once (the
+    counting mesh records the call).  Decode of a cache whose sequence splits
     (over ``model``, where neither the heads nor the kv heads divide the
     axis; over the batch axes, where the batch does not divide them) and
     the mamba / hybrid / audio / vlm families' tensor parallelism build
@@ -412,9 +415,17 @@ def test_what_the_parallel_step_refuses():
         with pytest.raises(ValueError, match="decode_dist"):
             step(None, torch.zeros(2, 1, dtype=torch.long), [], 3)
     qcfg = dataclasses.replace(cfg, table_dtype="int8")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        t_io.embed_tokens(torch.zeros(cfg.m_vocab // 2, cfg.d_model), qcfg,
-                          torch.zeros(1, 2, dtype=torch.long), dist)
+    cdist = t_sharding.DistContext(t_mesh.counting_mesh((2, 2)))
+    g = torch.Generator().manual_seed(3)
+    shard = torch.randn(cfg.m_vocab // 2, cfg.d_model, generator=g)
+    tokens = torch.randint(0, cfg.vocab, (1, 5), generator=g)
+    got = t_io.embed_tokens(shard, qcfg, tokens, cdist)
+    q, scales = t_quant.quantize_table(shard, "int8")
+    want = t_embed.bloom_embed_tokens_plain(
+        q, scales, tokens.reshape(-1), t_io.vocab_spec(qcfg),
+        getattr(torch, cfg.dtype), 0)[0]
+    assert torch.equal(got.reshape(want.shape), want)
+    assert [c["kind"] for c in cdist.mesh.transport.calls] == ["all-reduce"]
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "olmoe-1b-7b", "mamba2-1.3b",

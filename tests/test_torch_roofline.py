@@ -107,3 +107,102 @@ def test_roofline_terms_are_the_reference_formula_at_h100_rates(
         monkeypatch.setattr(j_roofline, name, getattr(t_roofline, name))
     assert t_roofline.roofline_terms(*terms) == \
         j_roofline.roofline_terms(*terms)
+
+
+def _artifacts():
+    """Dry-run artifact dicts of the reference's keys, drawn from a seed:
+    single-pod cells with a roofline (each term dominant once), one
+    without (a ``--no-roofline`` count), and their dense and multi-pod
+    twins."""
+    rng = np.random.default_rng(30)
+    arts = []
+    for i, (arch, shape) in enumerate([("qwen3-4b", "train_4k"),
+                                       ("olmoe-1b-7b", "decode_32k"),
+                                       ("whisper-small", "prefill_32k"),
+                                       ("jamba-v0.1-52b", "long_500k")]):
+        terms = rng.uniform(1e-4, 2.0, size=3)
+        names = ("compute_s", "memory_s", "collective_s")
+        full = {"memory": {"argument_bytes": int(rng.integers(1, 2 ** 36)),
+                           "temp_bytes": int(rng.integers(1, 2 ** 37)),
+                           "output_bytes": 0, "code_bytes": 0},
+                "compile_s": float(rng.uniform(0, 90))}
+        d = {"arch": arch, "shape": shape, "mesh": "16x16", "full": full}
+        if i < 3:
+            r = dict(zip(names, terms))
+            r["dominant"] = names[i]
+            r["step_time_s"] = float(terms.max())
+            r["model_flops_ratio"] = float(rng.uniform(0.1, 1.2))
+            d["roofline"] = r
+        arts.append(d)
+    return arts
+
+
+def test_roofline_table_twin_equals_the_reference(tmp_path, monkeypatch):
+    """``benchmarks/roofline_table.py``'s twin: ``load_cells`` from the
+    artifacts' files (single-pod, dense and multi-pod tags apart),
+    ``fmt_table``, ``fmt_multipod`` and ``run`` equal the reference's on
+    the same artifacts, each package reading its own dry-run folder; one
+    row for each artifact that has a roofline."""
+    import json
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:        # the reference's root `benchmarks`
+        sys.path.insert(0, root)
+    from benchmarks import roofline_table as j_rt
+    from repro_torch.benchmarks import roofline_table as t_rt
+    arts = _artifacts()
+    for folder in ("experiments/dryrun", "experiments/dryrun_torch"):
+        out = tmp_path / folder
+        out.mkdir(parents=True)
+        for d in arts:
+            for tag, mesh in (("singlepod", "16x16"),
+                              ("multipod", "2x16x16")):
+                for suffix in ("", "__dense"):
+                    (out / f"{d['arch']}__{d['shape']}__{tag}{suffix}.json"
+                     ).write_text(json.dumps(dict(d, mesh=mesh)))
+    monkeypatch.chdir(tmp_path)
+    for kw in ({}, {"tag": "multipod"}, {"dense": True}):
+        assert t_rt.load_cells(**kw) == j_rt.load_cells(**kw)
+        assert len(t_rt.load_cells(**kw)) == len(arts)
+    rows = t_rt.load_cells()
+    table = t_rt.fmt_table(rows)
+    assert table == j_rt.fmt_table(rows)
+    assert len(table.splitlines()) == 2 + 3
+    multi = t_rt.load_cells(tag="multipod")
+    assert t_rt.fmt_multipod(multi) == j_rt.fmt_multipod(multi)
+    assert t_rt.run() == j_rt.run()
+    assert [r["arch"] for r in t_rt.run()] == [
+        "olmoe-1b-7b", "qwen3-4b", "whisper-small"]
+
+
+def test_run_py_prints_the_reference_roofline_rows(tmp_path, monkeypatch,
+                                                   capsys):
+    """``benchmarks/run.py --only roofline``: the reference's
+    ``roofline.<arch>.<shape>`` rows (the dominant term in us, MODEL/
+    counted FLOPs) from the port's dry-run folder, the same lines as the
+    reference's ``run.py`` prints from its own."""
+    import json
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmarks import run as j_run
+    from repro_torch.benchmarks import run as t_run
+    for folder in ("experiments/dryrun", "experiments/dryrun_torch"):
+        out = tmp_path / folder
+        out.mkdir(parents=True)
+        for d in _artifacts():
+            (out / f"{d['arch']}__{d['shape']}__singlepod.json").write_text(
+                json.dumps(d))
+    monkeypatch.chdir(tmp_path)
+    t_run.main(["--only", "roofline", "--device", "cpu"])
+    got = capsys.readouterr().out.strip().splitlines()
+    monkeypatch.setattr(sys, "argv", ["run.py", "--only", "roofline"])
+    j_run.main()
+    want = capsys.readouterr().out.strip().splitlines()
+    assert [ln.split(",")[0] for ln in got] == [
+        "roofline.olmoe-1b-7b.decode_32k", "roofline.qwen3-4b.train_4k",
+        "roofline.whisper-small.prefill_32k"]
+    assert got == [ln for ln in want if ln.startswith("roofline.")]
