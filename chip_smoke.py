@@ -11,6 +11,8 @@
         # build, then phase 17e alone (no result line)
     python3 chip_smoke.py --phase train-long
         # build, then phase 17a alone (no result line)
+    python3 chip_smoke.py --phase bench-kernels
+        # build, then phase 16b alone (no result line)
     python3 chip_smoke.py --parent DIR   # also time the parent commit's
         # csrc/bloom_ce.cu (copied into DIR) beside this tree's: phase 18
 
@@ -43,7 +45,7 @@ Phases, one line of numbers each:
                 0, d-1 and -1 among them; ops.bloom_embed launching it
                 once, with one kernel in its torch.profiler trace and no
                 host sync under set_sync_debug_mode("error") (nor
-                ops.bloom_ce or core.bloom.encode); then, at T = 8, 14 and
+                ops.bloom_ce or core.bloom.encode); then, at T = 8 and
                 520 per storage (and int8 with the precomputed matrix), in
                 turns, the token kernel, the index kernel, the embedding as
                 the main path called it before (spec.indices_for, then the
@@ -206,7 +208,7 @@ Phases, one line of numbers each:
                 equal to the Bloom evaluations, every score finite and in
                 range, each at least 3x the same metric on seeded uniform
                 random scores; then the kernel at every eval shape against
-                its plain version, timed, and at MSD's (B = 600, m = 480,
+                its plain version, and timed at MSD's (B = 600, m = 480,
                 d = 2,400, k = 4) beside the plain version and
                 F.embedding_bag, with its bound.  Re-executes itself with
                 PYTHONHASHSEED=0 when that is unset (the tasks' data seed
@@ -334,6 +336,15 @@ Phases, one line of numbers each:
                 against its plain version on the same tensors as it
                 happens (``held_to_plain``), with as many checks as
                 launches, kernel by kernel;
+ 16b. bench-kernels — the kernel bench twin's 69 rows
+                (repro_torch.benchmarks.bench_kernels: every kernel of the
+                suite at the reference's check shapes for the qwen3-4b,
+                qwen1.5-0.5b and pixtral-12b IO boundaries) on the card,
+                held to BENCH_kernels.json by its check_against (byte
+                models equal, errors within the reference's slack, its
+                gates), counts reset just before and read just after,
+                every launch held against its plain version as in
+                phase 16;
  17. examples — each example twin's main on the card at its smallest
                 documented budget: quickstart, train_recommender --quick,
                 cbe_cooccurrence, serve_bloom_lm (qwen3-4b smoke, gen 12)
@@ -822,7 +833,7 @@ def phase_embed_tokens(torch, be, common, quant):
     timed = [(td, lm) for td in (None, *quant.TABLE_DTYPES)]
     timed.append(("int8", specs["H k=4"]))
     for td, spec in timed:
-        for T in (8, 14, 520):
+        for T in (8, 520):
             if td is None:
                 q, sc, od = table, None, torch.bfloat16
             else:
@@ -2362,9 +2373,9 @@ def phase_paper(torch, bd, common):
     CADE at their full budget and widths, every CSV row printed; the
     Eq. 3 kernel route bit-equal to decode_scores at every evaluated
     shape; the bloom_decode launches equal to the Bloom evaluations; the
-    range and "learns" gates; then the kernel at each eval shape and, at
-    MSD's (B = 600, m = 480, d = 2,400, k = 4), the plain version and
-    F.embedding_bag.  Returns the bloom_decode launches of the runs."""
+    range and "learns" gates; then the kernel at each eval shape against
+    its plain version, and timed at MSD's (B = 600, m = 480, d = 2,400,
+    k = 4) beside the plain version and F.embedding_bag.  Returns the bloom_decode launches of the runs."""
     import torch.nn.functional as F
     from repro_torch.benchmarks import paper_phase as pp
     dev = torch.device("cuda")
@@ -2403,8 +2414,9 @@ def phase_paper(torch, bd, common):
           f"least margin over chance {min(margins):.2f}x (gate "
           f"{pp.GATE}x), wall {wall:.3f} s", flush=True)
 
-    # the kernel at every eval shape the runs gave it; at MSD's, its plain
-    # version and one library call beside it
+    # the kernel at every eval shape the runs gave it, held to its plain
+    # version; timed at MSD's, beside its plain version and one library
+    # call (PERF.md keeps the other shapes' times)
     gen = torch.Generator().manual_seed(11)
     shapes = sorted({(r.eval_shape[0], r.m, r.eval_shape[1], r.k)
                      for r in runs if r.evals})
@@ -2419,20 +2431,22 @@ def phase_paper(torch, bd, common):
         _check(torch.equal(got, bd.bloom_decode_plain(logp, H)),
                f"paper: bloom_decode B={B} m={m} d={d} k={k}: kernel != "
                "plain version")
-        fns = {"kernel": lambda: bd.bloom_decode_cuda(logp, H, packed=H16)}
-        others = {}
-        if (B, m, d, k) == (600, 480, 2400, 4):
-            Hl = H.long()
-            fns["library"] = lambda: F.embedding_bag(
-                Hl, logp.t().contiguous(), mode="sum").t()
-            others["plain"] = lambda: bd.bloom_decode_plain(logp, H)
-        times = _times_kernels(common, fns, others)
+        if (B, m, d, k) != (600, 480, 2400, 4):
+            continue
+        Hl = H.long()
+        times = _times_kernels(common, {
+            "kernel": lambda: bd.bloom_decode_cuda(logp, H, packed=H16),
+            "library": lambda: F.embedding_bag(
+                Hl, logp.t().contiguous(), mode="sum").t()},
+            {"plain": lambda: bd.bloom_decode_plain(logp, H)})
         nbytes = bd.min_bytes(B, m, d, k, index_bytes=2)
         bound_ms, by = _bound(nbytes, B * d * (k - 1))
         print(f"paper: bloom_decode eval shape B={B} m={m} d={d} k={k}: "
               f"device ms (graph) / back-to-back ms (events; plain: events "
               f"only): {_times_line(times)}, bound {bound_ms * 1e3:.3f} us "
               f"({by}, {nbytes} bytes)", flush=True)
+    print(f"paper: bloom_decode bit-identical to its plain version at the "
+          f"{len(shapes)} eval shapes {shapes}", flush=True)
     return evals
 
 
@@ -3733,6 +3747,36 @@ def phase_bench_serving(torch, common):
           f"launches {counts}, each held "
           f"against its plain version (max abs err {errs}), wall "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return counts, errs
+
+
+def phase_bench_kernels(torch, common):
+    """The kernel bench twin's 69 rows on the card (the reference's check
+    shapes, every kernel of the suite), held to BENCH_kernels.json by its
+    check_against; counts reset just before and read just after; every
+    launch held against its plain version (``held_to_plain``).  Returns
+    (launches by kernel, max abs error by kernel)."""
+    from repro_torch.benchmarks import bench_kernels as bk
+    dev = torch.device("cuda")
+    errs = {}
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    common.reset_launches()
+    with held_to_plain(torch, common, "bench-kernels", errs):
+        rows = bk.run(dev)
+        torch.cuda.synchronize()
+    counts = dict(common.LAUNCHES)
+    for r in rows:
+        print(f"bench-kernels: {json.dumps(r, sort_keys=True)}", flush=True)
+    failures = bk.check_against(rows)
+    _check(not failures, "bench-kernels: " + "; ".join(failures))
+    _check(len(rows) == 69, f"bench-kernels: {len(rows)} rows")
+    print(f"bench-kernels: check ok: {len(rows)} rows vs "
+          f"{bk.JSON_PATH.name} on {torch.cuda.get_device_name(0)}, "
+          f"largest max_err {max(r['max_err'] for r in rows):.3g}, "
+          f"launches {counts}, each held against its plain version (max "
+          f"abs err {errs}), wall {time.perf_counter() - t0:.3f} s",
+          flush=True)
     return counts, errs
 
 
@@ -5394,7 +5438,8 @@ def main() -> int:
         transport = sys.argv[4] if sys.argv[3:] else transport
     elif sys.argv[1:] in (["--phase", "serve-parallel-families"],
                           ["--phase", "serve-parallel"],
-                          ["--phase", "train-long"]):
+                          ["--phase", "train-long"],
+                          ["--phase", "bench-kernels"]):
         phase_only = sys.argv[2]
     elif sys.argv[1:2] == ["--parent"]:
         # a directory holding the parent commit's csrc/bloom_ce.cu, to
@@ -5404,7 +5449,7 @@ def main() -> int:
         print("usage: chip_smoke.py [--parent DIR | --phase "
               "train-parallel [--transport gloo|nccl] | --phase "
               "serve-parallel | --phase serve-parallel-families | --phase "
-              "train-long]", file=sys.stderr)
+              "train-long | --phase bench-kernels]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5451,6 +5496,11 @@ def main() -> int:
     if phase_only == "train-long":
         counts, errs = phase_train_long(torch, common, [
             be.NAME + ".hash", csr.BIN, csr.NAME, ce.FWD, ce.BWD])
+        _wall(phase_only, t_start)
+        print(json.dumps({"launches": counts, "max_abs_err": errs}))
+        return 0
+    if phase_only == "bench-kernels":
+        counts, errs = phase_bench_kernels(torch, common)
         _wall(phase_only, t_start)
         print(json.dumps({"launches": counts, "max_abs_err": errs}))
         return 0
@@ -5546,6 +5596,7 @@ def main() -> int:
             ("serve-sharded", lambda: phase_serve_sharded(torch, be, dt,
                                                           common)),
             ("bench-serving", lambda: phase_bench_serving(torch, common)),
+            ("bench-kernels", lambda: phase_bench_kernels(torch, common)),
             ("examples", lambda: phase_examples(torch, common, [
                 embed_row["name"], csr.BIN, csr.NAME, ce.FWD, ce.BWD])),
             ("train-long", lambda: phase_train_long(torch, common, [

@@ -9,12 +9,15 @@ rows of ``bench_serving`` (the utilization, or for a ``.speedup`` row the
 continuous/static decode-step speedup, as derived; the run's wall in
 us_per_call), held to ``BENCH_serving.json`` but never written to it
 (the reference refreshes the file; a difference from it is printed to
-stderr); and the ``roofline`` part, a row for each dry-run artifact with
-a roofline (``roofline_table``, reading ``experiments/dryrun_torch/``,
-which ``python -m repro_torch.launch.dryrun --all`` writes): the dominant
-term's seconds as us_per_call and MODEL/counted FLOPs as derived.  The
-reference's ``kernels`` part is not ported (ROADMAP A14b: its regression
-gate waits for the benchmark PR).
+stderr); the ``kernels`` part, the 69 rows of ``bench_kernels`` (the
+port kernel's H100 bound in microseconds as us_per_call, where the
+reference prints its TPU model, and max_err as derived), held to
+``BENCH_kernels.json`` with ``--quick`` (the committed rows' check
+shapes) and never written to it, a difference printed to stderr; and
+the ``roofline`` part, a row for each dry-run artifact with a roofline
+(``roofline_table``, reading ``experiments/dryrun_torch/``, which
+``python -m repro_torch.launch.dryrun --all`` writes): the dominant
+term's seconds as us_per_call and MODEL/counted FLOPs as derived.
 
 Full-budget run: PYTHONHASHSEED=0 PYTHONPATH=src python -m repro_torch.benchmarks.run
 Quick run:       PYTHONHASHSEED=0 PYTHONPATH=src python -m repro_torch.benchmarks.run --quick
@@ -25,9 +28,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-PARTS = ("fig1", "fig2", "fig3", "table3", "table5", "serving",
-         "roofline")
-UNPORTED = ("kernels",)
+PARTS = ("fig1", "fig2", "fig3", "table3", "table5", "kernels",
+         "serving", "roofline")
 
 
 def fig1_rows(tasks, steps, scale, device):
@@ -66,6 +68,20 @@ def table5_rows(points, steps, scale, device):
         name = f"table5.{row['task']}.m{row['m_over_d']:.2f}"
         yield f"{name}.BE", 0.0, row["be_ratio"]
         yield f"{name}.CBE", 0.0, row["cbe_ratio"]
+
+
+def kernel_rows(quick, device):
+    from repro_torch.benchmarks import bench_kernels as bk
+    rows = bk.run(device, quick=quick)
+    for row in rows:
+        yield f"kernels.{row['name']}", row["h100_us_bound"], row["max_err"]
+    if not quick:
+        print(f"kernels: not held to {bk.JSON_PATH.name}: its rows are "
+              "--quick's check shapes", file=sys.stderr)
+        return
+    for failure in bk.check_against(rows):
+        print(f"kernels: differs from {bk.JSON_PATH.name}: {failure}",
+              file=sys.stderr)
 
 
 def serving_rows(device):
@@ -109,9 +125,7 @@ def main(argv=None) -> None:
     only = set(args.only.split(",")) if args.only else None
     if only is not None and not only <= set(PARTS):
         bad = sorted(only - set(PARTS))
-        ap.error(f"unknown or unported parts {bad}: the port has "
-                 f"{','.join(PARTS)} ({','.join(UNPORTED)} is not ported: "
-                 f"ROADMAP A14b, its gate waits for the benchmark PR)")
+        ap.error(f"unknown parts {bad}: the parts are {','.join(PARTS)}")
     from repro_torch.kernels.common import resolve_device
     device = resolve_device(args.device)
 
@@ -136,6 +150,8 @@ def main(argv=None) -> None:
             (("MSD", 0.1),) if quick
             else (("MSD", 0.1), ("MSD", 0.3), ("AMZ", 0.2)),
             steps, scale, device))
+    if want("kernels"):
+        parts.append(kernel_rows(quick, device))
     if want("serving"):
         parts.append(serving_rows(device))
     if want("roofline"):
