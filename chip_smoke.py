@@ -318,10 +318,7 @@ Phases, one line of numbers each:
                 pool step walked by hand with 3 of 16 rows live, its
                 embedding and top-k ids and scores bit-equal to the plain
                 versions, then its wall and device time by kernel (3 and
-                16 rows live); the matrix's workload timed unheld in turns
-                (sharded collective compact, single-host Engine, sharded
-                sim plain: wall, tok/s, wall per decode step) and one
-                collective exchange round; serve.run_sharded as the CLI
+                16 rows live); serve.run_sharded as the CLI
                 calls it (--full --hosts 8 --slots-per-host 2 --transport
                 collective --compact-threshold 0.25: 128 requests);
                 mamba2-1.3b at full width (48 layers, d_model 2048, vocab
@@ -437,7 +434,25 @@ Phases, one line of numbers each:
                 against its plain version as it happens
                 (``held_to_plain``) and prints each decode step's wall,
                 its collective seconds and the busy share (the wall less
-                the collective seconds, over the wall);
+                the collective seconds, over the wall).  In the same
+                spawn, the sharded slot pool with each host's rows on its
+                own ranks (serving/sharded_pool.py over a world mesh):
+                (a) qwen1.5-0.5b at full width and depth (24 layers,
+                bf16, the weights 15d serves, drawn by rank 0) on mesh
+                4x1, 4 hosts x 2 slots: the matrix's compacting
+                collective run, the chaos drill (kill_host:1@3) and the
+                overload drill, each rank's logs equal to the port's
+                simulate_sharded_schedule (the drills' verifiers on every
+                rank), its tokens bit-equal to 15d's one-process chaos and
+                overload drills on the same weights, its pool leaves 2
+                slot rows and all 16 kv heads; (b) qwen1.5-0.5b at 8 of
+                24 layers, f32, on mesh 2x2 (2 hosts x 2 slots, 8 of the
+                16 kv heads a rank): one compacting collective run held
+                under the rule above against the one-process pool on the
+                same weights (each pool step's top-k ids and scores, row
+                by row, and the tokens); each rank prints its pool steps'
+                walls, gloo seconds and busy share (every step's in
+                ``build/chip_smoke_pool_steps.json``);
  17d. dry run — ``python -m repro_torch.launch.dryrun --all --jobs 6``
                 (the production grid counted on ``meta`` tensors at the
                 H100's rates), started in a subprocess just before the
@@ -3200,6 +3215,9 @@ def phase_serve_frontends(torch, be, dt, common, train_names):
 # head_dim), vocab, m, k, compute dtype; and mamba2-1.3b's (arXiv:
 # 2405.21060): layers, d_model, vocab, m, k, dtype
 SHARDED_QWEN = (24, 1024, (16, 16, 64), 151936, 30208, 4, "bfloat16")
+# phase 15d's one-process chaos and overload drills of qwen1.5-0.5b, by
+# drill: the tokens phase 17c's rank pool must equal
+POOL_ONE_PROCESS = {}
 SHARDED_MAMBA = (48, 2048, 50280, 9984, 4, "bfloat16")
 
 
@@ -3345,89 +3363,14 @@ def _walk_pool_step(torch, be, dt, cfg, engine):
     return res["walls"][0]
 
 
-def _time_sharded(torch, cfg, model, report):
-    """The sim's workload served unheld, three turns of (sharded
-    collective compact, sharded sim plain, single-host Engine at 16
-    slots), alternating the order: each run's wall, tok/s and wall per
-    model pass (prefill or pool decode step); then the collective
-    gather's cost per round on the card."""
-    import numpy as np
-    from repro_torch.launch.mesh import make_serving_mesh
-    from repro_torch.serving import sim_multihost as sim
-    from repro_torch.serving.control import DELTA_FIELDS
-    from repro_torch.serving.engine import Engine
-    from repro_torch.serving.loadgen import (LoadSpec, merge_workloads,
-                                             sharded_workload)
-    from repro_torch.serving.sharded_pool import (COLLECTIVE_CAPACITY,
-                                                  ShardedEngine)
-    spec = LoadSpec(n_requests=2, vocab=cfg.vocab, rate=1.0,
-                    prompt_lens=(6, 10), gen_lens=(3, 6, 12), seed=0)
-    sharded = ShardedEngine(
-        cfg, model, mesh=make_serving_mesh(sim.N_HOSTS, device="cuda"),
-        slots_per_host=sim.SLOTS_PER_HOST, max_len=sim.MAX_LEN,
-        topk=sim.TOPK, prefill_workers=sim.PREFILL_WORKERS)
-    single = Engine(cfg, model, n_slots=sim.N_HOSTS * sim.SLOTS_PER_HOST,
-                    max_len=sim.MAX_LEN, topk=sim.TOPK)
-    runs = {
-        "sharded collective compact": lambda: sharded.run(
-            sharded_workload(spec, sim.N_HOSTS), transport="collective",
-            compact_threshold=sim.COMPACT_THRESHOLD),
-        "sharded sim plain": lambda: sharded.run(
-            sharded_workload(spec, sim.N_HOSTS), transport="sim",
-            compact_threshold=None),
-        "single-host Engine": lambda: single.run(
-            merge_workloads(sharded_workload(spec, sim.N_HOSTS)))}
-    labels = list(runs)
-    order = labels + labels[::-1] + labels     # three turns each
-    got = {}
-    for label in order:
-        torch.cuda.synchronize()
-        res, st = runs[label]()
-        torch.cuda.synchronize()
-        _check(all(r.done for r in res.values()),
-               f"serve-sharded: timed {label}: a request was not served")
-        toks = {rid: r.tokens for rid, r in res.items()}
-        _check(toks == report["single"]["tokens"],
-               f"serve-sharded: timed {label}: tokens differ from the held "
-               "runs'")
-        passes = st.prefills + st.decode_steps
-        got.setdefault(label, []).append(
-            (st.wall_s * 1e3, st.tokens_out / st.wall_s,
-             st.wall_s * 1e3 / passes, passes))
-    for label, rows in got.items():
-        print(f"serve-sharded: timed {label}: wall "
-              f"{[round(r[0], 3) for r in rows]} ms, "
-              f"{[round(r[1], 1) for r in rows]} tok/s, wall per model "
-              f"pass {[round(r[2], 3) for r in rows]} ms ({rows[0][3]} "
-              f"passes: 16 B = 1 prefills and 14 pool decode steps)",
-              flush=True)
-    g = sharded._gather
-    buf = np.zeros((sim.N_HOSTS, COLLECTIVE_CAPACITY + 1,
-                    DELTA_FIELDS), np.int32)
-    g(buf)
-    t0 = time.perf_counter()
-    for _ in range(50):
-        g(buf)
-    ms = (time.perf_counter() - t0) / 50 * 1e3
-    coll = [report["runs"][n]["stats"]["decode_steps"]
-            for n in ("collective_plain", "collective_compact")]
-    print(f"serve-sharded: collective transport: one exchange round "
-          f"(commit {sim.N_HOSTS} host buffers of "
-          f"{tuple(buf.shape[1:])} int32, {sim.N_HOSTS} gathers on the "
-          f"card, one copy back) {ms:.4f} ms on the host clock; the "
-          f"matrix's two collective runs ran {report['collective_rounds']} "
-          f"rounds over {sum(coll)} decode steps", flush=True)
-    return got
-
-
 def phase_serve_sharded(torch, be, dt, common):
     """Data-axis-sharded serving at full width: qwen1.5-0.5b through the
     reference sim's matrix (serving.sim_multihost.run, 8 hosts x 2 slots,
     {sim, collective} x {plain, compact 0.25}, the single-host Engine and
     solo serving), its chaos and overload drills, a walked pool step,
-    mamba2-1.3b through one compact run, serve.run_sharded as the CLI
-    calls it, and the timed runs.  Every counted run's launches held
-    against their plain versions.  Returns (launches by kernel, max abs
+    mamba2-1.3b through one compact run and serve.run_sharded as the CLI
+    calls it.  Every counted run's launches held against their plain
+    versions.  Returns (launches by kernel, max abs
     error by kernel)."""
     from repro_torch import configs
     from repro_torch.launch import serve
@@ -3489,6 +3432,7 @@ def phase_serve_sharded(torch, be, dt, common):
         _check(d.get("verified") is True, f"serve-sharded: {drill} drill "
                "did not verify")
         runs = d["kill_runs"] if drill == "chaos" else d["surge_runs"]
+        POOL_ONE_PROCESS[drill] = d      # phase 17c's rank pool reads it
         print(f"serve-sharded: {drill} drill verified ({d['failpoints']}): "
               f"{json.dumps({t: r['stats'] for t, r in runs.items()})}; "
               f"invariants {json.dumps(d['invariants'])}", flush=True)
@@ -3499,7 +3443,6 @@ def phase_serve_sharded(torch, be, dt, common):
                            max_len=sim.MAX_LEN, topk=sim.TOPK)
     wall, busy = _walk_pool_step(torch, be, dt, cfg, engine)
     del engine
-    _time_sharded(torch, cfg, model, report)
 
     def cli():
         common_kw = dict(slots_per_host=2, requests=16, rate=1.0,
@@ -3982,7 +3925,6 @@ def _rank_parallel(mesh, jobs):
     from repro_torch.kernels import bloom_csr as csr
     from repro_torch.kernels import bloom_embed as be
     from repro_torch.kernels import common
-    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import sharding
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train
@@ -3990,9 +3932,7 @@ def _rank_parallel(mesh, jobs):
     results, kept = [], {}
     for job in jobs:
         cfg, tc, zero = job["cfg"], job["tc"], job.get("zero", False)
-        dist_ctx = sharding.DistContext(
-            mesh if job["shape"] == mesh.sizes else mesh_lib.world_mesh(
-                job["shape"], mesh.axis_names, dev, tr))
+        dist_ctx = sharding.DistContext(train.mesh_for(mesh, job["shape"]))
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         step, optimizer = steps_lib.make_train_step(cfg, tc, dist_ctx, zero)
@@ -4574,6 +4514,156 @@ def phase_train_parallel(torch, be, ce, csr, common, transport="gloo"):
     return list(rows.values()), counts
 
 
+@contextlib.contextmanager
+def _pool_recorder(torch, tr, keep_topk: bool):
+    """Record every pool decode step of the sharded pools built inside
+    the block (serving/sharded_pool.py): its wall (host clock, the card
+    synchronised around it), the seconds of timed collectives in it
+    (``tr``, a rank's transport, or None) and, with ``keep_topk``, the
+    step's rows' top-k ids and scores, the pool's first slot and the
+    live slots' rids.  Yields the list of steps."""
+    import numpy as np
+    from repro_torch.serving import sharded_pool as sp
+    steps, last = [], {}
+    make, decode = sp.steps_lib.make_slot_decode_step, sp._PoolClient.decode
+
+    def make_rec(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def rec(*a):
+            last["out"] = out = step(*a)
+            return out
+        return rec
+
+    def decode_rec(self, active_map):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), (tr.seconds if tr else 0.0)
+        toks = decode(self, active_map)
+        torch.cuda.synchronize()
+        row = {"wall": time.perf_counter() - t0,
+               "coll": (tr.seconds if tr else 0.0) - c0}
+        out = last.pop("out")
+        if keep_topk:
+            row.update(first=self.e.first_slot,
+                       rids={g: r.rid for g, r in active_map.items()},
+                       ids=out["topk_ids"].cpu().numpy(),
+                       scores=out["topk_scores"].float().cpu().numpy()
+                       .astype(np.float64))
+        steps.append(row)
+        return toks
+
+    sp.steps_lib.make_slot_decode_step = make_rec
+    sp._PoolClient.decode = decode_rec
+    try:
+        yield steps
+    finally:
+        sp.steps_lib.make_slot_decode_step = make
+        sp._PoolClient.decode = decode
+
+
+def _rank_pool(torch, common, m, job):
+    """One rank's pool job of phase 17c over the mesh ``m``: rank 0 draws
+    the weights (``serve.build_model`` in the job's dtype, or
+    ``_draw``'s f32), every rank takes its shards
+    (``serve.rank_model``), then runs the job's drills
+    (``sim_multihost.DRILLS``; each verifies itself) with its counts
+    reset just before and read just after, every launch held against its
+    plain version, every pool step recorded (``_pool_recorder``)."""
+    from repro_torch.launch import serve, sharding
+    from repro_torch.serving import sim_multihost as sim
+    cfg, tr, dev = job["cfg"], m.transport, m.device
+    t0 = time.perf_counter()
+    full = None
+    if m.rank == 0:
+        full = dict((serve.build_model(cfg, 0, dev) if job["draw"] == "serve"
+                     else _draw(torch, cfg, 0, dev)).named_parameters())
+    model = serve.rank_model(cfg, sharding.DistContext(m), full)
+    del full
+    torch.cuda.synchronize()
+    r = {"setup_s": time.perf_counter() - t0, "reports": {}, "runs": {}}
+    errs = {}
+    common.reset_launches()
+    tr.branches.clear()
+    tr.op_seconds.clear()
+    tr.timed = True
+    try:
+        with held_to_plain(torch, common, f"{job['phase']} rank {m.rank}",
+                           errs):
+            for name in job["pool"]:
+                c0, t0 = tr.seconds, time.perf_counter()
+                with _pool_recorder(torch, tr, job["keep_topk"]) as steps:
+                    rep = sim.DRILLS[name](0, cfg=cfg, model=model, mesh=m)
+                _check(name == "compact" or rep.get("verified") is True,
+                       f"{job['phase']} rank {m.rank}: {name} did not "
+                       "verify")
+                r["reports"][name] = rep
+                r["runs"][name] = {"wall": time.perf_counter() - t0,
+                                   "coll": tr.seconds - c0, "steps": steps}
+    finally:
+        tr.timed = False
+    r["counts"], r["errs"] = dict(common.LAUNCHES), errs
+    r["branches"] = {f"{op} {b}": n for (op, b), n in
+                     sorted(tr.branches.items())}
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model
+    torch.cuda.empty_cache()
+    return r
+
+
+def _pool_steps_line(steps) -> str:
+    """Min / median / max of the pool steps' walls and collective seconds
+    (ms) and of their busy shares."""
+    import numpy as np
+    w = np.array([s["wall"] for s in steps]) * 1e3
+    c = np.array([s["coll"] for s in steps]) * 1e3
+    b = 1 - c / w
+
+    def mmm(x, nd):
+        return "/".join(f"{v:.{nd}f}" for v in (x.min(), np.median(x),
+                                                x.max()))
+    return (f"{len(steps)} pool steps, wall {mmm(w, 3)} ms, gloo "
+            f"{mmm(c, 3)} ms, busy share {mmm(b, 3)} (min/median/max)")
+
+
+def _held_pool(label, got, want, tol):
+    """A rank's pool run held to the one-process pool's under 17c's rule:
+    ``got`` / ``want`` are (the run's tokens by rid, its recorded pool
+    steps).  Every live row of every step (the rank's rows) has the
+    one-process row's top-k ids, scores within ``tol`` (two ids whose
+    one-process scores tie within ``tol`` may swap); a request whose
+    token falls on such a tie is compared no further, and at most one
+    may; every other request's tokens are equal.  Returns the largest
+    score difference."""
+    import numpy as np
+    (gtok, gsteps), (wtok, wsteps) = got, want
+    _check(len(gsteps) == len(wsteps), f"{label}: {len(gsteps)} pool steps"
+           f", the one-process pool {len(wsteps)}")
+    gone, err = set(), 0.0
+    for t, (g, w) in enumerate(zip(gsteps, wsteps)):
+        _check(g["rids"] == w["rids"], f"{label} step {t}: live slots "
+               f"{g['rids']} != {w['rids']}")
+        for i in range(g["ids"].shape[0]):
+            rid = g["rids"].get(g["first"] + i)
+            if rid is None or rid in gone:
+                continue
+            gi, gs = g["ids"][i], g["scores"][i]
+            wi, ws = w["ids"][g["first"] + i], w["scores"][g["first"] + i]
+            err = max(err, float(np.abs(gs - ws).max()))
+            _check(err <= tol, f"{label} step {t} rid {rid}: scores off by "
+                   f"{err}")
+            for j in np.flatnonzero(gi != wi):
+                near = min(abs(ws[j] - ws[q]) for q in (j - 1, j + 1)
+                           if 0 <= q < len(ws))
+                _check(near <= tol, f"{label} step {t} rid {rid}: top-k id "
+                       f"{j} differs off a tie")
+            if gi[0] != wi[0]:
+                gone.add(rid)
+    _check(len(gone) <= 1, f"{label}: requests {sorted(gone)} diverged")
+    bad = [rid for rid in wtok if rid not in gone and gtok[rid] != wtok[rid]]
+    _check(not bad, f"{label}: requests {bad}: tokens differ")
+    return err
+
+
 def _rank_serve(mesh, jobs):
     """One rank of phases serve-parallel and serve-parallel-families:
     each job on a (data, model) mesh of its shape over this world, from
@@ -4583,13 +4673,14 @@ def _rank_serve(mesh, jobs):
     ``serve.generate`` under the mesh and returns its ids and each decode
     step's top-k ids and scores (batch rows gathered); a training job
     ({shape, cfg, tc, batches}) runs ``make_train_step`` and returns its
-    losses.  Each returns its step walls and collective seconds, the
-    transport's branches, its launches and the held checks' errors."""
+    losses; a pool job ({shape, cfg, pool, draw, keep_topk}) runs the
+    sharded slot pool's drills on the mesh (``_rank_pool``).  Each
+    returns its step walls and collective seconds, the transport's
+    branches, its launches and the held checks' errors."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import common
-    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve, sharding, train
     from repro_torch.launch import steps as steps_lib
     tr, dev = mesh.transport, mesh.device
@@ -4602,9 +4693,10 @@ def _rank_serve(mesh, jobs):
     for job in jobs:
         cfg = job["cfg"]
         training = "batches" in job
-        dist_ctx = sharding.DistContext(
-            mesh if job["shape"] == mesh.sizes else mesh_lib.world_mesh(
-                job["shape"], mesh.axis_names, dev, tr))
+        dist_ctx = sharding.DistContext(train.mesh_for(mesh, job["shape"]))
+        if "pool" in job:
+            results.append(_rank_pool(torch, common, dist_ctx.mesh, job))
+            continue
         t0 = time.perf_counter()
         full = (dict(_draw(torch, cfg, 0, dev).named_parameters())
                 if mesh.rank == 0 else None)
@@ -4769,13 +4861,23 @@ def phase_serve_parallel(torch, common):
     jobs = [job((1, 4), q32, torch.float32), job((2, 2), q32, torch.float32),
             job((1, 4), o32, torch.float32), job((1, 4), q8, torch.float32)]
     jobs[1]["prompts"] = jobs[0]["prompts"]
+    # the sharded slot pool with each host's rows on its own ranks: (a)
+    # full width and depth in bf16 on 4x1, the weights 15d serves; (b)
+    # q32 on 2x2, each rank 8 of the 16 kv heads
+    pool_jobs = [
+        {"shape": (4, 1), "cfg": configs.get_config("qwen1.5-0.5b"),
+         "pool": ("compact", "chaos", "overload"), "draw": "serve",
+         "keep_topk": False, "phase": "serve-parallel pool"},
+        {"shape": (2, 2), "cfg": q32, "pool": ("compact",), "draw": "f32",
+         "keep_topk": True, "phase": "serve-parallel pool"}]
     t0 = time.perf_counter()
     want = [_one_rank_generation(torch, j["cfg"], j, torch.device("cuda"))
             for j in jobs]
+    one_pool = _one_process_pool(torch, pool_jobs)
     ref_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out = train.spawn(_rank_serve, (2, 2), "gloo", "cuda", (jobs,),
-                      timeout=600)
+    out = train.spawn(_rank_serve, (2, 2), "gloo", "cuda",
+                      (jobs + pool_jobs,), timeout=900)
     print(f"serve-parallel: one-rank runs {ref_s:.3f} s; the four ranks "
           f"over gloo {time.perf_counter() - t0:.3f} s (start, and per "
           "job: draw, broadcast, shard, generate, checks); B = "
@@ -4811,7 +4913,116 @@ def phase_serve_parallel(torch, common):
                       f"(one rank {w['ids'][0].tolist()}); one rank's step "
                       f"walls {[round(x * 1e3, 3) for x in w['walls']]} "
                       f"ms; {_card()}", flush=True)
+    _held_pool_jobs(pool_jobs, one_pool, [r[len(jobs):] for r in out],
+                    counts, errs)
     return counts, errs
+
+
+def _one_process_pool(torch, pool_jobs):
+    """The one-process pool (every host on this card) that phase 17c's
+    rank pools are held to, on the same weights: job (a)'s chaos and
+    overload drills (15d's, when it ran in this process), job (b)'s
+    compacting run with every pool step recorded."""
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.serving import sim_multihost as sim
+    dev = torch.device("cuda")
+    a, b = pool_jobs
+    if not POOL_ONE_PROCESS:
+        model = serve.build_model(a["cfg"], 0, dev)
+        POOL_ONE_PROCESS["chaos"] = sim.run_chaos(cfg=a["cfg"], model=model)
+        POOL_ONE_PROCESS["overload"] = sim.run_overload(cfg=a["cfg"],
+                                                        model=model)
+        del model
+    model = steps_lib.cast_params_for_compute(
+        _draw(torch, b["cfg"], 0, dev), b["cfg"]).eval().requires_grad_(
+            False)
+    with _pool_recorder(torch, None, True) as steps:
+        rep = sim.run_compact(cfg=b["cfg"], model=model,
+                              n_hosts=b["shape"][0])
+    del model
+    torch.cuda.empty_cache()
+    return {"a": dict(POOL_ONE_PROCESS), "b": (rep, steps)}
+
+
+def _held_pool_jobs(pool_jobs, one, out, counts, errs):
+    """Hold phase 17c's rank pools (``out``: each rank's pool jobs'
+    results) to the one-process pool (``_one_process_pool``), print each
+    rank's runs and pool steps, and add their launches and errors to
+    ``counts`` / ``errs``.  Every pool step's wall and gloo seconds go to
+    ``build/chip_smoke_pool_steps.json``."""
+    dump = []
+    for i, job in enumerate(pool_jobs):
+        cfg, shape = job["cfg"], job["shape"]
+        n_model = shape[1]
+        label = (f"serve-parallel: pool {cfg.name} {cfg.num_layers}L "
+                 f"{cfg.dtype} {'x'.join(map(str, shape))}")
+        kv = [2, 40, cfg.num_kv_heads // n_model, cfg.resolved_head_dim]
+        for rank, per_job in enumerate(out):
+            r = per_job[i]
+            for n, c in r["counts"].items():
+                counts[n] = counts.get(n, 0) + c
+            for n, e in r["errs"].items():
+                errs[n] = max(errs.get(n, 0.0), e)
+            reps = r["reports"]
+            for rep in reps.values():
+                shapes = rep.get("pool_shapes") or []
+                _check(all(layer["k"] == layer["v"] == kv
+                           for layer in shapes),
+                       f"{label} rank {rank}: pool leaves {shapes[:1]}, "
+                       f"want k / v {kv}")
+            if i == 0:
+                chaos, over = one["a"]["chaos"], one["a"]["overload"]
+                _check(reps["compact"]["tokens"] == chaos["base"]["tokens"],
+                       f"{label} rank {rank}: the compacting run's tokens "
+                       "!= the one-process pool's")
+                for t in ("sim", "collective"):
+                    g, w = reps["chaos"]["kill_runs"][t], chaos["kill_runs"][t]
+                    _check(g["tokens"] == w["tokens"] and g["log"] == w["log"],
+                           f"{label} rank {rank}: chaos {t} != one process")
+                    g = reps["overload"]["surge_runs"][t]
+                    w = over["surge_runs"][t]
+                    _check(g["tokens"] == w["tokens"] and g["log"] == w["log"]
+                           and g["shed_rids"] == w["shed_rids"],
+                           f"{label} rank {rank}: overload {t} != one "
+                           "process")
+                held = ("tokens and logs bit-equal to the one-process "
+                        "pool's")
+            else:
+                brep, bsteps = one["b"]
+                _check(reps["compact"]["log"] == brep["log"],
+                       f"{label} rank {rank}: log != the one-process pool's")
+                err = _held_pool(f"{label} rank {rank}",
+                                 (reps["compact"]["tokens"],
+                                  r["runs"]["compact"]["steps"]),
+                                 (brep["tokens"], bsteps), 1e-4)
+                held = (f"tokens and top-k ids held to the one-process "
+                        f"pool's, scores within {err:.3e}")
+            for name, run in r["runs"].items():
+                steps = run["steps"]
+                print(f"{label} rank {rank} {name}: wall "
+                      f"{run['wall']:.3f} s, gloo {run['coll']:.3f} s; "
+                      f"{_pool_steps_line(steps)}"
+                      + ("; step walls "
+                         f"{[round(x['wall'] * 1e3, 3) for x in steps]} ms,"
+                         f" gloo {[round(x['coll'] * 1e3, 3) for x in steps]}"
+                         " ms" if name == "compact" else ""), flush=True)
+                dump.append({"job": label, "rank": rank, "run": name,
+                             "wall_s": run["wall"], "coll_s": run["coll"],
+                             "step_wall_s": [x["wall"] for x in steps],
+                             "step_coll_s": [x["coll"] for x in steps]})
+            print(f"{label} rank {rank}: {held}; logs equal the model-free "
+                  f"sim's; pool leaves k / v {kv} a layer; set-up "
+                  f"{r['setup_s']:.3f} s, peak {r['peak_gib']:.3f} GiB, "
+                  f"branches {r['branches']}, launches {r['counts']}, held "
+                  f"{r['errs']}", flush=True)
+        if i == 1:
+            print(f"{label}: the one-process pool (2 hosts x 2 slots on the "
+                  f"card): {_pool_steps_line(one['b'][1])}; {_card()}",
+                  flush=True)
+    path = Path(__file__).resolve().parent / "build"
+    path.mkdir(exist_ok=True)
+    (path / "chip_smoke_pool_steps.json").write_text(json.dumps(dump))
 
 
 def _cache_split_line(torch, cfg, job):

@@ -28,8 +28,12 @@ The dry run (launch/dryrun.py) needs no world: ``counting_mesh`` is rank
 default) on the ``meta`` device, its groups
 ``collectives.CountedGroup``s and its transport a
 ``collectives.CountingTransport``.
-The sharded serving pool takes one-device meshes only
-(``make_serving_mesh``).
+The sharded serving pool (``make_serving_mesh``) takes either kind: on
+one device its data shards are simulated hosts of one pool; given the
+transport of a world of ``n_hosts * model_parallel`` ranks each data
+shard's slot rows live on its own ranks, split over ``model``
+(serving/sharded_pool.py), and a prefill runs on its data shard's model
+group alone (``model_mesh``).
 """
 from __future__ import annotations
 
@@ -198,23 +202,54 @@ def make_local_mesh(axes=("data", "model"), device=None,
 
 
 def make_serving_mesh(n_hosts: Optional[int] = None,
-                      model_parallel: int = 1, device=None) -> Mesh:
-    """Serving-pool mesh: one ``data`` shard per simulated host, ``model``
-    fixed at ``model_parallel``.  ``n_hosts`` defaults to the device
-    count of the chosen kind (as the reference's defaults to
-    ``jax.device_count()``); every host shard lives on ``device``.  The
-    pool serves ``model_parallel`` 1: its shards on their own ranks wait
-    for ROADMAP A13b (the whole-batch decode runs under a model axis over
-    a world of ranks: ``serve --static --mesh``)."""
+                      model_parallel: int = 1, device=None,
+                      transport=None) -> Mesh:
+    """Serving-pool mesh: one ``data`` shard per host, ``model`` fixed at
+    ``model_parallel``.
+
+    With a ``transport`` (launch/collectives.Transport, the backend of the
+    initialised world) it is ``world_mesh((n_hosts, model_parallel))``
+    over that world, which must hold ``n_hosts * model_parallel`` ranks
+    (``n_hosts`` None: the world's size over ``model_parallel``): each
+    host's slot rows live on its own ranks, and every rank calls it.
+    Without one every host is a simulated data shard of one pool on
+    ``device``, whether or not a world exists; ``n_hosts`` defaults to
+    the device count of the chosen kind (as the reference's defaults to
+    ``jax.device_count()``), and a ``model`` axis of more than one
+    raises: it needs a world of ranks."""
+    if transport is not None:
+        if n_hosts is None:
+            n_hosts = _world_size() // model_parallel
+        return world_mesh((n_hosts, model_parallel), ("data", "model"),
+                          device, transport)
     device = resolve_device(device)
     if model_parallel != 1:
         raise NotImplementedError(
             f"model_parallel={model_parallel}: the sharded slot pool on "
-            "one device serves model_parallel=1 (its shards on their own "
-            "ranks wait for ROADMAP A13b item 6)")
+            "one device serves model_parallel=1; a `model` axis needs a "
+            f"world of n_hosts x {model_parallel} ranks and its transport "
+            "(ROADMAP A13b: launch/serve.py --sharded --mesh DxM starts "
+            "one)")
     if n_hosts is None:
         n_hosts = _device_count(device)
     return _mesh((n_hosts, 1), ("data", "model"), device)
+
+
+def model_mesh(mesh: Mesh) -> Mesh:
+    """This rank's ``model`` group of a world mesh as a mesh of its own,
+    ``data`` 1: the ranks of one data shard, which run a computation of
+    that shard alone (a sharded pool's prefill) without entering any
+    collective over ``data``.  ``rank`` is the rank's model coordinate;
+    ``batch`` has no group (one shard) and ``world`` is the model
+    group."""
+    if not mesh.distributed:
+        raise ValueError("model_mesh takes a mesh over a world of ranks")
+    n_model = mesh.shape.get("model", 1)
+    group = mesh.groups["model"]
+    return Mesh(("data", "model"), (1, n_model), mesh.device,
+                mesh.coords.get("model", 0),
+                {"data": None, "model": group, "batch": None,
+                 "world": group}, mesh.transport)
 
 
 def make_elastic_mesh(n_devices: int, axes=("data", "model"),

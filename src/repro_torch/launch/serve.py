@@ -25,9 +25,15 @@ through ``serving.sharded_pool.ShardedEngine`` (``run_sharded``):
 ``--hosts`` simulated hosts (default: the device count), each a data
 shard of ``--slots-per-host`` slots of one pool on the device, admission
 by the replicated control plane over ``--transport`` (``sim`` gossip, or
-``collective``, gathered on the device) after ``--gossip-delay`` steps,
+``collective``, the padded exchange) after ``--gossip-delay`` steps,
 and slot compaction above ``--compact-threshold``; ``kill_host``
-failpoints need it.  Shards on several cards wait for ROADMAP A13b.
+failpoints need it.  ``--sharded --mesh DxM`` puts each of D hosts on
+its own M rank processes, which the entry point starts (``train.spawn``)
+and joins over ``--backend`` (gloo, the default: ranks may share a card
+or run on the CPU; nccl: a card per rank, raising with fewer): each rank
+holds its host's slot rows and its share of their kv heads, Mamba heads
+and channels, and ``collective`` all-gathers the deltas over the
+ranks.
 
 ``--mode retrieval`` serves one-shot Bloom top-k retrieval requests (Zipf
 item lookups over a configs/retrieval.py catalog preset) through
@@ -76,6 +82,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --device cpu --sharded --hosts 8 --slots-per-host 2 \\
       --transport collective --compact-threshold 0.25
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+      --device cpu --sharded --mesh 2x2 --slots-per-host 2 \\
+      --transport collective --compact-threshold 0.25
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
       --retrieval-config smoke --device cpu --requests 16
 """
@@ -92,7 +101,6 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.kernels import common as kernels_common
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch import collectives
-from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch import train as train_lib
@@ -315,6 +323,19 @@ def generate(cfg, model, prompts: np.ndarray, gen: int, topk: int,
     return torch.cat(generated, 1).numpy(), t_prefill, t_decode
 
 
+def rank_model(cfg, dist_ctx, params, seed: int = 0):
+    """This rank's serving model under ``dist_ctx``: rank 0's full
+    ``params`` (name -> tensor or array; None: the port's init from
+    ``seed``) broadcast and sharded (``train.parallel_state``), then cast
+    for compute."""
+    full = (None if params is None else
+            {n: torch.as_tensor(v) for n, v in params.items()})
+    model = train_lib.parallel_state(cfg, None, seed, None, dist_ctx,
+                                     full)[0]
+    steps_lib.cast_params_for_compute(model, cfg)
+    return model.eval().requires_grad_(False)
+
+
 def decode_job(mesh, cfg, params, prompts: np.ndarray, gen: int,
                topk: int, cache_dtype=torch.bfloat16, embeds=None):
     """One rank of a whole-batch generation over ``mesh`` from given
@@ -326,10 +347,7 @@ def decode_job(mesh, cfg, params, prompts: np.ndarray, gen: int,
     "topk_scores" (B, topk)}, numpy, the batch rows gathered; the other
     ranks None."""
     dist_ctx = sharding.DistContext(mesh)
-    full = {n: torch.as_tensor(v) for n, v in params.items()}
-    model = train_lib.parallel_state(cfg, None, 0, None, dist_ctx, full)[0]
-    steps_lib.cast_params_for_compute(model, cfg)
-    model.eval().requires_grad_(False)
+    model = rank_model(cfg, dist_ctx, params)
     steps = []
 
     def keep(t, out):
@@ -347,19 +365,6 @@ def decode_job(mesh, cfg, params, prompts: np.ndarray, gen: int,
         return None
     return {"ids": ids, **{k: np.stack([s[k] for s in steps])
                            for k in ("logits", "topk_ids", "topk_scores")}}
-
-
-def decode_jobs(mesh, cases):
-    """``decode_job`` for each case (mesh shape, cfg, params, prompts,
-    gen, topk, cache dtype[, embeds]), each on a mesh of its own shape
-    over this world (``mesh.world_mesh``, as many ranks as ``mesh``): the
-    list of this rank's results."""
-    out = []
-    for shape, *args in cases:
-        m = (mesh if tuple(shape) == mesh.sizes else mesh_lib.world_mesh(
-            shape, ("data", "model"), mesh.device, mesh.transport))
-        out.append(decode_job(m, *args))
-    return out
 
 
 def run(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
@@ -406,10 +411,7 @@ def _run(arch, batch, prompt_len, gen, topk, seed, full, table_dtype,
         if lead:
             params = (load_params(ckpt) if ckpt is not None else dict(
                 build_model(cfg, seed, device).named_parameters()))
-        model = train_lib.parallel_state(cfg, None, seed, None, dist,
-                                         params)[0]
-        steps_lib.cast_params_for_compute(model, cfg)
-        model.eval().requires_grad_(False)
+        model = rank_model(cfg, dist, params, seed)
     steps_lib.warm_bloom_caches(cfg, model)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len),
@@ -492,22 +494,71 @@ def run_sharded(arch: str, slots_per_host: int = 1, requests: int = 8,
                 failpoints: str | None = None,
                 deadline_slack: int | None = None,
                 max_queue_depth: int | None = None,
-                hosts: int | None = None, device=None):
+                hosts: int | None = None, device=None, mesh: str = "1x1",
+                backend: str = "gloo", timeout: float = 1800.0):
     """Data-axis-sharded serving over per-host arrival streams
-    (``--sharded``): ``hosts`` simulated hosts (default: the device
-    count, as the reference's mesh of every device), each a data shard
-    of ``slots_per_host`` slots of one pool on ``device``
-    (serving/sharded_pool.py).  ``requests`` is PER HOST.  Defaults (sim
-    transport, one prefill worker, no compaction) are the transported
-    pool at its plainest.  ``failpoints`` replays a deterministic failure
-    schedule (serving/failpoints.py grammar) against the run, e.g.
-    ``kill_host:1@3``: survivors reclaim the dead host's slots and finish
-    every request."""
+    (``--sharded``; serving/sharded_pool.py).  ``requests`` is PER HOST.
+    With ``mesh`` "1x1" (the default) ``hosts`` simulated hosts (default:
+    the device count, as the reference's mesh of every device) are data
+    shards of ``slots_per_host`` slots of one pool on ``device``.  With
+    ``mesh`` "DxM" the entry point starts D * M rank processes
+    (``train.spawn``) joined over ``backend`` (gloo, ranks may share a
+    card; nccl, a card per rank): D hosts, each host's slot rows on its
+    own M ranks, split over ``model``, from weights rank 0 draws; every
+    rank runs the control plane, rank 0 prints and returns.  Defaults
+    (sim transport, one prefill worker, no compaction) are the
+    transported pool at its plainest.  ``failpoints`` replays a
+    deterministic failure schedule (serving/failpoints.py grammar) against
+    the run, e.g. ``kill_host:1@3``: survivors reclaim the dead host's
+    slots and finish every request.  Returns (results, stats)."""
+    kw = dict(arch=arch, slots_per_host=slots_per_host, requests=requests,
+              rate=rate, prompt_len=prompt_len, gen=gen, topk=topk,
+              seed=seed, full=full, eos_id=eos_id,
+              gossip_delay=gossip_delay, transport=transport,
+              prefill_workers=prefill_workers,
+              compact_threshold=compact_threshold, table_dtype=table_dtype,
+              failpoints=failpoints, deadline_slack=deadline_slack,
+              max_queue_depth=max_queue_depth)
     if not Engine.supports(_config(arch, full, table_dtype)):
         raise SystemExit(
             f"{arch}: enc-dec / frontend-stub archs serve via --static")
-    device, cfg, model = _setup(arch, full, table_dtype, seed, device)
-    mesh = make_serving_mesh(n_hosts=hosts, device=device)
+    shape = train_lib.parse_mesh(mesh)
+    if shape == (1, 1):
+        return _sharded(device=resolve_device(device), hosts=hosts, **kw)
+    if hosts not in (None, shape[0]):
+        raise ValueError(f"--hosts {hosts} with --mesh {mesh}: the mesh's "
+                         f"data axis is the hosts ({shape[0]})")
+    return train_lib.spawn(_sharded_rank, shape, backend, device, (kw,),
+                           timeout)[0]
+
+
+def _sharded_rank(mesh, kw):
+    """One rank of ``run_sharded`` over a mesh: rank 0's (results,
+    stats), the other ranks' None."""
+    out = _sharded(device=mesh.device, hosts=mesh.shape["data"],
+                   model_parallel=mesh.shape["model"], world=mesh.transport,
+                   **kw)
+    return out if mesh.rank == 0 else None
+
+
+def _sharded(arch, slots_per_host, requests, rate, prompt_len, gen, topk,
+             seed, full, eos_id, gossip_delay, transport, prefill_workers,
+             compact_threshold, table_dtype, failpoints, deadline_slack,
+             max_queue_depth, device, hosts=None, model_parallel=1,
+             world=None):
+    """``run_sharded`` on one device (``world`` None), or one rank of a
+    world whose collectives ``world`` (launch/collectives.Transport)
+    carries: rank 0 draws the weights, every rank holds its shard."""
+    if world is None:
+        device, cfg, model = _setup(arch, full, table_dtype, seed, device)
+        mesh = make_serving_mesh(hosts, device=device)
+    else:
+        mesh = make_serving_mesh(hosts, model_parallel, device, world)
+        cfg = _config(arch, full, table_dtype)
+        params = (dict(_setup(arch, full, table_dtype, seed, device)[2]
+                       .named_parameters()) if mesh.rank == 0 else None)
+        model = rank_model(cfg, sharding.DistContext(mesh), params, seed)
+        del params
     n_hosts = mesh.shape["data"]
     spec = LoadSpec(
         n_requests=requests, vocab=cfg.vocab, rate=rate,
@@ -518,7 +569,6 @@ def run_sharded(arch: str, slots_per_host: int = 1, requests: int = 8,
         _tag_deadlines(reqs, deadline_slack)
     max_len = max(r.prompt_len + r.max_gen
                   for reqs in per_host for r in reqs)
-
     engine = ShardedEngine(cfg, model, mesh=mesh,
                            slots_per_host=slots_per_host, max_len=max_len,
                            topk=topk, eos_id=eos_id,
@@ -529,14 +579,18 @@ def run_sharded(arch: str, slots_per_host: int = 1, requests: int = 8,
                            admission_policy=_overload_policy(
                                deadline_slack, max_queue_depth))
     results, stats = engine.run(per_host)
-
+    if mesh.rank:
+        return results, stats
     row = stats.as_row()
+    where = ("" if not mesh.distributed else
+             f", mesh {'x'.join(map(str, mesh.sizes))} over "
+             f"{mesh.transport.name}")
     print(f"served {len(results)} requests on {n_hosts} hosts x "
           f"{slots_per_host} slots (gossip_delay={gossip_delay}, "
           f"transport={transport}, prefill_workers={prefill_workers}, "
           f"compact={compact_threshold}; {cfg.name} {cfg.num_layers}L "
           f"d_model {cfg.d_model}, table_dtype {cfg.table_dtype}, "
-          f"{device}): {row['decode_steps']} decode steps, "
+          f"{device}{where}): {row['decode_steps']} decode steps, "
           f"{row['compactions']} compactions, "
           f"utilization {row['utilization']:.2f}, "
           f"mean latency {mean_latency(results):.1f} steps")
@@ -638,11 +692,12 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--sharded", action="store_true",
-                    help="data-axis-sharded pool: one simulated host per "
-                         "data shard, all on the one device")
+                    help="data-axis-sharded pool: one host per data "
+                         "shard, all simulated on the one device, or "
+                         "with --mesh DxM each on its own M ranks")
     ap.add_argument("--hosts", type=int, default=None,
-                    help="simulated hosts of --sharded (default: the "
-                         "device count)")
+                    help="simulated hosts of --sharded on one device "
+                         "(default: the device count)")
     ap.add_argument("--slots-per-host", type=int, default=1,
                     help="cache-pool slots per host shard (--sharded)")
     ap.add_argument("--gossip-delay", type=int, default=1,
@@ -654,13 +709,20 @@ def main(argv=None):
                     help="--sharded: the control-plane delta transport, "
                          "'sim' = in-process gossip (default) or "
                          "'collective' = fixed-size padded exchange "
-                         "gathered on the device; --mesh: the ranks' "
-                         "collectives, gloo (default; ranks may share a "
-                         "card) or nccl (a card per rank)")
+                         "(gathered on the device, or all-gathered over "
+                         "the ranks of --mesh); --static --mesh: the "
+                         "ranks' collectives, gloo (default; ranks may "
+                         "share a card) or nccl (a card per rank)")
+    ap.add_argument("--backend", choices=collectives.TRANSPORTS,
+                    default=None,
+                    help="--sharded --mesh: the ranks' collectives, gloo "
+                         "(default; ranks may share a card) or nccl (a "
+                         "card per rank)")
     ap.add_argument("--mesh", default="1x1",
-                    help="--static: DxM, D data shards times M model "
-                         "shards, one rank each, started here (default "
-                         "1x1: one process)")
+                    help="--static or --sharded: DxM, D data shards "
+                         "(--sharded: hosts) times M model shards, one "
+                         "rank each, started here (default 1x1: one "
+                         "process)")
     ap.add_argument("--ckpt", default=None,
                     help="--static: serve the params of the newest "
                          "checkpoint under this directory (launch/"
@@ -685,15 +747,21 @@ def main(argv=None):
                   deadline_slack=args.deadline_slack,
                   max_queue_depth=args.max_queue_depth, device=args.device)
     meshed = train_lib.parse_mesh(args.mesh) != (1, 1)
-    if meshed and not args.static:
-        ap.error("--mesh serves the whole-batch path: add --static")
+    if meshed and not (args.static or args.sharded):
+        ap.error("--mesh serves the whole-batch path (--static) or the "
+                 "sharded pool (--sharded)")
     if (args.ckpt or args.moe_impl) and not args.static:
         ap.error("--ckpt and --moe-impl serve the whole-batch path: add "
                  "--static")
-    if args.transport in collectives.TRANSPORTS and not meshed:
-        ap.error(f"--transport {args.transport} joins the ranks of --mesh")
-    if args.transport in ("sim", "collective") and meshed:
-        ap.error("--mesh exchanges over gloo or nccl")
+    if args.transport in collectives.TRANSPORTS and (
+            args.sharded or not meshed):
+        ap.error(f"--transport {args.transport} joins the ranks of "
+                 "--static --mesh (--sharded --mesh: --backend)")
+    if args.transport in ("sim", "collective") and meshed \
+            and not args.sharded:
+        ap.error("--static --mesh exchanges over gloo or nccl")
+    if args.backend is not None and not (args.sharded and meshed):
+        ap.error("--backend joins the ranks of --sharded --mesh")
     if FailPlan.parse(args.failpoints).kill_steps() and not args.sharded:
         raise SystemExit("kill_host failpoints need --sharded: only the "
                          "sharded pool has hosts to kill")
@@ -734,7 +802,8 @@ def main(argv=None):
                     failpoints=args.failpoints,
                     deadline_slack=args.deadline_slack,
                     max_queue_depth=args.max_queue_depth,
-                    hosts=args.hosts, device=args.device)
+                    hosts=args.hosts, device=args.device, mesh=args.mesh,
+                    backend=args.backend or "gloo")
         return
     run_continuous(args.arch, rate=1.0 if args.rate is None else args.rate,
                    prompt_len=args.prompt_len, gen=args.gen, topk=args.topk,

@@ -27,11 +27,13 @@ read by attention slice by slice: ``DistContext.cache_specs`` (set by
 On a mesh over a world of ranks (launch/mesh.py) each rank holds the
 local shard of each leaf (``local_shard``, ``shard_state_dict``,
 ``shard_module``); ``gather_state_dict`` / ``gather_tree`` put the full
-tensors back together through all-gathers.  On the port's one-device
-serving mesh a spec places no memory: it states which rows of a leaf each
-``data`` shard (simulated host) owns (``slot_pool_pspecs``), and
+tensors back together through all-gathers.  The serving pool's specs
+(``slot_pool_pspecs``) state which rows of a leaf each ``data`` shard
+(host) owns, and which kv heads, Mamba heads and channels each ``model``
+rank holds: over a world each rank holds its local shard of them; on the
+port's one-device serving mesh they place no memory, and
 ``launch/steps.make_sharded_insert`` / ``make_compact_pool`` write only
-those rows.  ZeRO-1 (``opt_state_pspecs``'s ``zero_dist``) shards each
+the owning shard's rows.  ZeRO-1 (``opt_state_pspecs``'s ``zero_dist``) shards each
 moment over the batch axes too, on a dim that its param's spec leaves
 whole (``zero_dim`` picks it); ``shard_tree`` / ``gather_tree`` carry
 such a moment like any other leaf, its batch axes one entry (a tuple on
@@ -315,21 +317,28 @@ def decode_dist(cfg: ModelConfig, caches: List[Dict[str, torch.Tensor]],
         dist, cache_specs=cache_pspecs(cfg, caches, dist, global_batch))
 
 
-def slot_pool_pspecs(pool: List[Dict], dist: DistContext,
-                     n_slots: int) -> List[Dict[str, PartitionSpec]]:
-    """The serving slot pool's specs, leaf by leaf.
+def slot_pool_pspecs(pool: List[Dict], dist: DistContext, n_slots: int,
+                     cfg: Optional[ModelConfig] = None
+                     ) -> List[Dict[str, PartitionSpec]]:
+    """The serving slot pool's specs, leaf by leaf: the reference's rule
+    (``src/repro/launch/sharding.py`` ``slot_pool_pspecs``) with the SLOT
+    axis first (the reference stacks layers ahead of it, ``(L, n_slots,
+    ...)``).
 
     The port's pool is ``transformer.init_lm_cache``'s list of per-layer
-    dicts with the SLOT axis first (the reference stacks layers ahead of
-    it, ``(L, n_slots, ...)``).  Every leaf (attention and cross k/v,
-    the Mamba ``ssm`` and ``conv_*``) shards its slot axis over the data
-    axes: data shard h owns the contiguous rows ``[h * n_slots //
-    n_batch, (h + 1) * ...)``, so a cache insert touches exactly one
-    shard.  No other axis shards: the sequence axis never does (an
-    insert writes a slot-local ``[0, S_p)`` block), and the reference's
-    split of kv heads, ``ssm`` heads and ``conv_x`` channels over
-    ``model`` waits for the pool's shards on their own cards (ROADMAP
-    A13b).
+    dicts.  Every leaf shards its slot axis over the data axes: data
+    shard h owns the contiguous rows ``[h * n_slots // n_batch, (h + 1) *
+    ...)``, so a cache insert touches exactly one shard.  The sequence
+    axis never shards (an insert writes a slot-local ``[0, S_p)`` block).
+    Under a ``model`` axis of more than one (``cfg`` then required):
+
+      * attention and cross ``k`` / ``v`` (n_slots, T, KV, hd): kv heads
+        over ``model`` when ``num_kv_heads`` divides it;
+      * ``ssm`` (n_slots, H, N, P): heads over ``model`` when the Mamba
+        heads ``expand * d_model // head_dim`` divide it;
+      * ``conv_x`` (n_slots, d_conv - 1, d_in): channels over ``model``
+        under the same condition;
+      * every other leaf (``conv_b`` / ``conv_c``): the slot axis only.
 
     ``n_slots`` must divide across the data axes: the per-host admission
     shards (serving/scheduler.ShardedScheduler) own equal contiguous
@@ -341,8 +350,29 @@ def slot_pool_pspecs(pool: List[Dict], dist: DistContext,
             f"(|data|={dist.n_batch}) — per-host admission shards own "
             "equal contiguous slot ranges")
     bx = dist.batch_axes if dist.n_batch > 1 else None
-    return [{name: P(bx, *([None] * (leaf.dim() - 1)))
-             for name, leaf in layer.items()}
+    kv_ax = m_ax = None
+    if dist.n_model > 1:
+        if cfg is None:
+            raise ValueError("a pool under a model axis splits by the "
+                             "config's heads: pass cfg")
+        if cfg.num_kv_heads % dist.n_model == 0:
+            kv_ax = dist.model_axis
+        if cfg.mamba is not None and (cfg.mamba.expand * cfg.d_model
+                                      // cfg.mamba.head_dim
+                                      ) % dist.n_model == 0:
+            m_ax = dist.model_axis
+
+    def spec_for(key: str, leaf) -> PartitionSpec:
+        s = _CACHE_PATHS.get(key, key)
+        if "attn" in s or "cross" in s:   # (n_slots, T, KV, hd)
+            return P(bx, None, kv_ax, None)
+        if "ssm" in s:                    # (n_slots, H, N, P)
+            return P(bx, m_ax, None, None)
+        if "conv_x" in s:                 # (n_slots, d_conv-1, d_in)
+            return P(bx, None, m_ax)
+        return P(bx, *([None] * (leaf.dim() - 1)))
+
+    return [{name: spec_for(name, leaf) for name, leaf in layer.items()}
             for layer in pool]
 
 

@@ -56,7 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -349,7 +349,11 @@ def make_slot_decode_step(cfg: ModelConfig, topk: int, device, dist=None):
     ``dist`` (``make_decode_step``'s): the rows are this rank's, the
     caches its shards, and a vocab sharded over ``model`` is gathered
     whole before the recovery, since Eq. 3 sums logp over all k hash
-    columns; the returned logits are whole.
+    columns; the returned logits are whole.  A sharded pool's rank
+    (serving/sharded_pool.py) passes its host's rows with their own
+    ``pos`` and ``active``, so the decode-top-k kernel's row-skipping
+    grid sees this rank's live rows; its pool's rows divide ``data``
+    (``sharding.slot_pool_pspecs`` refuses a pool whose rows do not).
     """
     spec = io_lib.vocab_spec(cfg)
     if spec is not None and (io_lib.resolved_table_dtype(cfg) is None
@@ -432,18 +436,26 @@ def insert_cache_slot(pool, caches_small, slot: int, seq_lo=None):
     return pool
 
 
+def local_rows(dist, slots_per_shard: int) -> Tuple[int, int]:
+    """(the first slot of a sharded pool's rows, how many): every slot on
+    one device; over a world of ranks the rank's own data shard's."""
+    if dist.mesh.distributed:
+        return dist.batch_index * slots_per_shard, slots_per_shard
+    return 0, dist.n_batch * slots_per_shard
+
+
 def _check_pool_layout(pool, pool_specs, dist, slots_per_shard: int):
-    """The pool's leaves must be the layout's, slot axis first and
-    ``dist.n_batch * slots_per_shard`` rows long."""
-    n_slots = dist.n_batch * slots_per_shard
+    """The pool's leaves must be the layout's, slot axis first and as
+    many rows long as ``local_rows`` says."""
+    rows = local_rows(dist, slots_per_shard)[1]
     if [set(layer) for layer in pool] != [set(s) for s in pool_specs]:
         raise ValueError("pool leaves do not match the pool layout")
     for layer, specs in zip(pool, pool_specs):
         for name, buf in layer.items():
-            if buf.shape[0] != n_slots or len(specs[name]) != buf.dim():
+            if buf.shape[0] != rows or len(specs[name]) != buf.dim():
                 raise ValueError(
                     f"pool leaf {name} {tuple(buf.shape)}: want slot axis "
-                    f"0 of {n_slots} rows and spec {specs[name]}")
+                    f"0 of {rows} rows and spec {specs[name]}")
 
 
 def _shard_rows(pool, lo: int, hi: int):
@@ -461,12 +473,17 @@ def make_sharded_insert(pool_specs, dist, slots_per_shard: int):
     B = 1 prefill's caches from the prefill worker's device to the pool's
     device (the device-to-device transfer of the reference's replicated
     broadcast), asserts that ``slot`` lies in the range of ``host``, the
-    shard executing the admission, and writes them through ``insert_cache_slot``'s role rules into views
-    of that shard's rows only: every other row of the pool is untouched
-    and no leaf is reallocated.  On one card every shard lives on the
-    same device; shards on several cards wait for ROADMAP A13b.  Returns
-    the pool."""
+    shard executing the admission, and writes them through
+    ``insert_cache_slot``'s role rules into views of that shard's rows
+    only: every other row of the pool is untouched and no leaf is
+    reallocated.  On one device the pool holds every shard's rows; over
+    a world of ranks (``dist.mesh.distributed``) it holds this rank's
+    shard's ``sps`` rows and its ``model`` part of each leaf, ``host``
+    must be this rank's data shard, and the caches are the owner's
+    prefill's, already split over ``model`` as the pool is.  Returns the
+    pool."""
     n_slots = dist.n_batch * slots_per_shard
+    first, _ = local_rows(dist, slots_per_shard)
 
     @torch.inference_mode()
     def insert(pool, caches_small, slot: int, host: int):
@@ -478,10 +495,15 @@ def make_sharded_insert(pool_specs, dist, slots_per_shard: int):
         assert 0 <= slot < n_slots and slot // slots_per_shard == host, (
             f"slot {slot} outside shard {host}'s rows [{lo}, "
             f"{lo + slots_per_shard})")
+        if dist.mesh.distributed:
+            assert host == dist.batch_index, (
+                f"slot {slot} of shard {host} is outside this rank's "
+                f"shard {dist.batch_index}")
         device = pool[0][next(iter(pool[0]))].device
         small = [{name: s.to(device) for name, s in layer.items()}
                  for layer in caches_small]
-        insert_cache_slot(_shard_rows(pool, lo, lo + slots_per_shard),
+        insert_cache_slot(_shard_rows(pool, lo - first,
+                                      lo - first + slots_per_shard),
                           small, slot - lo)
         return pool
 
@@ -496,8 +518,11 @@ def make_compact_pool(pool_specs, dist, slots_per_shard: int):
     in place, within each data shard's rows: a shard whose window of
     ``perm`` is the identity is not touched.  ``control.plan_compaction``
     promises that no entry crosses a shard boundary; one that does
-    raises, before any row moves.  Returns the pool."""
+    raises, before any row moves.  Over a world of ranks the pool is this
+    rank's shard, and only its window of ``perm`` applies.  Returns the
+    pool."""
     n_slots = dist.n_batch * slots_per_shard
+    first, rows = local_rows(dist, slots_per_shard)
 
     @torch.inference_mode()
     def compact(pool, perm):
@@ -511,13 +536,13 @@ def make_compact_pool(pool_specs, dist, slots_per_shard: int):
                     f"compaction moves slot {old} to {new}, across the "
                     f"boundary of shards of {slots_per_shard} slots")
         device = pool[0][next(iter(pool[0]))].device
-        for host in range(dist.n_batch):
-            lo = host * slots_per_shard
+        for lo in range(first, first + rows, slots_per_shard):
             local = [p - lo for p in perm[lo:lo + slots_per_shard]]
             if local == list(range(slots_per_shard)):
                 continue
             idx = torch.tensor(local, dtype=torch.long, device=device)
-            for layer in _shard_rows(pool, lo, lo + slots_per_shard):
+            for layer in _shard_rows(pool, lo - first,
+                                     lo - first + slots_per_shard):
                 for buf in layer.values():
                     buf.copy_(buf.index_select(0, idx))
         return pool

@@ -365,6 +365,24 @@ def prefill_job(mesh, cfg, params, tokens):
     return {"last_logits": last.float().cpu().numpy(), "aux": float(aux)}
 
 
+def mesh_for(mesh, shape):
+    """A mesh of ``shape`` over ``mesh``'s world: ``mesh`` itself when the
+    shapes agree, else ``mesh_lib.world_mesh`` on its device and
+    transport (every rank must call it: a group's creation is
+    collective)."""
+    if tuple(shape) == mesh.sizes:
+        return mesh
+    return mesh_lib.world_mesh(shape, mesh.axis_names, mesh.device,
+                               mesh.transport)
+
+
+def run_jobs(mesh, cases) -> list:
+    """Several jobs in one world: ``fn(mesh_for(mesh, shape), *args)`` for
+    each case (mesh shape, fn, args): the list of this rank's results, so
+    that one ``spawn`` pays the ranks' start once."""
+    return [fn(mesh_for(mesh, shape), *args) for shape, fn, args in cases]
+
+
 # --------------------------------------------------------------------------
 # Starting the ranks
 # --------------------------------------------------------------------------

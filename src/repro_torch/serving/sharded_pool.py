@@ -1,29 +1,50 @@
 """Data-axis-sharded serving: the data plane of the control/data-plane
-split: a slot pool sharded over simulated hosts, transported admission, a
+split: a slot pool sharded over hosts, transported admission, a
 disaggregated prefill pool and slot compaction.
 
   * **Sharded slot pool.** The pool is ``transformer.init_lm_cache``'s
     per-layer cache dicts with the slot axis first; host h owns rows
     ``[h * sph, (h + 1) * sph)`` (``launch/sharding.slot_pool_pspecs``).
-    One decode step runs over all ``n_slots`` rows, as the reference's
-    GSPMD step does; inserts (``steps.make_sharded_insert``) and
-    compactions (``steps.make_compact_pool``) touch only the owning
-    host's rows, in place.  Every host shard lives on the mesh's one
-    device (launch/mesh.py): the reference simulates N hosts as N CPU
-    devices of one process, and the port keeps that single-process,
-    replicated-state-machine design.  Shards on several cards wait for
-    ROADMAP A13b.
+    Inserts (``steps.make_sharded_insert``) and compactions
+    (``steps.make_compact_pool``) touch only the owning host's rows, in
+    place.  The mesh (``launch/mesh.make_serving_mesh``) is of one of two
+    kinds:
+
+      - on ONE device, every host a simulated data shard of one pool (the
+        reference simulates N hosts as N CPU devices of one process): one
+        decode step runs over all ``n_slots`` rows, as the reference's
+        GSPMD step does;
+      - over a WORLD of ``n_hosts * model_parallel`` rank processes, one
+        rank per (data, model) coordinate: a rank's pool holds only its
+        host's ``sph`` rows and, under a ``model`` axis, its share of the
+        kv heads, Mamba heads and ``conv_x`` channels.  Every rank runs
+        the whole replicated control plane over the whole workload and
+        executes only its own host's part: the prefill of its host's
+        admissions, on its data shard's model group alone
+        (``mesh.model_mesh``: no collective over ``data``, so an MoE
+        router's batch collectives are not entered), the insert into its
+        rows, its window of a compaction, and the decode of its rows
+        (``steps.make_slot_decode_step`` under the mesh: tensor parallel
+        over ``model``, an MoE routing the whole pool over ``data``).
+        Each decode step's top-1 ids and each admission round's prefill
+        outcomes are all-gathered over ``data``, so every rank's control
+        plane advances on the same integers.  A killed host's ranks stay
+        in the world: their rows go inactive and they keep joining every
+        collective.  The params are each rank's shards
+        (``train.parallel_state``).
+
   * **Transported admission.** Scheduling is the replicated state
     machine of serving/control.py driven by
     ``scheduler.ShardedScheduler``: arrival and release deltas travel a
     ``Transport`` (``"sim"``, the in-process gossip; ``"collective"``,
-    the fixed-size padded exchange whose gather runs on the device,
-    serving/collective.py), every host computes the same admissions, and
-    each executes only those in its own slot range.
+    the fixed-size padded exchange, serving/collective.py: gathered on
+    the device on one device, all-gathered over ``data`` across ranks),
+    every host computes the same admissions, and each executes only
+    those in its own slot range.
   * **Disaggregated prefill pool.** Prefill runs on
     ``engine.PrefillPool`` (FIFO over ``prefill_workers`` workers on the
-    mesh's device); the B = 1 caches are inserted into the pool by the
-    sharded insert.
+    mesh's device; across ranks over this host's admissions only); the
+    B = 1 caches are inserted into the pool by the sharded insert.
   * **Slot compaction.** With ``compact_threshold`` set, the control
     plane densifies fragmented host shards (``control.plan_compaction``)
     and this engine applies the remap to the cache pool and to the
@@ -36,12 +57,13 @@ disaggregated prefill pool and slot compaction.
     pre-built too).  The pool is allocated once; every leaf keeps its
     storage (``data_ptr()``) across runs, inserts, decodes, compactions
     and host kills, checked after each.  ``decode_steps_built`` and
-    ``storage_checks`` expose both.
+    ``storage_checks`` expose both, on each rank.
 
 Per-request tokens equal the single-host engine's and solo static
-serving's, across both transports and with compaction on or off, where
-every decode op is row-independent: prefill is B = 1 at exact prompt
-length everywhere, and a compaction merely permutes rows.
+serving's, across both transports, with compaction on or off and on
+either kind of mesh, where every decode op is row-independent: prefill
+is B = 1 at exact prompt length everywhere, and a compaction merely
+permutes rows.
 """
 from __future__ import annotations
 
@@ -52,8 +74,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import collectives
 from repro_torch.launch import sharding as sharding_lib
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import model_mesh
 from repro_torch.models import transformer as tf
 from repro_torch.serving import engine as engine_lib
 from repro_torch.serving.admission import AdmissionPolicy
@@ -92,19 +116,23 @@ class _PoolClient(ScheduleClient):
         # each host executes the admissions that land in its own shard
         executor = {r.rid: shard.host for shard in self.sched.hosts
                     for r in reqs if shard.owns(r.slot)}
-        firsts = []
-        for req, res in zip(reqs, self.e.prefill_pool.prefill_all(reqs)):
+        mine = [r for r in reqs if self.e.host is None
+                or executor[r.rid] == self.e.host]
+        firsts = {}
+        for req, res in zip(mine, self.e.prefill_pool.prefill_all(mine)):
             if res is None:
                 # attempt cap exhausted: no caches to insert; the loop
                 # REJECTs the slot, which stays inactive
-                firsts.append(None)
+                firsts[req.rid] = None
                 continue
             small, first = res
             self.caches = self.e._insert(self.caches, small, req.slot,
                                          executor[req.rid])
-            firsts.append(first)
+            firsts[req.rid] = first
         self.e._check_storage(self.caches)
-        return firsts
+        if self.e.host is not None:
+            firsts = self.e._owners_outcomes(reqs, executor, firsts)
+        return [firsts[r.rid] for r in reqs]
 
     def stopped(self, req: Request, tok: int) -> bool:
         return self.e._stopped(req, tok)
@@ -119,11 +147,17 @@ class _PoolClient(ScheduleClient):
         dev = e.mesh.device
         step = e._stage_decodes[self.stage]
         e.steps_used.add(id(step))
-        out = step(e.params, torch.from_numpy(self.tokens).to(dev),
-                   self.caches, torch.from_numpy(self.pos).to(dev),
-                   torch.from_numpy(self.active).to(dev))
+        # the pool's own rows: every row on one device, this host's
+        # across ranks (a killed host's rows decode inactive)
+        rows = slice(e.first_slot, e.first_slot + e.local_slots)
+        out = step(e.params, torch.from_numpy(self.tokens[rows]).to(dev),
+                   self.caches, torch.from_numpy(self.pos[rows]).to(dev),
+                   torch.from_numpy(self.active[rows]).to(dev))
         self.caches = out["caches"]
-        ids = out["topk_ids"][:, 0].cpu().numpy()
+        ids = out["topk_ids"][:, 0]
+        if e.host is not None:
+            ids = torch.cat(collectives.all_gather(ids, e.dist, "batch"))
+        ids = ids.cpu().numpy()
         e._check_storage(self.caches)
         return {gslot: int(ids[gslot]) for gslot in active_map}
 
@@ -170,14 +204,33 @@ class _PoolClient(ScheduleClient):
         self.e._check_storage(self.caches)
 
 
+class _PoolPrefill(LMSlotProgram):
+    """``LMSlotProgram``'s prefill half, the pool's prefill program: a
+    B = 1 prefill at the exact prompt length and its first token.  It has
+    no decode half: the pool decodes.  Across ranks ``dist`` is over
+    ``mesh.model_mesh`` (this data shard's model group, ``data`` 1): the
+    caches are this rank's ``model`` share and the first token comes from
+    the logits gathered whole."""
+
+    def __init__(self, cfg: ModelConfig, *, topk: int, device, dist):
+        self.cfg = cfg
+        self.topk = topk
+        self.device = torch.device(device)
+        self._prefill = steps_lib.make_prefill_step(cfg, dist)
+
+
 class ShardedEngine:
     """Continuous batching over a data-axis-sharded slot pool.
 
     ``mesh`` (launch/mesh.make_serving_mesh) carries a ``data`` axis: one
-    simulated host per data shard, ``slots_per_host`` slots each (the
-    pool holds n_hosts * slots_per_host slots on ``mesh.device``).
-    ``run`` consumes per-host workloads (``loadgen.sharded_workload``)
-    through the transported admission protocol.  Eligibility is
+    host per data shard, ``slots_per_host`` slots each.  On one device
+    the pool holds all n_hosts * slots_per_host slots on ``mesh.device``;
+    over a world of ranks (the module's docstring) every rank constructs
+    the engine, its pool holds its host's rows and ``model`` share, and
+    ``params`` are its shards (``train.parallel_state``).  ``run``
+    consumes per-host workloads (``loadgen.sharded_workload``) through
+    the transported admission protocol; across ranks every rank passes
+    the whole workload and returns every request.  Eligibility is
     ``Engine.supports``; ``params`` must lie on the mesh's device.
 
     ``transport`` / ``compact_threshold`` / ``failpoints`` set the run
@@ -217,6 +270,11 @@ class ShardedEngine:
         self.n_hosts = int(self.dist.n_batch)
         self.slots_per_host = slots_per_host
         self.n_slots = self.n_hosts * slots_per_host
+        # this rank's host across ranks (None on one device), and the
+        # global slots of the pool's rows
+        self.host = self.dist.batch_index if mesh.distributed else None
+        self.first_slot, self.local_slots = steps_lib.local_rows(
+            self.dist, slots_per_host)
         self.max_len = max_len
         self.topk = topk
         self.eos_id = eos_id
@@ -229,20 +287,29 @@ class ShardedEngine:
 
         # disaggregated prefill pool: B = 1 prefill at the exact prompt
         # length, FIFO over the workers; they share the params, which
-        # already lie on the mesh's device
-        self._prefill_program = LMSlotProgram(
-            cfg, topk=topk, device=device, n_slots=self.n_slots,
-            max_len=max_len, eos_id=eos_id)
+        # already lie on the mesh's device (across ranks: this data
+        # shard's model group prefills its own host's admissions)
+        self._prefill_program = _PoolPrefill(
+            cfg, topk=topk, device=device,
+            dist=(None if self.host is None
+                  else sharding_lib.DistContext(model_mesh(mesh))))
         self.prefill_pool = PrefillPool(
             params, program=self._prefill_program,
             n_workers=prefill_workers)
 
         # the sharded pool: allocated once, slot axis split over `data`
-        self._pool = tf.init_lm_cache(cfg, self.n_slots, max_len,
-                                      dtype=getattr(torch, cfg.dtype),
-                                      device=device)
+        # (and, across ranks, kv heads / Mamba heads over `model`)
+        whole = tf.init_lm_cache(cfg, self.n_slots, max_len,
+                                 dtype=getattr(torch, cfg.dtype),
+                                 device="meta")
         self._pool_specs = sharding_lib.slot_pool_pspecs(
-            self._pool, self.dist, self.n_slots)
+            whole, self.dist, self.n_slots, cfg)
+        if self.host is not None:
+            whole = [{k: sharding_lib.local_shard(v, specs[k], mesh)
+                      for k, v in layer.items()}
+                     for layer, specs in zip(whole, self._pool_specs)]
+        self._pool = [{k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                       for k, v in layer.items()} for layer in whole]
         self.pool_storage_at_build = self.pool_storage()
         self.storage_checks = 0
 
@@ -262,7 +329,28 @@ class ShardedEngine:
 
     def _build_decode(self, k: int):
         self.decode_steps_built += 1
-        return steps_lib.make_slot_decode_step(self.cfg, k, self.mesh.device)
+        return steps_lib.make_slot_decode_step(
+            self.cfg, k, self.mesh.device,
+            None if self.host is None else self.dist)
+
+    def _owners_outcomes(self, reqs: List[Request], executor: Dict[int, int],
+                         mine: Dict[int, Optional[int]]
+                         ) -> Dict[int, Optional[int]]:
+        """Every request's prefill outcome (its first token, or None for
+        a reject), each from its owner: one all-gather over ``data`` of
+        this rank's outcomes (-1 a reject, -2 not its host's)."""
+        codes = torch.tensor(
+            [(-1 if mine[r.rid] is None else mine[r.rid])
+             if r.rid in mine else -2 for r in reqs],
+            dtype=torch.int64, device=self.mesh.device)
+        parts = torch.stack(collectives.all_gather(codes, self.dist,
+                                                   "batch")).cpu().numpy()
+        out = {}
+        for i, r in enumerate(reqs):
+            code = int(parts[executor[r.rid], i])
+            assert code != -2, f"rid {r.rid}: its owner sent no outcome"
+            out[r.rid] = None if code == -1 else code
+        return out
 
     def pool_storage(self) -> Tuple[int, ...]:
         """The ``data_ptr()`` of every pool leaf, layer by layer."""

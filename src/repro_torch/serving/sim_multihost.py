@@ -38,6 +38,18 @@ step and pool storage survived the kill.
 sheds, the degrade ladder both ways, twin-equal served tokens, and log
 equality with the model-free sim (SHED / DEGRADE included).
 
+Over a world of ranks (``mesh``, a (data, model) mesh over
+``torch.distributed``: ``train.spawn``'s, or ``make_serving_mesh`` given
+the world's transport; ``rank_drills`` is one rank's entry) the
+three drills serve the same workloads with each host's slot rows on its
+own ranks (serving/sharded_pool.py): the matrix then takes the chaos
+layout, ``mesh``'s data axis (4) hosts x 2 slots, so that one world
+serves every drill.  Each rank returns its own logs, stats, tokens and
+invariants, and the verifiers check each rank; a rank's matrix has no
+single-host Engine or solo runs (its model is a shard), so its four
+runs' tokens are held to each other, and the caller holds them to a
+whole model's.
+
 Usage:  python -m repro_torch.serving.sim_multihost --device cpu
         [--out report.json] [--full] [--arch ARCH]
 """
@@ -46,8 +58,10 @@ from __future__ import annotations
 import argparse
 import json
 
+import torch
+
 from repro_torch.kernels import common as kernels_common
-from repro_torch.launch import serve
+from repro_torch.launch import collectives, serve, sharding
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.serving.admission import AdmissionPolicy, slo_attainment
 from repro_torch.serving.control import replay_slot_log
@@ -159,7 +173,23 @@ def _steps(stats) -> int:
     return stats.prefills + stats.decode_steps
 
 
-def run(seed: int = 0, cfg=None, model=None, **build_kw) -> dict:
+def _prefill_stats(engine: ShardedEngine) -> dict:
+    """The prefill pool's dispatch counts (``jobs``, ``per_worker``):
+    across ranks summed over ``data`` (each host's ranks prefill its own
+    admissions), so that they count every host's."""
+    st = dict(engine.prefill_pool.stats)
+    if engine.host is None:
+        return st
+    mine = torch.tensor([st["jobs"], *st["per_worker"]], dtype=torch.int64,
+                        device=engine.mesh.device)
+    total = collectives.all_reduce_sum(mine, engine.dist, "batch").tolist()
+    return {**st, "jobs": total[0], "per_worker": total[1:]}
+
+
+def run(seed: int = 0, cfg=None, model=None, mesh=None, **build_kw) -> dict:
+    """The matrix (the module's docstring) on ``N_HOSTS`` simulated hosts
+    of one device, or over ``mesh``'s ranks with its data axis's hosts
+    and no single-host or solo runs (``single`` and ``solo`` None)."""
     if model is None:
         cfg, model = build(**build_kw)
     # two requests per host per stream keeps the sim fast while still
@@ -167,7 +197,8 @@ def run(seed: int = 0, cfg=None, model=None, **build_kw) -> dict:
     # fragmentation for the compaction runs to actually compact
     spec = LoadSpec(n_requests=2, vocab=cfg.vocab, rate=1.0,
                     prompt_lens=(6, 10), gen_lens=(3, 6, 12), seed=seed)
-    mesh = make_serving_mesh(n_hosts=N_HOSTS, device=model.embed.device)
+    mesh = _pool_mesh(mesh, model, N_HOSTS)
+    n_hosts = mesh.shape["data"]
     engine = ShardedEngine(cfg, model, mesh=mesh,
                            slots_per_host=SLOTS_PER_HOST, max_len=MAX_LEN,
                            topk=TOPK, gossip_delay=GOSSIP_DELAY,
@@ -177,7 +208,7 @@ def run(seed: int = 0, cfg=None, model=None, **build_kw) -> dict:
     for tname in ("sim", "collective"):
         for cname, thresh in (("plain", None),
                               ("compact", COMPACT_THRESHOLD)):
-            res, stats = engine.run(sharded_workload(spec, N_HOSTS),
+            res, stats = engine.run(sharded_workload(spec, n_hosts),
                                     transport=tname,
                                     compact_threshold=thresh)
             model_steps += _steps(stats)
@@ -192,29 +223,36 @@ def run(seed: int = 0, cfg=None, model=None, **build_kw) -> dict:
     sims = {}
     for cname, thresh in (("plain", None), ("compact", COMPACT_THRESHOLD)):
         sim_sched, sim_stats = simulate_sharded_schedule(
-            sharded_workload(spec, N_HOSTS), SLOTS_PER_HOST, GOSSIP_DELAY,
+            sharded_workload(spec, n_hosts), SLOTS_PER_HOST, GOSSIP_DELAY,
             compact_threshold=thresh)
         sims[cname] = {"stats": sim_stats.as_row(),
                        "log": _log_of(sim_sched)}
 
-    single = Engine(cfg, model, n_slots=N_HOSTS * SLOTS_PER_HOST,
-                    max_len=MAX_LEN, topk=TOPK)
-    single_res, single_stats = single.run(
-        merge_workloads(sharded_workload(spec, N_HOSTS)))
-    model_steps += _steps(single_stats)
+    single = solo_tokens = None
+    if engine.host is None:
+        one = Engine(cfg, model, n_slots=n_hosts * SLOTS_PER_HOST,
+                     max_len=MAX_LEN, topk=TOPK)
+        single_res, single_stats = one.run(
+            merge_workloads(sharded_workload(spec, n_hosts)))
+        model_steps += _steps(single_stats)
+        single = {"tokens": {r.rid: r.tokens for r in single_res.values()},
+                  "stats": single_stats.as_row(),
+                  "wall_s": single_stats.wall_s}
 
-    solo = Engine(cfg, model, n_slots=1, max_len=MAX_LEN, topk=TOPK)
-    solo_tokens = {}
-    for reqs in sharded_workload(spec, N_HOSTS):
-        for req in reqs:
-            req.arrival_step = 0
-            r, st = solo.run_static([req])
-            model_steps += _steps(st)
-            solo_tokens[req.rid] = r[req.rid].tokens
+        solo = Engine(cfg, model, n_slots=1, max_len=MAX_LEN, topk=TOPK)
+        solo_tokens = {}
+        for reqs in sharded_workload(spec, n_hosts):
+            for req in reqs:
+                req.arrival_step = 0
+                r, st = solo.run_static([req])
+                model_steps += _steps(st)
+                solo_tokens[req.rid] = r[req.rid].tokens
 
     return {
         "device": str(mesh.device),
-        "n_hosts": N_HOSTS,
+        "rank": mesh.rank,
+        "mesh": list(mesh.sizes),
+        "n_hosts": n_hosts,
         "slots_per_host": SLOTS_PER_HOST,
         "gossip_delay": GOSSIP_DELAY,
         "compact_threshold": COMPACT_THRESHOLD,
@@ -222,15 +260,13 @@ def run(seed: int = 0, cfg=None, model=None, **build_kw) -> dict:
         # across the ENTIRE matrix: 4 engine runs through both transports,
         # with and without mid-flight cache remaps
         "invariants": invariants(engine),
-        "prefill_stats": engine.prefill_pool.stats,
+        "pool_shapes": pool_shapes(engine),
+        "prefill_stats": _prefill_stats(engine),
         "collective_rounds": engine._gather.rounds,
         "model_steps": model_steps,
         "runs": runs,
         "sims": sims,
-        "single": {"tokens": {r.rid: r.tokens
-                              for r in single_res.values()},
-                   "stats": single_stats.as_row(),
-                   "wall_s": single_stats.wall_s},
+        "single": single,
         "solo": solo_tokens,
     }
 
@@ -274,9 +310,14 @@ def verify_run(report: dict) -> None:
     prefill workers used; sound, linearizable slot logs; the step and
     storage invariants."""
     solo = report["solo"]
+    if solo is None:
+        # a rank's matrix: its runs' tokens are held to each other here
+        # and to a whole model's by the caller
+        solo = report["runs"][RUNS[0]]["tokens"]
+    else:
+        single = report["single"]["tokens"]
+        assert single == solo, "single-host Engine != solo static serving"
     assert solo, "solo run produced no results"
-    single = report["single"]["tokens"]
-    assert single == solo, "single-host Engine != solo static serving"
     for name in RUNS:
         r = report["runs"][name]
         assert r["done"] and all(r["done"].values()), f"{name}: not done"
@@ -310,6 +351,24 @@ def verify_run(report: dict) -> None:
     assert all(c > 0 for c in st["per_worker"]), "a prefill worker idled"
     assert report["collective_rounds"] > 0
     _check_invariants(report["invariants"], "matrix")
+
+
+def _pool_mesh(mesh, model, n_hosts: int):
+    """A drill's mesh: ``mesh`` (over ranks, its data axis the hosts) or
+    ``n_hosts`` simulated hosts on the model's device."""
+    if mesh is not None:
+        return mesh
+    return make_serving_mesh(n_hosts=n_hosts, device=model.embed.device)
+
+
+def _drill_mesh(mesh, model):
+    """The chaos and overload drills' mesh (``_pool_mesh``), of
+    ``CHAOS_N_HOSTS`` hosts."""
+    mesh = _pool_mesh(mesh, model, CHAOS_N_HOSTS)
+    if mesh.shape["data"] != CHAOS_N_HOSTS:
+        raise ValueError(f"the drills kill 1 of {CHAOS_N_HOSTS} hosts: "
+                         f"mesh {mesh.sizes} has {mesh.shape['data']}")
+    return mesh
 
 
 def _verify_chaos(chaos: dict, arrival_key: dict) -> None:
@@ -370,7 +429,7 @@ def _verify_chaos(chaos: dict, arrival_key: dict) -> None:
 
 
 def run_chaos(seed: int = 0, failpoints: str | None = None, cfg=None,
-              model=None, **build_kw) -> dict:
+              model=None, mesh=None, **build_kw) -> dict:
     spec_str = CHAOS_FAILPOINTS if failpoints is None else failpoints
     plan = FailPlan.parse(spec_str)
     if model is None:
@@ -385,8 +444,7 @@ def run_chaos(seed: int = 0, failpoints: str | None = None, cfg=None,
     arrival_key = {r.rid: (r.arrival_step, r.home, r.rid)
                    for reqs in wl() for r in reqs}
 
-    mesh = make_serving_mesh(n_hosts=CHAOS_N_HOSTS,
-                             device=model.embed.device)
+    mesh = _drill_mesh(mesh, model)
     engine = ShardedEngine(cfg, model, mesh=mesh,
                            slots_per_host=SLOTS_PER_HOST, max_len=MAX_LEN,
                            topk=TOPK, gossip_delay=GOSSIP_DELAY,
@@ -513,7 +571,7 @@ def _verify_overload(ov: dict) -> None:
 
 
 def run_overload(seed: int = 0, failpoints: str | None = None, cfg=None,
-                 model=None, **build_kw) -> dict:
+                 model=None, mesh=None, **build_kw) -> dict:
     """The overload chaos drill: the seeded per-host workload (ramped,
     deadline-tagged — loadgen.overload_workload) served on a 4-host mesh
     under an injected arrival surge + decode slowdown, with the
@@ -532,8 +590,7 @@ def run_overload(seed: int = 0, failpoints: str | None = None, cfg=None,
             surge_factor=OVERLOAD_SURGE_FACTOR,
             deadline_slack=OVERLOAD_DEADLINE_SLACK)
 
-    mesh = make_serving_mesh(n_hosts=CHAOS_N_HOSTS,
-                             device=model.embed.device)
+    mesh = _drill_mesh(mesh, model)
     engine = ShardedEngine(cfg, model, mesh=mesh,
                            slots_per_host=SLOTS_PER_HOST, max_len=MAX_LEN,
                            topk=TOPK, gossip_delay=GOSSIP_DELAY,
@@ -605,6 +662,73 @@ def run_overload(seed: int = 0, failpoints: str | None = None, cfg=None,
         _verify_overload(overload)
         overload["verified"] = True
     return overload
+
+
+def pool_shapes(engine: ShardedEngine) -> list:
+    """Every pool leaf's shape, layer by layer (a rank's: its rows and
+    its ``model`` share)."""
+    return [{k: list(v.shape) for k, v in layer.items()}
+            for layer in engine._pool]
+
+
+def run_compact(seed: int = 0, cfg=None, model=None, mesh=None,
+                n_hosts: int | None = None, **build_kw) -> dict:
+    """One compacting collective run of the matrix's workload (on
+    ``mesh``'s data-axis hosts, or ``n_hosts`` simulated ones, default
+    ``N_HOSTS``), held to the model-free sim's replay (log and stats
+    equal) and to the step and storage invariants.  Returns its tokens,
+    stats, log, invariants and the pool's leaf shapes."""
+    if model is None:
+        cfg, model = build(**build_kw)
+    mesh = _pool_mesh(mesh, model, n_hosts or N_HOSTS)
+    n_hosts = mesh.shape["data"]
+    spec = LoadSpec(n_requests=2, vocab=cfg.vocab, rate=1.0,
+                    prompt_lens=(6, 10), gen_lens=(3, 6, 12), seed=seed)
+    engine = ShardedEngine(cfg, model, mesh=mesh,
+                           slots_per_host=SLOTS_PER_HOST, max_len=MAX_LEN,
+                           topk=TOPK, gossip_delay=GOSSIP_DELAY,
+                           transport="collective",
+                           compact_threshold=COMPACT_THRESHOLD,
+                           prefill_workers=PREFILL_WORKERS)
+    res, stats = engine.run(sharded_workload(spec, n_hosts))
+    sim_sched, sim_stats = simulate_sharded_schedule(
+        sharded_workload(spec, n_hosts), SLOTS_PER_HOST, GOSSIP_DELAY,
+        compact_threshold=COMPACT_THRESHOLD)
+    out = {"tokens": {r.rid: r.tokens for r in res.values()},
+           "done": {rid: r.done for rid, r in res.items()},
+           "stats": stats.as_row(), "wall_s": stats.wall_s,
+           "log": _log_of(engine._sched), "invariants": invariants(engine),
+           "pool_shapes": pool_shapes(engine),
+           "model_steps": _steps(stats)}
+    assert all(out["done"].values()), "compact run: a request not done"
+    assert stats.compactions > 0, "compact run: never compacted"
+    assert out["log"] == _log_of(sim_sched), "compact run: log != sim"
+    assert out["stats"] == sim_stats.as_row(), "compact run: stats != sim"
+    _check_invariants(out["invariants"], "compact run")
+    return out
+
+
+DRILLS = {"run": run, "chaos": run_chaos, "overload": run_overload,
+          "compact": run_compact}
+
+
+def rank_drills(mesh, cfg, params, drills=("run", "chaos", "overload"),
+                seed: int = 0) -> dict:
+    """One rank's drills over ``mesh`` (a world mesh whose data axis is
+    the hosts): rank 0's full ``params`` (name -> tensor or array, read
+    on rank 0 only) broadcast and sharded (``serve.rank_model``), then
+    each of ``drills`` (``DRILLS``' names) run and verified on this rank
+    (``verify_run`` for "run"; the others verify themselves).  Returns
+    {drill: its report}."""
+    model = serve.rank_model(cfg, sharding.DistContext(mesh), params, seed)
+    out = {}
+    for name in drills:
+        out[name] = DRILLS[name](seed, cfg=cfg, model=model, mesh=mesh)
+        if name == "run":
+            verify_run(out[name])
+        elif name != "compact":
+            assert out[name].get("verified") is True, name
+    return out
 
 
 def main(argv=None):

@@ -104,9 +104,10 @@ def _check(cases, world):
     left = _deadline()
     wants = [_reference(jcfg, jparams, prompts)
              for _, jcfg, jparams, _, _, prompts in cases]
-    got = t_train.spawn(t_serve.decode_jobs, (1, world), "gloo", "cpu", (
-        [(shape, tcfg, {n: t.numpy() for n, t in params.items()}, prompts,
-          GEN, TOPK, torch.float32)
+    got = t_train.spawn(t_train.run_jobs, (1, world), "gloo", "cpu", (
+        [(shape, t_serve.decode_job,
+          (tcfg, {n: t.numpy() for n, t in params.items()}, prompts, GEN,
+           TOPK, torch.float32))
          for shape, _, _, tcfg, params, prompts in cases],),
         timeout=left())[0]
     for (shape, jcfg, *_), (ids, chosen, steps), g in zip(cases, wants,

@@ -90,10 +90,14 @@ def test_dense_step_on_2x2_and_1x4_matches_the_single_device_reference():
         want.append(float(m["loss"]))
 
     sd_np = {n: t.numpy() for n, t in sd.items()}
-    for shape in ((2, 2), (1, 4)):
-        outs = t_train.spawn(t_train.train_job, shape, "gloo", "cpu", (
-            tcfg, TrainConfig(**TC), sd_np, batches, shape == (2, 2)),
-            timeout=left())
+    shapes = ((2, 2), (1, 4))
+    # both meshes in one world of four ranks (one start)
+    per_rank = t_train.spawn(t_train.run_jobs, (2, 2), "gloo", "cpu", ([
+        (shape, t_train.train_job, (tcfg, TrainConfig(**TC), sd_np, batches,
+                                    shape == (2, 2))) for shape in shapes],),
+        timeout=left())
+    for i, shape in enumerate(shapes):
+        outs = [r[i] for r in per_rank]
         for out in outs:
             np.testing.assert_allclose(out["losses"], want, rtol=1e-5,
                                        err_msg=str(shape))
